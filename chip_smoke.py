@@ -320,7 +320,6 @@ def full_forward(dev):
     cfg = StreamFlowConfig(T=T, iters=ITERS, mixed_precision=True)
     model = create_model("streamflow", cfg=cfg)
     init_weights(model, SEED)
-    model = model.to(dev)
     imgs = make_clip(dev)
     hp, wp = imgs.shape[2], imgs.shape[3]
 
@@ -416,7 +415,7 @@ def accuracy_guards(dev) -> None:
     for dtype in ("float32", "bfloat16"):
         cfg = StreamFlowConfig(T=T, iters=1,
                                mixed_precision=dtype == "bfloat16")
-        cpu_model = create_model("streamflow", cfg=cfg)
+        cpu_model = create_model("streamflow", cfg=cfg, device="cpu")
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         flows[dtype, "card"] = gpu_model(imgs.to(dev)).float().cpu()

@@ -1,15 +1,13 @@
-"""Weight bridge: JAX (flax) parameters of streamflow_tpu's StreamFlow ->
-a ``state_dict`` of the port.
+"""Weight bridge between the JAX package's StreamFlow (flax parameters) and
+the port (a ``state_dict`` named after the reference's torch keys).
 
-The port's parameters carry the reference's torch keys, so this inverts the
-JAX package's own checkpoint table
-(``streamflow_tpu.convert.torch_import.build_mapping``): every rule maps a
-flax path (decoder parameters live under the refinement scan's ``step/``
-prefix) to a torch key and a layout kind, and ``torch_shape_for`` gives the
-torch shape the leaf must take. A released reference ``.pth`` would load
-into the port as it is. The table is imported from the JAX package (which
-is jax-free at import) only when a bridge function is called: importing
-this module loads neither jax nor the JAX package.
+Both directions run off the port's own copy of the JAX package's checkpoint
+table (``streamflow_tpu_torch/convert.py``): every rule maps a flax path
+(decoder parameters live under the refinement scan's ``step/`` prefix) to a
+torch key and a layout kind. ``from_jax`` moves flax parameters into the
+port; ``to_jax`` moves port tensors (parameters or their gradients) back to
+flax paths and layouts. A released reference ``.pth`` would load into the
+port as it is. Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from streamflow_tpu_torch.convert import build_mapping, torch_shape_for
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -43,9 +43,6 @@ def from_jax(flax_params, k_conv=(1, 15), pc_updater_conv=(1, 7)
              ) -> Dict[str, torch.Tensor]:
     """flax params (``{'params': ...}`` or the bare tree) -> f32 state_dict.
     Raises on a JAX leaf no rule consumes, or a leaf of the wrong shape."""
-    from streamflow_tpu.convert.torch_import import (build_mapping,
-                                                     torch_shape_for)
-
     tree = flax_params.get("params", flax_params)
     flat = _flatten(tree)
     sd, used = {}, set()
@@ -67,6 +64,32 @@ def from_jax(flax_params, k_conv=(1, 15), pc_updater_conv=(1, 7)
         raise KeyError(f"{len(unused)} JAX leaves left unused, e.g. "
                        f"{unused[:5]}")
     return sd
+
+
+def to_jax(tensors: Dict[str, torch.Tensor], k_conv=(1, 15),
+           pc_updater_conv=(1, 7)) -> Dict[str, np.ndarray]:
+    """Port tensors keyed by parameter name (a ``state_dict``, or the
+    parameters' gradients) -> {flax path: f32 array in the flax layout},
+    the inverse of ``from_jax``. Raises on a key no rule names."""
+    out, used = {}, set()
+    for dst, src, kind in build_mapping(k_conv, pc_updater_conv):
+        if src not in tensors:
+            if kind.endswith("?"):
+                continue
+            raise KeyError(f"port tensors lack '{src}' (for '{dst}')")
+        value = tensors[src].detach().float().cpu().numpy()
+        kind = kind.rstrip("?")
+        if kind == "conv":        # (O, I, kh, kw) -> (kh, kw, I, O)
+            value = np.transpose(value, (2, 3, 1, 0))
+        elif kind == "linear":    # (O, I) -> (I, O)
+            value = np.transpose(value, (1, 0))
+        out[dst] = np.ascontiguousarray(value)
+        used.add(src)
+    unused = sorted(set(tensors) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} port tensors left unmapped, e.g. "
+                       f"{unused[:5]}")
+    return out
 
 
 def load_jax(model: torch.nn.Module, flax_params) -> None:

@@ -52,6 +52,6 @@ def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1):
     init = jax.jit(lambda k, x: jm.init(k, x, test_mode=True))(
         jax.random.PRNGKey(0), jnp.asarray(imgs))
     params = {"params": randomize_params(init["params"], seed)}
-    tm = create_model("streamflow", cfg=PortConfig(**kw))
+    tm = create_model("streamflow", cfg=PortConfig(**kw), device="cpu")
     load_jax(tm, params)
     return jm, params, tm, imgs
