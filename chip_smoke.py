@@ -79,6 +79,9 @@ KERNELS = {
                  "streamflow_tpu/ops/pallas/_ffn_kernel.py:304"),
     "flash_attention": ("streamflow_tpu_torch/csrc/flash_attn.cu",
                         "streamflow_tpu/ops/pallas/_attention_kernel.py:176"),
+    "flash_attention_bwd": (
+        "streamflow_tpu_torch/csrc/flash_attn_bwd.cu",
+        "streamflow_tpu/ops/pallas/_attention_kernel.py:327"),
     "lga_attention": ("streamflow_tpu_torch/csrc/lga_attn.cu",
                       "streamflow_tpu/ops/pallas/_lga_kernel.py:116"),
 }
@@ -86,7 +89,30 @@ KERNELS = {
 # iteration; K2 2 per SK block (6 blocks) per iteration + 8 Twins MLPs;
 # K3 12 GMA + 4 GSA; K4 2 LGA blocks in each of fnet and cnet
 EXPECTED_LAUNCHES = {"corr_lookup": ITERS, "ffn_pair": 12 * ITERS + 8,
-                     "flash_attention": ITERS + 4, "lga_attention": 4}
+                     "flash_attention": ITERS + 4, "flash_attention_bwd": 0,
+                     "lga_attention": 4}
+# launches in one train step with remat: the refinement kernels run in the
+# forward and again in each step's recompute (K1 2x12, K2 2x144 + the 8 of
+# the encoders, K3 2x12 GMA + 4 GSA), K4 once; B5 once per K3 forward
+# that the loss reaches (12 GMA + 4 GSA)
+EXPECTED_TRAIN_LAUNCHES = {"corr_lookup": 2 * ITERS,
+                           "ffn_pair": 2 * 12 * ITERS + 8,
+                           "flash_attention": 2 * ITERS + 4,
+                           "flash_attention_bwd": ITERS + 4,
+                           "lga_attention": 4}
+
+# the training shapes (tools/train.py's sintel_kitti stage)
+TRAIN_H, TRAIN_W = 432, 960
+TRAIN_STEPS = 3          # timed, after one warm-up step
+GUARD_H, GUARD_W, GUARD_ITERS = 128, 256, 2
+# phase 8, f32: relative L2 error of each gradient <= GRAD_TOL +
+# PERTURB_SLACK x its change under a 1e-6 relative weight perturbation
+GRAD_TOL, PERTURB_SLACK = 1e-3, 4.0
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of FLOPs / peak rate of its io type and bytes / memory rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -113,6 +139,18 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float, dt) -> tuple:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FLOPS[str(dt)[6:]]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_mem),
+            "operations" if t_ops >= t_mem else "bytes")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def init_weights(model, seed: int) -> None:
@@ -147,10 +185,61 @@ def bf16_ulp(x):
 
 
 # ---------------------------------------------------------------- phase 3
-def kernel_checks(dev):
-    """Returns {kernel: {"err": max abs err (bf16), "ms": ..., "plain_ms":
-    ...}} with times summed over one clip's calls at each shape."""
+def check_close(label, got, want, dt) -> float:
+    """Elementwise check of a kernel output against its plain version
+    (F32_TOL / the bf16 ulp rule); returns the max abs error."""
     import torch
+
+    assert got.shape == want.shape and got.dtype == want.dtype, (
+        label, got.shape, want.shape, got.dtype, want.dtype)
+    want_abs = want.float().abs()
+    top = float(want_abs.max())
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if dt == torch.float32:
+        bound = F32_TOL + F32_TOL * want_abs
+        rule = f"atol = rtol = {F32_TOL}"
+    else:
+        bound = BF16_ULPS * bf16_ulp(want_abs) + BF16_FLOOR * top
+        rule = (f"{BF16_ULPS} ulp + 2^-9 max|plain|; err = "
+                f"{err / float(bf16_ulp(torch.tensor(top))):.3g} ulp of "
+                f"max|plain|")
+    ok = bool((diff <= bound).all()) and math.isfinite(err)
+    line = (f"check {label} {str(dt)[6:]}: max_abs_err {err:.3e} "
+            f"max_rel_err {err / max(top, 1e-30):.3e} ({rule}; |plain| max "
+            f"{top:.3e})")
+    log(line)
+    if not ok:
+        raise AssertionError(f"{label} {dt} disagrees with its plain "
+                             f"version: {line}")
+    return err
+
+
+def new_summary():
+    return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "ops_ms": 0.0, "mem_ms": 0.0, "library_ms": None}
+            for k in KERNELS}
+
+
+def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
+    """Add one case's per-call numbers, times its calls, to summary s."""
+    b, _ = bound_ms(flops, nbytes_, dt)
+    s["ms"] += calls * ms
+    s["plain_ms"] += calls * pms
+    s["bound_ms"] += calls * b
+    s["ops_ms"] += calls * 1e3 * flops / PEAK_FLOPS[str(dt)[6:]]
+    s["mem_ms"] += calls * 1e3 * nbytes_ / HBM_BYTES_PER_S
+    if lib_ms is not None:
+        s["library_ms"] = (s["library_ms"] or 0.0) + calls * lib_ms
+    return b
+
+
+def kernel_checks(dev, summary):
+    """Every forward kernel against its plain version at the inference
+    shapes; per-kernel numbers summed over one clip's calls into
+    ``summary`` (bf16)."""
+    import torch
+    import torch.nn.functional as F
 
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
@@ -164,49 +253,67 @@ def kernel_checks(dev):
     def rnd(*shape, scale=1.0, dt=torch.float32):
         return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
 
+    # each make(dt) -> (kernel fn, plain fn, FLOPs, inputs, library fn)
     def ffn_case(variant, rows, c, ch, co):
         def make(dt):
             w = lambda i, o: rnd(o, i, scale=i ** -0.5, dt=dt)  # noqa: E731
             b = lambda n: rnd(n, scale=0.1, dt=dt)  # noqa: E731
             x = rnd(rows, c, dt=dt)
+            flops = 2 * rows * (c * ch + ch * co)
             if variant == "ffn_pair_k1":
                 args = (x, w(c, ch), b(ch), w(ch, co), b(co),
                         rnd(co, scale=0.3, dt=dt), b(co))
                 return (lambda: K2.ffn_pair_k1(*args),
                         lambda: K2.ffn_pair_plain(*args[:5], True,
-                                                  kw=args[5], kb=args[6]))
+                                                  kw=args[5], kb=args[6]),
+                        flops, args, None)
             if variant == "dwres_pw_ffn_pair":
                 args = (x, rnd(rows, c, dt=dt), b(c), w(c, c), b(c),
                         w(c, ch), b(ch), w(ch, co), b(co))
                 return (lambda: K2.dwres_pw_ffn_pair(*args),
                         lambda: K2.ffn_pair_plain(
                             x, *args[5:], False, wp=args[3], bp=args[4],
-                            yres=args[1], db=args[2]))
+                            yres=args[1], db=args[2]),
+                        flops + 2 * rows * c * c, args, None)
             args = (x, 1.0 + rnd(c, scale=0.1, dt=dt), b(c), w(c, ch),
                     b(ch), w(ch, co), b(co))
             return (lambda: K2.ln_ffn_pair(*args),
                     lambda: K2.ffn_pair_plain(x, *args[3:], False,
-                                              ln=args[1:3], add_res=True))
+                                              ln=args[1:3], add_res=True),
+                    flops, args, None)
         return make
 
     def flash_case(bh_shape, n, m, d):
         def make(dt):
             q = rnd(*bh_shape, n, d, scale=d ** -0.5, dt=dt)
             k, v = rnd(*bh_shape, m, d, dt=dt), rnd(*bh_shape, m, d, dt=dt)
+            bh = math.prod(bh_shape)
             return (lambda: K3.flash_attention(q, k, v),
-                    lambda: K3.flash_attention_plain(q, k, v))
+                    lambda: K3.flash_attention_plain(q, k, v),
+                    4 * bh * n * m * d, (q, k, v),
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           scale=1.0))
         return make
 
     def lga_case(hp, wp, c, nh):
         def make(dt):
             qkv = rnd(1, hp, wp, 3 * c, dt=dt)
-            return (lambda: K4.lga_attention(qkv, 7, nh),
-                    lambda: K4.lga_attention_plain(qkv, 7, nh))
+            hd, ws = c // nh, 7
+            windows = (hp // ws) * (wp // ws)
+            # the yardstick: SDPA on the window-partitioned q, k, v
+            parts = qkv.reshape(1, hp // ws, ws, wp // ws, ws, 3, nh, hd)
+            parts = parts.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(
+                3, windows, nh, ws * ws, hd).contiguous()
+            return (lambda: K4.lga_attention(qkv, ws, nh),
+                    lambda: K4.lga_attention_plain(qkv, ws, nh),
+                    4 * windows * nh * (ws * ws) ** 2 * hd, (qkv,),
+                    lambda: F.scaled_dot_product_attention(
+                        parts[0], parts[1], parts[2], scale=hd ** -0.5))
         return make
 
     def corr_case():
         def make(dt):
-            bf, h, w, c = 3, 55, 128, 256
+            bf, h, w, c, r = 3, 55, 128, 256, 4
             f1 = rnd(bf, h, w, c, dt=dt)
             levels = [lv.contiguous() for lv in
                       pool_pyramid(rnd(bf, h, w, c, dt=dt), 4)]
@@ -215,8 +322,20 @@ def kernel_checks(dev):
             coords[0, :4] = torch.tensor([1e4, -1e4], device=dev)  # far out
             coords[1, :2] = torch.tensor([-20.0, 70.0], device=dev)
             coords = coords.contiguous()
-            return (lambda: K1.corr_lookup(f1, levels, coords, 4),
-                    lambda: K1.corr_lookup_plain(f1, levels, coords, 4))
+            # FLOPs of the taps inside each level (the kernel skips the
+            # rest): a C-long dot per tap of the (2r+2)^2 window
+            taps = 0
+            for lvl, f2 in enumerate(levels):
+                ctr = torch.floor(coords.clamp(-1e6, 1e6) / 2 ** lvl)
+                offs = torch.arange(-r, r + 2, device=dev)
+                xs = ctr[..., 0, None] + offs
+                ys = ctr[..., 1, None] + offs
+                nx = ((xs >= 0) & (xs <= f2.shape[2] - 1)).sum(-1)
+                ny = ((ys >= 0) & (ys <= f2.shape[1] - 1)).sum(-1)
+                taps += int((nx * ny).sum())
+            return (lambda: K1.corr_lookup(f1, levels, coords, r),
+                    lambda: K1.corr_lookup_plain(f1, levels, coords, r),
+                    2 * c * taps, (f1, *levels, coords), None)
         return make
 
     sk = [(324, 256, 21120), (256, 192, 21120), (128, 64, 21120),
@@ -255,46 +374,25 @@ def kernel_checks(dev):
         ("corr_lookup", "3x55x128x256 4 levels r4", corr_case(), ITERS),
     ]
 
-    summary = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in KERNELS}
     for kernel, label, make, calls in cases:
         for dt in (torch.float32, torch.bfloat16):
-            run, plain = make(dt)
+            run, plain, flops, inputs, library = make(dt)
             got, want = run(), plain()
             torch.cuda.synchronize()
-            assert got.shape == want.shape and got.dtype == want.dtype, (
-                label, got.shape, want.shape, got.dtype, want.dtype)
-            want_abs = want.float().abs()
-            top = float(want_abs.max())
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            rel = err / max(top, 1e-30)
-            if dt == torch.float32:
-                bound = F32_TOL + F32_TOL * want_abs
-                rule = f"atol = rtol = {F32_TOL}"
-            else:
-                bound = (BF16_ULPS * bf16_ulp(want_abs)
-                         + BF16_FLOOR * top)
-                rule = (f"{BF16_ULPS} ulp + 2^-9 max|plain|; err = "
-                        f"{err / float(bf16_ulp(torch.tensor(top))):.3g} "
-                        f"ulp of max|plain|")
-            ok = bool((diff <= bound).all())
-            line = (f"check {kernel} [{label}] {str(dt)[6:]}: max_abs_err "
-                    f"{err:.3e} max_rel_err {rel:.3e} ({rule}; |plain| max "
-                    f"{top:.3e})")
+            err = check_close(f"{kernel} [{label}]", got, want, dt)
             if dt == torch.bfloat16:
                 ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
-                line += f" kernel {ms:.4f} ms plain {pms:.4f} ms"
+                lib_ms = cuda_ms(library, REPS) if library else None
                 s = summary[kernel]
                 s["err"] = max(s["err"], err)
-                s["ms"] += calls * ms
-                s["plain_ms"] += calls * pms
-            log(line)
-            if not ok or not math.isfinite(err):
-                raise AssertionError(f"{kernel} [{label}] {dt} disagrees "
-                                     f"with its plain version: {line}")
-            del got, want, diff, want_abs, bound
+                b = add_timing(s, calls, ms, pms, flops,
+                               nbytes(*inputs, got), dt, lib_ms)
+                log(f"time {kernel} [{label}] bf16: kernel {ms:.4f} ms "
+                    f"plain {pms:.4f} ms bound {b:.4f} ms ({flops:.4g} "
+                    f"FLOP, {nbytes(*inputs, got):.4g} B) library "
+                    + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+            del got, want
         torch.cuda.empty_cache()
-    return summary
 
 
 # ---------------------------------------------------------------- phase 4/5
@@ -352,24 +450,24 @@ def full_forward(dev):
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
-    profile_forward(model, imgs, ms)
+    profile_device(lambda: model(imgs), ms, "forward")
     return counts
 
 
-def profile_forward(model, imgs, clip_ms: float) -> None:
-    """Device time of one forward by kernel group; the idle share compares
-    the summed device time with the unprofiled ms/clip."""
+def profile_device(fn, wall_ms: float, name: str) -> dict:
+    """Device time of one call of ``fn`` by kernel group; the idle share
+    compares the summed device time with the unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model(imgs)
+        fn()
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_forward.txt"), "w") as fh:
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as fh:
         fh.write(smi() + "\n" + table)
     total = 0.0
     by = {}
@@ -380,23 +478,29 @@ def profile_forward(model, imgs, clip_ms: float) -> None:
         if ev.device_type.name != "CUDA" or t <= 0:
             continue
         total += t
-        name = ev.key
-        for k in ("corr_lookup", "ffn_pair", "flash_fwd", "lga_kernel",
-                  "conv", "gemm", "elementwise", "reduce", "softmax",
-                  "layer_norm", "cat", "copy"):
-            if k in name.lower():
-                name = k
+        key = ev.key.lower()
+        for pat, group in (("corr_lookup", "corr_lookup"),
+                           ("ffn_pair", "ffn_pair"),
+                           ("flash_fwd", "flash_fwd"),
+                           ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
+                           ("lga_kernel", "lga_kernel"), ("conv", "conv"),
+                           ("gemm", "gemm"), ("elementwise", "elementwise"),
+                           ("reduce", "reduce"), ("softmax", "softmax"),
+                           ("layer_norm", "layer_norm"), ("cat", "cat"),
+                           ("copy", "copy")):
+            if pat in key:
+                by[group] = by.get(group, 0.0) + t
                 break
         else:
-            name = "other"
-        by[name] = by.get(name, 0.0) + t
-    log("profile device time by group (ms): " + json.dumps(
+            by["other"] = by.get("other", 0.0) + t
+    idle = max(0.0, 1 - total / 1e3 / wall_ms)
+    log(f"profile {name} device time by group (ms): " + json.dumps(
         {k: round(v / 1e3, 3) for k, v in sorted(by.items(),
                                                  key=lambda kv: -kv[1])})
         + f" total {total / 1e3:.3f}; K1 share "
         f"{by.get('corr_lookup', 0.0) / max(total, 1e-9):.4f}; device idle "
-        f"share {max(0.0, 1 - total / 1e3 / clip_ms):.4f} of {clip_ms:.3f} "
-        f"ms/clip")
+        f"share {idle:.4f} of {wall_ms:.3f} ms")
+    return {"total_ms": total / 1e3, "idle": idle}
 
 
 def accuracy_guards(dev) -> None:
@@ -443,6 +547,280 @@ def accuracy_guards(dev) -> None:
                for k, p in zip(bf16, bf16_plain)), (bf16, bf16_plain)
 
 
+# ---------------------------------------------------------------- phase 6
+def backward_checks(dev, summary) -> None:
+    """B5 and K3's lse against their plain versions at the training shapes
+    (f32, bf16; bf16 timed beside its bound and SDPA's backward), and the
+    gradient of each kernel wrapper against autograd of its plain
+    version (f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from streamflow_tpu_torch.ops.corr import pool_pyramid
+    from streamflow_tpu_torch.ops.coords import coords_grid
+    from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
+    from streamflow_tpu_torch.ops.kernels import flash_attention as K3
+    from streamflow_tpu_torch.ops.kernels import lga_attention as K4
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
+
+    # GMA over 3 pairs of (432/8) x (960/8) tokens; the four GSA blocks
+    # (fnet on 4 frames, cnet on 3; stage 0 sr 8, stage 1 sr 4), each
+    # above the 16384-token switch; calls per train step
+    h8, w8 = TRAIN_H // 8, TRAIN_W // 8
+    cases = [("gma", (3, 1), h8 * w8, h8 * w8, 128, ITERS)]
+    for stage, nh, sr, hh, ww in ((0, 4, 8, 2 * h8, 2 * w8),
+                                  (1, 8, 4, h8, w8)):
+        for enc, t in (("fnet", T), ("cnet", T - 1)):
+            n = t * hh * ww
+            cases.append((f"gsa{stage} {enc}", (1, nh), n, n // sr ** 2, 32,
+                          1))
+    for label, bh_shape, n, m, d, calls in cases:
+        label = f"{label} bh{math.prod(bh_shape)} n{n} m{m} d{d}"
+        for dt in (torch.float32, torch.bfloat16):
+            q = rnd(*bh_shape, n, d, scale=d ** -0.5, dt=dt)
+            k, v = rnd(*bh_shape, m, d, dt=dt), rnd(*bh_shape, m, d, dt=dt)
+            do = rnd(*bh_shape, n, d, dt=dt)
+            o, lse = K3.flash_attention_fwd(q, k, v, return_lse=True)
+            o_p, lse_p = K3.flash_attention_plain(q, k, v, return_lse=True)
+            check_close(f"flash_attention lse [{label}]", lse, lse_p,
+                        torch.float32)
+            # both sides take the same inputs: the plain lse and delta
+            delta = (do.float() * o_p.float()).sum(-1)
+            run = lambda: K3.flash_attention_bwd(  # noqa: E731
+                q, k, v, do, lse_p, delta)
+            plain = lambda: K3.flash_attention_bwd_plain(  # noqa: E731
+                q, k, v, do, lse_p, delta)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = max(check_close(f"flash_attention_bwd {name} [{label}]",
+                                  a, b, dt)
+                      for name, a, b in zip(("dq", "dk", "dv"), got, want))
+            if dt == torch.bfloat16:
+                ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
+                qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                              for t in (q, k, v))
+                ref = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    ref, (qs, ks, vs), do, retain_graph=True), REPS)
+                flops = 10 * math.prod(bh_shape) * n * m * d
+                io = nbytes(q, k, v, do, lse, delta, *got)
+                s = summary["flash_attention_bwd"]
+                s["err"] = max(s["err"], err)
+                b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                log(f"time flash_attention_bwd [{label}] bf16: kernel "
+                    f"{ms:.4f} ms plain {pms:.4f} ms bound {b:.4f} ms "
+                    f"({flops:.4g} FLOP, {io:.4g} B) library (SDPA "
+                    f"backward) {lib_ms:.4f} ms; calls per train step "
+                    f"{calls}")
+                del ref, qs, ks, vs
+            del q, k, v, do, o, lse, o_p, lse_p, got, want
+            torch.cuda.empty_cache()
+
+    # the gradient of each kernel wrapper (kernel forward, composite
+    # backward) against autograd of its plain version, f32, at one
+    # training shape each
+    def grad_check(label, fn, plain, inputs):
+        ins = [t.detach().clone().requires_grad_(t.is_floating_point()
+                                                 and t.ndim > 0 and
+                                                 name != "coords")
+               for name, t in inputs]
+        out = fn(*ins)
+        gout = rnd(*out.shape)
+        wrt = [t for t in ins if t.requires_grad]
+        got = torch.autograd.grad(out, wrt, gout)
+        ins_p = [t.detach().clone().requires_grad_(t.requires_grad)
+                 for t in ins]
+        want = torch.autograd.grad(plain(*ins_p), [t for t in ins_p
+                                                   if t.requires_grad], gout)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for a, b in zip(got, want):
+            top = float(b.abs().max())
+            diff = (a - b).abs()
+            ok = bool((diff <= F32_TOL * (top + b.abs())).all())
+            worst = max(worst, float(diff.max()) / max(top, 1e-30))
+            if not ok:
+                raise AssertionError(f"gradient of {label} disagrees with "
+                                     f"autograd of its plain version")
+        log(f"check grad {label} f32: {len(got)} inputs, max abs err / max "
+            f"|plain grad| {worst:.3e} (bound {F32_TOL} of the largest "
+            f"element + {F32_TOL} rtol)")
+
+    rows, c = 3 * h8 * w8, 324
+    w = lambda i, o: rnd(o, i, scale=i ** -0.5)  # noqa: E731
+    b = lambda n: rnd(n, scale=0.1)  # noqa: E731
+    x = rnd(rows, c)
+    grad_check("ffn_pair_k1 [convc1]", K2.ffn_pair_k1,
+               lambda *a: K2.ffn_pair_plain(*a[:5], True, kw=a[5], kb=a[6]),
+               list(zip("xabcdef", (x, w(c, 486), b(486), w(486, c), b(c),
+                                    rnd(c, scale=0.3), b(c)))))
+    grad_check("dwres_pw_ffn_pair [convc1]", K2.dwres_pw_ffn_pair,
+               lambda *a: K2.ffn_pair_plain(a[0], *a[5:], False, wp=a[3],
+                                            bp=a[4], yres=a[1], db=a[2]),
+               list(zip("xyabcdefg", (x, rnd(rows, c), b(c), w(c, c), b(c),
+                                      w(c, 486), b(486), w(486, 256),
+                                      b(256)))))
+    xt = rnd(T * 2 * h8 * 2 * w8, 128)
+    grad_check("ln_ffn_pair [twins stage 0 fnet]", K2.ln_ffn_pair,
+               lambda *a: K2.ffn_pair_plain(a[0], *a[3:], False,
+                                            ln=(a[1], a[2]), add_res=True),
+               list(zip("xabcdef", (xt, 1.0 + rnd(128, scale=0.1), b(128),
+                                    w(128, 512), b(512), w(512, 128),
+                                    b(128)))))
+    hp, wp = -(-T * 2 * h8 // 7) * 7, -(-2 * w8 // 7) * 7
+    grad_check("lga_attention [twins stage 0 fnet]",
+               lambda a: K4.lga_attention(a, 7, 4),
+               lambda a: K4.lga_attention_plain(a, 7, 4),
+               [("qkv", rnd(1, hp, wp, 384))])
+    coords = (coords_grid(3, h8, w8, dev)
+              + 4.0 * rnd(3, h8, w8, 2)).contiguous()
+    f1, f2 = rnd(3, h8, w8, 256), rnd(3, h8, w8, 256)
+    grad_check("corr_lookup [3x54x120x256]",
+               lambda a, bb, cc: K1.FusedCorr(a, bb).lookup(cc),
+               lambda a, bb, cc: K1.corr_lookup_plain(
+                   a, pool_pyramid(bb, 4), cc),
+               [("f1", f1), ("f2", f2), ("coords", coords)])
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+def train_setup(dev, h, w, iters, mixed_precision, seed):
+    """A TrainState holding a training model with the seeded weights, and a
+    seeded synthetic batch (uint8-range images, N(0, 4^2) px flows)."""
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.tools.train_bench import synthetic_batch
+    from streamflow_tpu_torch.training.state import TrainState
+
+    cfg = StreamFlowConfig(T=T, iters=iters, mixed_precision=mixed_precision,
+                           remat=True)
+    model = create_model("streamflow", cfg=cfg, device=dev, train=True)
+    init_weights(model, seed)
+    state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
+    return state, synthetic_batch(B, T, h, w, seed, dev)
+
+
+def train_step_phase(dev) -> dict:
+    import torch
+
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.training.step import make_train_step
+
+    state, batch = train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED)
+    step = make_train_step(gamma=0.85, iters=ITERS)
+    before = {n: p.detach().clone() for n, p in
+              state.model.named_parameters()}
+    m = step(state, batch)                       # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train step launches {json.dumps(counts)} expected "
+        f"{json.dumps(EXPECTED_TRAIN_LAUNCHES)}")
+    assert counts == EXPECTED_TRAIN_LAUNCHES, "train launch counts differ"
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    assert math.isfinite(loss) and math.isfinite(norm), (loss, norm)
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    assert not still, f"parameters that did not move: {still[:5]}"
+    ms = 1e3 * sum(times) / len(times)
+    log(f"train step {B}x{T}x{TRAIN_H}x{TRAIN_W} iters {ITERS} bf16 + f32 "
+        f"params + remat: ms/step {ms:.3f} (mean of {TRAIN_STEPS} after a "
+        f"warm-up, each {[round(1e3 * t, 3) for t in times]}); steps/s "
+        f"{1e3 / ms:.4f}; max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
+        f"loss {loss:.6g} grad_norm {norm:.6g} epe {float(m['epe']):.6g}; "
+        f"all {len(before)} parameters moved")
+    profile_device(lambda: step(state, batch), ms, "train_step")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 8
+def training_guard(dev) -> None:
+    """One step's loss and gradients at GUARD_H x GUARD_W: the kernel path
+    on the card against the plain path on the CPU, f32 and bf16, each
+    against the f32 plain path (same seeded weights and batch). The f32
+    bound of each gradient is GRAD_TOL plus PERTURB_SLACK times that
+    gradient's own sensitivity: its relative change on the f32 plain path
+    when every weight moves by a relative 1e-6 (f32 rounding of the
+    forward). A few gradients (the cnet's and the mask head's, ~1e-6 of
+    the total norm) are sums that cancel, and 1e-6 moves them by ~3e-3;
+    a kernel fault is O(1)."""
+    import torch
+
+    from streamflow_tpu_torch.training.step import make_loss_fn
+
+    loss_fn = make_loss_fn(gamma=0.85, iters=GUARD_ITERS)
+    res = {}
+    runs = [(False, "cpu", "cpu", 0.0), (False, "cpu+1e-6", "cpu", 1e-6),
+            (False, "card", dev, 0.0), (True, "cpu", "cpu", 0.0),
+            (True, "card", dev, 0.0)]
+    for mp, path, where, eps in runs:
+        state, batch = train_setup(where, GUARD_H, GUARD_W, GUARD_ITERS, mp,
+                                   SEED + 3)
+        model = state.model
+        if eps:
+            g = torch.Generator().manual_seed(SEED + 4)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + eps * torch.randn(p.shape, generator=g))
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+        res[mp, path] = (float(loss.detach()),
+                         {n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters()})
+        del state, batch, model, loss
+    ref_loss, ref = res[False, "cpu"]
+
+    def errors(key):
+        loss, grads = res[key]
+        per = {n: float((grads[n] - ref[n]).norm()
+                        / ref[n].norm().clamp(min=1e-30)) for n in ref}
+        glob = float(torch.sqrt(sum((grads[n] - ref[n]).pow(2).sum()
+                                    for n in ref))
+                     / torch.sqrt(sum(ref[n].pow(2).sum() for n in ref)))
+        return abs(loss - ref_loss) / abs(ref_loss), per, glob
+
+    f32, pert = errors((False, "card")), errors((False, "cpu+1e-6"))
+    slack = {n: f32[1][n] / (GRAD_TOL + PERTURB_SLACK * pert[1][n])
+             for n in ref}
+    worst = max(slack, key=slack.get)
+    bf, bfp = errors((True, "card")), errors((True, "cpu"))
+
+    def median(d):
+        return sorted(d.values())[len(d) // 2]
+
+    log(f"training guard {GUARD_H}x{GUARD_W} iters {GUARD_ITERS} against "
+        f"the f32 plain path (loss {ref_loss:.6g}): f32 kernels loss rel "
+        f"err {f32[0]:.3e} (bound {GRAD_TOL}), gradients rel L2 global "
+        f"{f32[2]:.3e} median {median(f32[1]):.3e} max "
+        f"{max(f32[1].values()):.3e}; 1e-6 weight perturbation of the plain "
+        f"path: global {pert[2]:.3e} median {median(pert[1]):.3e} max "
+        f"{max(pert[1].values()):.3e}; closest to its bound {worst}: "
+        f"{f32[1][worst]:.3e} against {GRAD_TOL} + {PERTURB_SLACK} x "
+        f"{pert[1][worst]:.3e}; bf16 kernels loss {bf[0]:.3e} gradients "
+        f"global {bf[2]:.3e} median {median(bf[1]):.3e}, bf16 plain loss "
+        f"{bfp[0]:.3e} global {bfp[2]:.3e} median {median(bfp[1]):.3e} "
+        f"(bounds: loss {GRAD_TOL}, global {BF16_GUARD_RATIO}x the plain)")
+    # the loss is dominated by the ground truth (N(0, 4^2) px against
+    # sub-px predictions), so both paths read ~1e-5: held to GRAD_TOL
+    assert f32[0] < GRAD_TOL and slack[worst] <= 1.0, (f32[0], worst)
+    assert bf[0] < GRAD_TOL, (bf[0], bfp[0])
+    assert bf[2] <= BF16_GUARD_RATIO * bfp[2], (bf[2], bfp[2])
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -467,20 +845,33 @@ def main() -> None:
     log(f"phase 2 build: {_build.build_seconds:.1f} s")
     log(_build.ptxas_summary())
 
-    summary = kernel_checks(dev)
+    summary = new_summary()
+    kernel_checks(dev, summary)
     log("phase 3 kernels: all checks passed")
-    counts = full_forward(dev)
+    full_forward(dev)
     log("phase 4 forward: passed")
     accuracy_guards(dev)
     log("phase 5 accuracy guards: passed")
+    backward_checks(dev, summary)
+    log("phase 6 backward kernels: all checks passed")
+    counts = train_step_phase(dev)
+    log("phase 7 train step: passed")
+    training_guard(dev)
+    log("phase 8 training guard: passed")
 
     assert "jax" not in sys.modules, "the port must not import jax"
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[k],
-                "max_abs_err": summary[k]["err"],
-                "ms": round(summary[k]["ms"], 4),
-                "plain_ms": round(summary[k]["plain_ms"], 4)}
-               for k, (src, rep) in KERNELS.items()]
+    kernels = []
+    for k, (src, rep) in KERNELS.items():
+        s = summary[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[k], "max_abs_err": s["err"],
+            "ms": round(s["ms"], 4), "plain_ms": round(s["plain_ms"], 4),
+            "bound_ms": round(s["bound_ms"], 4),
+            "bound_by": ("operations" if s["ops_ms"] >= s["mem_ms"]
+                         else "bytes"),
+            "library_ms": (None if s["library_ms"] is None
+                           else round(s["library_ms"], 4))})
     log(smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

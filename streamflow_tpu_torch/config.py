@@ -13,8 +13,10 @@ accepted and ignored: ``corr_impl``, ``corr_store``, ``attn_impl``,
 ``dw_impl`` (with all of its ``xla_cond*``, ``xla_fenced`` and ``banded*``
 variants), ``lga_impl``, ``twins_ffn_fused``, ``lookup_block_q``,
 ``lookup_unroll``, ``lookup_f2_major``, ``lookup_rows``, ``scan_unroll``,
-``remat``, ``dropout`` and ``ffn_gelu`` (the port's gelu is always the
-exact erf, ``torch.erf``). ``gsa_flash`` is honoured by the Twins encoders.
+``dropout`` and ``ffn_gelu`` (the port's gelu is always the exact erf,
+``torch.erf``). ``gsa_flash`` is honoured by the Twins encoders and
+``remat`` by the train-mode forward (each refinement step recomputed in
+the backward).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class StreamFlowConfig:
     mixed_precision: bool = True
     gsa_flash: bool = False
 
-    # accepted and ignored (TPU kernel choices, training; see above)
+    # accepted and ignored, except remat (TPU kernel choices; see above)
     corr_impl: str = "auto"
     corr_store: str = "auto"
     attn_impl: str = "auto"

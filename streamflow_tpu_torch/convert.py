@@ -112,7 +112,8 @@ def build_mapping(k_conv: Sequence[int] = (1, 15),
     rules += _sk_block(f"{ub_d}/encoder/conv", f"{enc}.conv", k_conv)
     rules += _conv(f"{ub_d}/aggregator/to_v", f"{ub_s}.aggregator.to_v")
     rules += [(f"{ub_d}/aggregator/gamma", f"{ub_s}.aggregator.gamma", "raw")]
-    rules += _temporal(f"{ub_d}/transformer_block", f"{ub_s}.transformer_block")
+    rules += _temporal(f"{ub_d}/transformer_block",
+                       f"{ub_s}.transformer_block")
     rules += _sk_block(f"{ub_d}/gru", f"{ub_s}.gru", pc_updater_conv)
     rules += _sk_block(f"{ub_d}/flow_head", f"{ub_s}.flow_head", k_conv)
     rules += _conv(f"{ub_d}/mask/conv1", f"{ub_s}.mask.0")

@@ -83,4 +83,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// rows [r0, r0 + rows) of a row-major (n, D) bf16 matrix into shared memory
+// (row stride LD elements) by the block's NTH threads, zeros past row n
+template <int D, int LD, int NTH>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int rows, int n) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CPR; e += NTH) {
+    int r = e / CPR, ch = e % CPR;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D +
+                                            ch * 8);
+    *reinterpret_cast<uint4*>(dst + r * LD + ch * 8) = val;
+  }
+}
+
 }  // namespace sf

@@ -1,14 +1,16 @@
 // K3: non-causal flash attention forward, softmax(q k^T) v with q pre-scaled.
 //
 // Replaces the Pallas kernel streamflow_tpu/ops/pallas/_attention_kernel.py
-// (flash_attention_tpu -> pl.pallas_call, body _flash_fwd_kernel). The
-// logsumexp output is not produced: the port is inference only.
+// (flash_attention_tpu -> pl.pallas_call, body _flash_fwd_kernel), with its
+// optional per-row logsumexp output m + log(l) (f32, (B*H, Nq)) that the
+// backward (flash_attn_bwd.cu) rebuilds the probabilities from; a null lse
+// pointer (inference) skips it.
 //
 // Math as the TPU kernel: f32 scores, f32 running max m, sum l and
 // accumulator; probabilities rounded to the io type before the P.V product
 // (the TPU kernel's p.astype(v.dtype)); padded kv columns of the last tile
 // take a large finite negative score (not -inf, whose exp(-inf - -inf)
-// would be NaN); a row with l == 0 divides by 1.
+// would be NaN); a row with l == 0 divides by 1 and takes log 1 in lse.
 //
 // Bound on the H100: the two products and the exp per score. Design: one
 // block walks all kv tiles for its query tile (the TPU's sequential kv
@@ -35,8 +37,8 @@ constexpr float NEG = -0.7f * 3.4028234663852886e38f;
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int nq,
-                     int nk) {
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int nq, int nk) {
   constexpr int TPQ = D / DQ;        // threads per query
   constexpr int BQ = NT / TPQ;       // queries per block
   constexpr int ROW = TPQ * CH;      // padded kv row (floats)
@@ -120,24 +122,26 @@ __global__ void __launch_bounds__(NT)
   const float inv = (l_run == 0.f) ? 1.f : 1.f / l_run;
 #pragma unroll
   for (int i = 0; i < DQ; ++i) out[qbase + i] = from_f<T>(acc[i] * inv);
+  if (lse != nullptr && sub == 0)
+    lse[(size_t)bh * nq + qi] = m_run + logf(l_run == 0.f ? 1.f : l_run);
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int nq, int nk, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int bh, int nq, int nk, cudaStream_t s) {
   constexpr int BQ = NT / (D / DQ);
   dim3 grid((nq + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<T, D><<<grid, NT, 0, s>>>((const T*)q, (const T*)k,
-                                             (const T*)v, (T*)out, nq, nk);
+  flash_fwd_kernel<T, D><<<grid, NT, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, nq, nk);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int nq, int nk, int d, cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int bh, int nq, int nk, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, bh, nq, nk, s);
-    case 128: return launch<T, 128>(q, k, v, out, bh, nq, nk, s);
+    case 32: return launch<T, 32>(q, k, v, out, lse, bh, nq, nk, s);
+    case 128: return launch<T, 128>(q, k, v, out, lse, bh, nq, nk, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -148,28 +152,12 @@ constexpr int TW = 4;        // warps per block
 constexpr int TQ = 16 * TW;  // query rows per block
 constexpr int TK = 64;       // keys per tile
 
-// rows [r0, r0 + rows) of a (n, D) bf16 matrix into shared memory (row
-// stride LD), zeros past n
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int rows, int n) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < rows * CPR; e += TW * 32) {
-    int r = e / CPR, ch = e % CPR;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D +
-                                            ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + ch * 8) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(TW * 32)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                          int nq, int nk) {
+                          float* __restrict__ lse, int nq, int nk) {
   constexpr int LD = D + 8;  // odd multiple of 16 bytes: no bank conflicts
   __shared__ __align__(16) bf16 ks[TK * LD];  // Q tile first, then K tiles
   __shared__ __align__(16) bf16 vs[TK * LD];
@@ -179,7 +167,7 @@ __global__ void __launch_bounds__(TW * 32)
   const bf16* kb = k + (size_t)bh * nk * D;
   const bf16* vb = v + (size_t)bh * nk * D;
 
-  load_tile<D, LD>(ks, q + (size_t)bh * nq * D, q0, TQ, nq);
+  load_rows<D, LD, TW * 32>(ks, q + (size_t)bh * nq * D, q0, TQ, nq);
   __syncthreads();
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -196,8 +184,8 @@ __global__ void __launch_bounds__(TW * 32)
 
   for (int j0 = 0; j0 < nk; j0 += TK) {
     __syncthreads();
-    load_tile<D, LD>(ks, kb, j0, TK, nk);
-    load_tile<D, LD>(vs, vb, j0, TK, nk);
+    load_rows<D, LD, TW * 32>(ks, kb, j0, TK, nk);
+    load_rows<D, LD, TW * 32>(vs, vb, j0, TK, nk);
     __syncthreads();
 
     float s[TK / 8][4];
@@ -273,31 +261,34 @@ __global__ void __launch_bounds__(TW * 32)
     for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + i * 8 + 2 * t) =
           pack_bf16(o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[(size_t)bh * nq + row] = m_run[r] + logf(l == 0.f ? 1.f : l);
   }
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int bh, int nq, int nk, cudaStream_t s) {
+                float* lse, int bh, int nq, int nk, cudaStream_t s) {
   dim3 grid((nq + TQ - 1) / TQ, bh);
   flash_fwd_bf16_kernel<D><<<grid, TW * 32, 0, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, nq, nk);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, nq,
+      nk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int sf_flash_fwd(const void* q, const void* k, const void* v,
-                            void* out, int bh, int nq, int nk, int d,
-                            int dtype, void* stream) {
+                            void* out, float* lse, int bh, int nq, int nk,
+                            int d, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bh == 0 || nq == 0) return 0;
   if (dtype == sf::kBF16) {
     switch (d) {
-      case 32: return launch_bf16<32>(q, k, v, out, bh, nq, nk, s);
-      case 128: return launch_bf16<128>(q, k, v, out, bh, nq, nk, s);
+      case 32: return launch_bf16<32>(q, k, v, out, lse, bh, nq, nk, s);
+      case 128: return launch_bf16<128>(q, k, v, out, lse, bh, nq, nk, s);
     }
     return (int)cudaErrorInvalidValue;
   }
-  return dispatch<float>(q, k, v, out, bh, nq, nk, d, s);
+  return dispatch<float>(q, k, v, out, lse, bh, nq, nk, d, s);
 }

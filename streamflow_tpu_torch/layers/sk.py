@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from streamflow_tpu_torch.layers.common import cast
 from streamflow_tpu_torch.ops.kernels.ffn_pair import (dwres_pw_ffn_pair,
                                                        ffn_pair_k1)
 
@@ -53,14 +54,17 @@ class SKBlock(nn.Module):
                 f"the SK block takes k_conv (1, k), got {ks}; the other "
                 f"layouts need the ffn_pair / pw_ffn_pair kernels")
 
-        def w(conv):  # (out, in, 1, 1) -> (out, in), a view
-            return conv.weight.reshape(conv.weight.shape[:2])
+        def w(conv):  # (out, in, 1, 1) -> (out, in), in x's dtype
+            return cast(conv.weight.reshape(conv.weight.shape[:2]), x)
+
+        def b(conv):
+            return cast(conv.bias, x)
 
         k1, dw = self.conv_list
         f1a, f1b, f2a, f2b = (self.ffn1[0], self.ffn1[2], self.ffn2[0],
                               self.ffn2[2])
-        x = ffn_pair_k1(x.contiguous(), w(f1a), f1a.bias, w(f1b), f1b.bias,
-                        k1.weight.reshape(-1), k1.bias)
+        x = ffn_pair_k1(x.contiguous(), w(f1a), b(f1a), w(f1b), b(f1b),
+                        cast(k1.weight.reshape(-1), x), b(k1))
         y = x.permute(0, 3, 1, 2)
         if dw.kernel_size[0] > 7:
             # cuDNN's bf16 depthwise kxk is several times faster on NCHW
@@ -68,7 +72,8 @@ class SKBlock(nn.Module):
             # (H100 80GB HBM3, 700 W: (3, 324, 55, 128) k=15 0.77 ms with
             # both copies vs 2.64 ms; (3, 640, 55, 128) k=7 0.68 vs 0.27)
             y = y.contiguous()
-        y = F.conv2d(y, dw.weight, None, 1, dw.padding, 1, dw.groups)
+        y = F.conv2d(y, cast(dw.weight, x), None, 1, dw.padding, 1,
+                     dw.groups)
         y = y.permute(0, 2, 3, 1).contiguous()
-        return dwres_pw_ffn_pair(x, y, dw.bias, w(self.pw), self.pw.bias,
-                                 w(f2a), f2a.bias, w(f2b), f2b.bias)
+        return dwres_pw_ffn_pair(x, y, b(dw), w(self.pw), b(self.pw),
+                                 w(f2a), b(f2a), w(f2b), b(f2b))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from streamflow_tpu_torch.layers.common import Mlp
+from streamflow_tpu_torch.layers.common import Mlp, layer_norm, linear
 
 
 class TinyAttention(nn.Module):
@@ -27,12 +27,12 @@ class TinyAttention(nn.Module):
         *lead, t, c = x.shape
         nh = self.num_heads
         hd = c // nh
-        qkv = self.qkv(x).reshape(*lead, t, 3, nh, hd)
+        qkv = linear(x, self.qkv).reshape(*lead, t, 3, nh, hd)
         q, k, v = (qkv[..., i, :, :].transpose(-2, -3) for i in range(3))
         attn = (q * hd ** -0.5) @ k.transpose(-1, -2)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
         out = (attn @ v).transpose(-2, -3).reshape(*lead, t, c)
-        return self.proj(out)
+        return linear(out, self.proj)
 
 
 class TransformerBlock(nn.Module):
@@ -44,8 +44,8 @@ class TransformerBlock(nn.Module):
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.attn(layer_norm(x, self.norm1))
+        return x + self.mlp(layer_norm(x, self.norm2))
 
 
 class TemporalLayer(nn.Module):

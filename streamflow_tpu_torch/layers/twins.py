@@ -20,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from streamflow_tpu_torch.layers.common import Mlp, conv2d
+from streamflow_tpu_torch.layers.common import (Mlp, cast, conv2d, layer_norm,
+                                                linear)
 from streamflow_tpu_torch.ops.kernels.ffn_pair import ln_ffn_pair
 from streamflow_tpu_torch.ops.kernels.flash_attention import flash_attention
 from streamflow_tpu_torch.ops.kernels.lga_attention import lga_attention
@@ -42,7 +43,8 @@ class TemporalPatchEmbed(nn.Module):
         b, t, h, w, c = x.shape
         y = conv2d(x.reshape(b * t, h, w, c), self.proj)
         hp, wp = y.shape[1], y.shape[2]
-        return self.norm(y.reshape(b, t * hp * wp, -1)), (t * hp, wp)
+        return (layer_norm(y.reshape(b, t * hp * wp, -1), self.norm),
+                (t * hp, wp))
 
 
 class PosConv(nn.Module):
@@ -74,8 +76,9 @@ class LocallyGroupedAttn(nn.Module):
         ws = self.ws
         xg = F.pad(x.reshape(b, ht, w, c),
                    (0, 0, 0, (ws - w % ws) % ws, 0, (ws - ht % ws) % ws))
-        out = lga_attention(self.qkv(xg).contiguous(), ws, self.num_heads)
-        return self.proj(out)[:, :ht, :w].reshape(b, n, c)
+        out = lga_attention(linear(xg, self.qkv).contiguous(), ws,
+                            self.num_heads)
+        return linear(out, self.proj)[:, :ht, :w].reshape(b, n, c)
 
 
 class GlobalSubSampleAttn(nn.Module):
@@ -94,10 +97,11 @@ class GlobalSubSampleAttn(nn.Module):
         b, n, c = x.shape
         nh = self.num_heads
         hd = c // nh
-        q = self.q(x).reshape(b, n, nh, hd).transpose(1, 2) * hd ** -0.5
+        q = linear(x, self.q).reshape(b, n, nh, hd).transpose(1, 2)
+        q = q * hd ** -0.5
         kvin = conv2d(x.reshape(b, size[0], size[1], c), self.sr)
-        kvin = self.norm(kvin.reshape(b, -1, c))
-        kv = self.kv(kvin).reshape(b, -1, 2, nh, hd)
+        kvin = layer_norm(kvin.reshape(b, -1, c), self.norm)
+        kv = linear(kvin, self.kv).reshape(b, -1, 2, nh, hd)
         k = kv[:, :, 0].transpose(1, 2)
         v = kv[:, :, 1].transpose(1, 2)
         if gsa_flash or n > GSA_FLASH_TOKENS:
@@ -106,7 +110,7 @@ class GlobalSubSampleAttn(nn.Module):
         else:
             a = torch.softmax(q.float() @ k.float().transpose(-1, -2), -1)
             out = (a.to(v.dtype).float() @ v.float()).to(v.dtype)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return linear(out.transpose(1, 2).reshape(b, n, c), self.proj)
 
 
 class TwinsBlock(nn.Module):
@@ -126,13 +130,13 @@ class TwinsBlock(nn.Module):
 
     def forward(self, x, size, gsa_flash: bool = False):
         if isinstance(self.attn, GlobalSubSampleAttn):
-            x = x + self.attn(self.norm1(x), size, gsa_flash)
+            x = x + self.attn(layer_norm(x, self.norm1), size, gsa_flash)
         else:
-            x = x + self.attn(self.norm1(x), size)
-        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        return ln_ffn_pair(x.contiguous(), self.norm2.weight, self.norm2.bias,
-                           fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                           add_res=True)
+            x = x + self.attn(layer_norm(x, self.norm1), size)
+        n2, fc1, fc2 = self.norm2, self.mlp.fc1, self.mlp.fc2
+        return ln_ffn_pair(x.contiguous(), *(cast(p, x) for p in (
+            n2.weight, n2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)),
+            add_res=True)
 
 
 class _SVT(nn.Module):

@@ -1,19 +1,27 @@
-"""StreamFlow in test mode (port of streamflow_tpu/models/streamflow.py::
-StreamFlow; reference SKFlow_MF8, core/models/streamflow.py:30-149).
+"""StreamFlow (port of streamflow_tpu/models/streamflow.py::StreamFlow;
+reference SKFlow_MF8, core/models/streamflow.py:30-149).
 
 Images (B, T, H, W, 3) in [0, 255] -> flows (B, T-1, H, W, 2), (x, y).
 Dtype policy as in the JAX package: encoders, GMA and the update block
-compute in bf16 under ``mixed_precision`` (the parameters are held in that
-dtype); the correlation output is cast to the model dtype; coordinates,
-the flow carry and the convex upsampling stay f32. The refinement
-``nn.scan`` is a Python loop and ``stop_gradient`` a ``detach``; the mask
-head runs on the last iteration only.
+compute in bf16 under ``mixed_precision`` (each layer casts its parameters
+to that dtype where it uses them); the correlation output is cast to the
+model dtype; coordinates, the flow carry and the convex upsampling stay
+f32. The refinement ``nn.scan`` is a Python loop and ``stop_gradient`` a
+``detach``.
+
+Test mode (no autograd) runs the mask head on the last iteration only and
+returns the final flows. Train mode (``test_mode=False``) returns the
+flows of every iteration, (iters, B, T-1, H, W, 2), with the mask head and
+the convex upsampling on every iteration, as JAX's ``compute_mask=None``
+path; with ``cfg.remat`` each refinement step is recomputed in the
+backward (``torch.utils.checkpoint``, the counterpart of ``nn.remat``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from streamflow_tpu_torch.config import StreamFlowConfig
 from streamflow_tpu_torch.layers.gma import GMAAttention
@@ -46,10 +54,17 @@ class StreamFlow(nn.Module):
             cfg.pc_updater_conv, cfg.num_heads, cfg.ratio)
         self.to(self.dtype)
 
-    @torch.no_grad()
-    def forward(self, images, iters=None, flow_init=None):
-        """Test mode. Returns flows (B, T-1, H, W, 2) f32, and with
-        ``flow_init`` (B, T-1, H/8, W/8, 2) also the low-res flows."""
+    def forward(self, images, iters=None, flow_init=None,
+                test_mode: bool = True):
+        """Test mode: flows (B, T-1, H, W, 2) f32, and with ``flow_init``
+        (B, T-1, H/8, W/8, 2) also the low-res flows. Train mode: the
+        per-iteration flows (iters, B, T-1, H, W, 2) f32."""
+        if test_mode:
+            with torch.no_grad():
+                return self._run(images, iters, flow_init, True)
+        return self._run(images, iters, flow_init, False)
+
+    def _run(self, images, iters, flow_init, test_mode: bool):
         cfg = self.cfg
         iters = cfg.iters if iters is None else iters
         b, t = images.shape[:2]
@@ -70,23 +85,43 @@ class StreamFlow(nn.Module):
         coords0 = coords_grid(b * f, h, w, images.device).reshape(
             b, f, h, w, 2)
         coords1 = coords0 if flow_init is None else coords0 + flow_init
-        mask = None
-        for i in range(iters):
+
+        def step(net, coords1, compute_mask):
             coords1 = coords1.detach()
             corr = pyramid.lookup(coords1.reshape(b * f, h, w, 2))
-            net, m, delta = self.update_block(
+            net, mask, delta = self.update_block(
                 net, inp, corr.reshape(b, f, h, w, -1), coords1 - coords0,
-                attn, compute_mask=i == iters - 1)
+                attn, compute_mask=compute_mask)
+            return net, mask, coords1 + delta.float()
+
+        def upsample(coords1, mask):
+            up = convex_upsample((coords1 - coords0).reshape(b * f, h, w, 2),
+                                 mask.reshape(b * f, h, w, -1), cfg.ratio)
+            return up.reshape(b, f, *up.shape[1:])
+
+        if not test_mode:
+            def train_step(net, coords1):
+                net, mask, coords1 = step(net, coords1, True)
+                return net, coords1, upsample(coords1, mask)
+
+            flows = []
+            for _ in range(iters):
+                if cfg.remat:
+                    net, coords1, up = checkpoint(train_step, net, coords1,
+                                                  use_reentrant=False)
+                else:
+                    net, coords1, up = train_step(net, coords1)
+                flows.append(up)
+            return torch.stack(flows)
+
+        mask = None
+        for i in range(iters):
+            net, m, coords1 = step(net, coords1, i == iters - 1)
             if m is not None:
                 mask = m
-            coords1 = coords1 + delta.float()
-
-        lowres = coords1 - coords0
         if mask is None:
-            mask = lowres.new_zeros(b, f, h, w, 9 * cfg.ratio ** 2)
-        up = convex_upsample(lowres.reshape(b * f, h, w, 2),
-                             mask.reshape(b * f, h, w, -1), cfg.ratio)
-        flows = up.reshape(b, f, *up.shape[1:])
+            mask = coords1.new_zeros(b, f, h, w, 9 * cfg.ratio ** 2)
+        flows = upsample(coords1, mask)
         if flow_init is not None:
-            return flows, lowres
+            return flows, coords1 - coords0
         return flows

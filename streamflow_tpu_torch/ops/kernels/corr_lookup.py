@@ -10,6 +10,13 @@ On the H100 the kernel is bound by L2 reads of the tapped f2 features; one
 warp per query keeps f1 in registers and reads each tap row once (see the
 source's header). Its plain version materialises each level's volume and
 looks it up like ``CorrPyramid``.
+
+Gradients to f1 and the pooled levels, as the JAX package's custom_vjp of
+the Pallas lookup (ops/pallas/corr.py:91-101, whose backward recomputes
+through the XLA composite ``_xla_equiv_prepared``): the forward is the
+kernel, the backward is autograd of the plain version recomputed from the
+saved inputs (``ops.kernels.CompositeVJP``). That backward is ordinary
+PyTorch in both packages, not a plain version standing in for a kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch
 
 from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.corr import lookup_level, pool_pyramid
-from streamflow_tpu_torch.ops.kernels import LAUNCHES
+from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 MAX_LEVELS = 4
 
@@ -45,7 +52,15 @@ def corr_lookup_plain(f1, f2_levels, coords, radius: int = 4):
 def corr_lookup(f1, f2_levels, coords, radius: int = 4):
     """f1 (B, H, W, C); f2_levels: pooled f2, each (B, Hl, Wl, C) in f1's
     dtype; coords (B, H, W, 2) f32 level-0 pixel (x, y). Returns
-    (B, H, W, L*(2r+1)^2) in f1's dtype, accumulated in f32."""
+    (B, H, W, L*(2r+1)^2) in f1's dtype, accumulated in f32.
+    Differentiable (see the module's docstring)."""
+    return with_composite_vjp(
+        lambda a, c, *lv: _corr_lookup(a, lv, c, radius),
+        lambda a, c, *lv: corr_lookup_plain(a, lv, c, radius),
+        f1, coords, *f2_levels)
+
+
+def _corr_lookup(f1, f2_levels, coords, radius: int):
     if not f1.is_cuda:
         return corr_lookup_plain(f1, f2_levels, coords, radius)
     b, h, w, c = f1.shape

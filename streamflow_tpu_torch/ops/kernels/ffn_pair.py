@@ -15,6 +15,13 @@ are in nn.Linear layout (out, in); 1x1 conv weights are the same matrix.
 
 The plain version is a port of ``ffn_pair_xla``: the same stages, rounded
 to the io type at the same points, products accumulated in f32.
+
+Gradients to every tensor argument, as the JAX package's custom_vjp of
+each Pallas form (``_ffn_kernel.py:367-450``, backward through
+``ffn_pair_xla``): the forward is the kernel, the backward is autograd of
+the plain version recomputed from the saved inputs
+(``ops.kernels.CompositeVJP``), ordinary PyTorch in both packages, not a
+plain version standing in for a kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from streamflow_tpu_torch import _build
-from streamflow_tpu_torch.ops.kernels import LAUNCHES
+from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 _SMEM_MAX = 232448        # bytes of shared memory a block may use
 
@@ -108,26 +115,39 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
     return out
 
 
+def _run(x, w1, b1, w2, b2, residual, ln=None, **kw):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor;
+    arguments as ``ffn_pair_plain``'s."""
+    if not x.is_cuda:
+        return ffn_pair_plain(x, w1, b1, w2, b2, residual, ln=ln, **kw)
+    if ln is not None:
+        kw.update(ln_g=ln[0], ln_b=ln[1])
+    return _launch(x, w1, b1, w2, b2, residual, **kw)
+
+
 def ffn_pair_k1(x, w1, b1, w2, b2, kw, kb):
     """gelu(y + y*kw + kb) of y = gelu(x + gelu(x W1 + b1) W2 + b2)."""
-    if not x.is_cuda:
-        return ffn_pair_plain(x, w1, b1, w2, b2, True, kw=kw, kb=kb)
-    return _launch(x, w1, b1, w2, b2, True, kw=kw, kb=kb)
+    def call(fn):
+        return lambda x, w1, b1, w2, b2, kw, kb: fn(
+            x, w1, b1, w2, b2, True, kw=kw, kb=kb)
+    return with_composite_vjp(call(_run), call(ffn_pair_plain),
+                              x, w1, b1, w2, b2, kw, kb)
 
 
 def dwres_pw_ffn_pair(x, y, db, wp, bp, w1, b1, w2, b2):
     """x' = gelu(x + y + db); x'' = gelu(x' + x' Wp + bp);
     out = gelu(x'' W1 + b1) W2 + b2."""
-    if not x.is_cuda:
-        return ffn_pair_plain(x, w1, b1, w2, b2, False, wp=wp, bp=bp,
-                              yres=y, db=db)
-    return _launch(x, w1, b1, w2, b2, False, wp=wp, bp=bp, yres=y, db=db)
+    def call(fn):
+        return lambda x, y, db, wp, bp, w1, b1, w2, b2: fn(
+            x, w1, b1, w2, b2, False, wp=wp, bp=bp, yres=y, db=db)
+    return with_composite_vjp(call(_run), call(ffn_pair_plain),
+                              x, y, db, wp, bp, w1, b1, w2, b2)
 
 
 def ln_ffn_pair(x, g, be, w1, b1, w2, b2, add_res=True):
     """[x +] gelu(LN(x) W1 + b1) W2 + b2, LN with f32 stats, eps 1e-5."""
-    if not x.is_cuda:
-        return ffn_pair_plain(x, w1, b1, w2, b2, False, ln=(g, be),
-                              add_res=add_res)
-    return _launch(x, w1, b1, w2, b2, False, ln_g=g, ln_b=be,
-                   add_res=add_res)
+    def call(fn):
+        return lambda x, g, be, w1, b1, w2, b2: fn(
+            x, w1, b1, w2, b2, False, ln=(g, be), add_res=add_res)
+    return with_composite_vjp(call(_run), call(ffn_pair_plain),
+                              x, g, be, w1, b1, w2, b2)

@@ -12,6 +12,12 @@ On the H100 the kernel is bound by the latency of many tiny blocks (see
 the source's header). The plain version is the attention part of
 ``lga_xla``: window partition, per-head softmax attention, inverse
 partition.
+
+Gradients to qkv, as the JAX package's custom_vjp of the Pallas kernel
+(layers/twins.py:137-143, backward through ``lga_xla``): the forward is
+the kernel, the backward is autograd of the plain version recomputed from
+the saved qkv (``ops.kernels.CompositeVJP``), ordinary PyTorch in both
+packages, not a plain version standing in for a kernel.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from streamflow_tpu_torch import _build
-from streamflow_tpu_torch.ops.kernels import LAUNCHES
+from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 
 def _scale(hd: int, dtype) -> float:
@@ -44,7 +50,13 @@ def lga_attention_plain(qkv, ws: int, nh: int):
 
 
 def lga_attention(qkv, ws: int, nh: int):
-    """qkv (B, Hp, Wp, 3C), Hp and Wp multiples of ws -> (B, Hp, Wp, C)."""
+    """qkv (B, Hp, Wp, 3C), Hp and Wp multiples of ws -> (B, Hp, Wp, C).
+    Differentiable (see the module's docstring)."""
+    return with_composite_vjp(lambda x: _lga_attention(x, ws, nh),
+                              lambda x: lga_attention_plain(x, ws, nh), qkv)
+
+
+def _lga_attention(qkv, ws: int, nh: int):
     if not qkv.is_cuda:
         return lga_attention_plain(qkv, ws, nh)
     _build.require(qkv, "qkv", ndim=4)

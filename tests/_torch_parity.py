@@ -32,10 +32,11 @@ def randomize_params(tree, seed: int):
     return walk(tree)
 
 
-def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1):
+def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1, train=False):
     """The JAX StreamFlow (f32, CPU) with fan-in-scaled random params and
-    the port's StreamFlow holding the same weights through the bridge.
-    Returns (jax_model, params, port_model, images)."""
+    the port's StreamFlow holding the same weights through the bridge (a
+    training model with ``train``). Returns (jax_model, params, port_model,
+    images)."""
     import jax
     import jax.numpy as jnp
 
@@ -52,6 +53,7 @@ def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1):
     init = jax.jit(lambda k, x: jm.init(k, x, test_mode=True))(
         jax.random.PRNGKey(0), jnp.asarray(imgs))
     params = {"params": randomize_params(init["params"], seed)}
-    tm = create_model("streamflow", cfg=PortConfig(**kw), device="cpu")
+    tm = create_model("streamflow", cfg=PortConfig(**kw), device="cpu",
+                      train=train)
     load_jax(tm, params)
     return jm, params, tm, imgs
