@@ -37,7 +37,7 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _P],
     "sf_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sf_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _P],
+                     _P],
     "sf_lga_attn": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

@@ -19,12 +19,15 @@
 // dk/dv pass, plus the recomputed q k^T in both) and one exp per score.
 // Where one walk would leave the card under-filled (GMA: 102 tiles x 3
 // heads; GSA: 26 key tiles x 4 heads walking 1620 q tiles), the walked axis
-// is split over gridDim.z and the partial sums are added with f32 atomics
-// into a zeroed f32 buffer that the wrapper rounds to the io type.
+// is split over gridDim.z (sf_flash_bwd picks the split from the SM count).
+// Every block adds its partial sums with f32 atomics into zeroed f32
+// buffers, which the wrapper rounds once to the io type.
 // bf16: tensor cores via mma.sync m16n8k16 (the FlashAttention-2 layout of
 // the K3 forward): 4 warps x 16 rows, the walked tiles staged in shared
 // memory, score accumulators re-packed in registers as the A operand of the
 // next product. f32 (f32 models only): CUDA cores, D/32 threads per row.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -33,13 +36,6 @@ using namespace sf;
 namespace {
 
 constexpr float NEG = -0.7f * 3.4028234663852886e38f;
-
-__device__ __forceinline__ void put(float* dst32, bool atomic, float v) {
-  if (atomic)
-    atomicAdd(dst32, v);
-  else
-    *dst32 = v;
-}
 
 // --------------------------------------------------------------- f32 path
 constexpr int NT = 256;
@@ -85,8 +81,7 @@ __global__ void __launch_bounds__(NT)
     bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, int nq, int nk, int chunk,
-               int atomic) {
+               float* __restrict__ dq, int nq, int nk, int chunk) {
   constexpr int TPQ = D / DQ, BQ = NT / TPQ, ROW = TPQ * CH;
   __shared__ __align__(16) float ks[BK * ROW];
   __shared__ __align__(16) float vs[BK * ROW];
@@ -125,7 +120,7 @@ __global__ void __launch_bounds__(NT)
   }
   if (!valid) return;
 #pragma unroll
-  for (int i = 0; i < DQ; ++i) put(dq + qbase + i, atomic, acc[i]);
+  for (int i = 0; i < DQ; ++i) atomicAdd(dq + qbase + i, acc[i]);
 }
 
 template <int D>
@@ -134,8 +129,7 @@ __global__ void __launch_bounds__(NT)
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int nq, int nk, int chunk,
-                int atomic) {
+                float* __restrict__ dv, int nq, int nk, int chunk) {
   constexpr int TPQ = D / DQ, BKEY = NT / TPQ, ROW = TPQ * CH;
   __shared__ __align__(16) float qs[BK * ROW];
   __shared__ __align__(16) float dos[BK * ROW];
@@ -184,8 +178,8 @@ __global__ void __launch_bounds__(NT)
   if (!valid) return;
 #pragma unroll
   for (int i = 0; i < DQ; ++i) {
-    put(dk + kbase + i, atomic, gk[i]);
-    put(dv + kbase + i, atomic, gv[i]);
+    atomicAdd(dk + kbase + i, gk[i]);
+    atomicAdd(dv + kbase + i, gv[i]);
   }
 }
 
@@ -204,17 +198,11 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// accumulator pair (rows g, g + 8 of one 8-column tile) stored at row `row`
-// of a (n, D) output, columns c, c + 1: bf16 directly, or f32 atomics
-__device__ __forceinline__ void store_pair(void* out, bool atomic, size_t idx,
-                                           float a, float b) {
-  if (atomic) {
-    atomicAdd(reinterpret_cast<float*>(out) + idx, a);
-    atomicAdd(reinterpret_cast<float*>(out) + idx + 1, b);
-  } else {
-    *reinterpret_cast<uint32_t*>(reinterpret_cast<bf16*>(out) + idx) =
-        pack_bf16(a, b);
-  }
+// an accumulator pair (columns c, c + 1 of one row) added into an f32 output
+__device__ __forceinline__ void add_pair(float* out, size_t idx, float a,
+                                         float b) {
+  atomicAdd(out + idx, a);
+  atomicAdd(out + idx + 1, b);
 }
 
 template <int D>
@@ -222,8 +210,8 @@ __global__ void __launch_bounds__(BW * 32)
     bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, void* __restrict__ dq,
-                int nq, int nk, int chunk, int atomic) {
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int nq, int nk, int chunk) {
   constexpr int LD = D + 8;  // odd multiple of 16 bytes: no bank conflicts
   constexpr int TK = walk_tile<D>();
   __shared__ __align__(16) bf16 ks[TK * LD];
@@ -312,8 +300,8 @@ __global__ void __launch_bounds__(BW * 32)
     if (row >= nq) continue;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      store_pair(dq, atomic, ((size_t)bh * nq + row) * D + i * 8 + 2 * t,
-                 acc[i][2 * r], acc[i][2 * r + 1]);
+      add_pair(dq, ((size_t)bh * nq + row) * D + i * 8 + 2 * t,
+               acc[i][2 * r], acc[i][2 * r + 1]);
   }
 }
 
@@ -327,9 +315,8 @@ __global__ void __launch_bounds__(BW * 32)
     bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, void* __restrict__ dk,
-                 void* __restrict__ dv, int nq, int nk, int chunk,
-                 int atomic) {
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int nq, int nk, int chunk) {
   constexpr int LD = D + 8;
   constexpr int QS = walk_tile<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -424,15 +411,19 @@ __global__ void __launch_bounds__(BW * 32)
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       const size_t idx = ((size_t)bh * nk + row) * D + i * 8 + 2 * t;
-      store_pair(dk, atomic, idx, gk[i][2 * r], gk[i][2 * r + 1]);
-      store_pair(dv, atomic, idx, gv[i][2 * r], gv[i][2 * r + 1]);
+      add_pair(dk, idx, gk[i][2 * r], gk[i][2 * r + 1]);
+      add_pair(dv, idx, gv[i][2 * r], gv[i][2 * r + 1]);
     }
   }
 }
 
-// chunk of the walked axis per grid.z slice: a whole number of tiles
-inline int chunk_of(int n, int tile, int split, int* nz) {
+// rows of the walked axis (n rows in tiles of `tile`) per grid.z slice, for
+// `blocks` blocks per slice: about four blocks per SM in all, each slice a
+// whole number of tiles and at least four; sets *nz to the slice count
+inline int slice_rows(int n, int tile, int blocks, int sms, int* nz) {
   const int tiles = (n + tile - 1) / tile;
+  const int split =
+      std::max(1, std::min(tiles / 4, (4 * sms + blocks - 1) / blocks));
   const int per = (tiles + split - 1) / split;
   *nz = (tiles + per - 1) / per;
   return per * tile;
@@ -440,79 +431,85 @@ inline int chunk_of(int n, int tile, int split, int* nz) {
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int bh, int nq, int nk, int split_dq, int split_dkv,
-               cudaStream_t s) {
+               const float* lse, const float* delta, float* dq, float* dk,
+               float* dv, int bh, int nq, int nk, int sms, cudaStream_t s) {
   constexpr int ROWS = NT / (D / DQ);
+  const int xq = (nq + ROWS - 1) / ROWS, xk = (nk + ROWS - 1) / ROWS;
   int zq, zk;
-  const int cq = chunk_of(nk, BK, split_dq, &zq);
-  const int ck = chunk_of(nq, BK, split_dkv, &zk);
-  bwd_dq_f32<D><<<dim3((nq + ROWS - 1) / ROWS, bh, zq), NT, 0, s>>>(
+  const int cq = slice_rows(nk, BK, xq * bh, sms, &zq);
+  const int ck = slice_rows(nq, BK, xk * bh, sms, &zk);
+  bwd_dq_f32<D><<<dim3(xq, bh, zq), NT, 0, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dq, nq, nk, cq, split_dq > 1);
+      lse, delta, dq, nq, nk, cq);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  bwd_dkv_f32<D><<<dim3((nk + ROWS - 1) / ROWS, bh, zk), NT, 0, s>>>(
+  bwd_dkv_f32<D><<<dim3(xk, bh, zk), NT, 0, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      lse, delta, (float*)dk, (float*)dv, nq, nk, ck, split_dkv > 1);
+      lse, delta, dk, dv, nq, nk, ck);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
-                void* dq, void* dk, void* dv, int bh, int nq, int nk,
-                int split_dq, int split_dkv, cudaStream_t s) {
+                float* dq, float* dk, float* dv, int bh, int nq, int nk,
+                int sms, cudaStream_t s) {
   constexpr int TILE = walk_tile<D>();
   constexpr int SMEM = dkv_smem_bytes<D>();
+  const int xq = (nq + BR - 1) / BR, xk = (nk + BR - 1) / BR;
   int zq, zk;
-  const int cq = chunk_of(nk, TILE, split_dq, &zq);
-  const int ck = chunk_of(nq, TILE, split_dkv, &zk);
-  bwd_dq_bf16<D><<<dim3((nq + BR - 1) / BR, bh, zq), BW * 32, 0, s>>>(
+  const int cq = slice_rows(nk, TILE, xq * bh, sms, &zq);
+  const int ck = slice_rows(nq, TILE, xk * bh, sms, &zk);
+  bwd_dq_bf16<D><<<dim3(xq, bh, zq), BW * 32, 0, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, dq, nq, nk, cq, split_dq > 1);
+      delta, dq, nq, nk, cq);
   int err = (int)cudaGetLastError();
   if (err) return err;
   err = (int)cudaFuncSetAttribute(bwd_dkv_bf16<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   SMEM);
   if (err) return err;
-  bwd_dkv_bf16<D><<<dim3((nk + BR - 1) / BR, bh, zk), BW * 32, SMEM, s>>>(
+  bwd_dkv_bf16<D><<<dim3(xk, bh, zk), BW * 32, SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, dk, dv, nq, nk, ck, split_dkv > 1);
+      delta, dk, dv, nq, nk, ck);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dq/dk/dv: the io type when their split is 1, else zeroed f32 buffers that
-// the kernels add into (the wrapper rounds them to the io type).
+// dq/dk/dv: zeroed f32 buffers that the kernels add into (the wrapper
+// rounds them to the io type).
 extern "C" int sf_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, void* dq, void* dk, void* dv,
-                            int bh, int nq, int nk, int d, int dtype,
-                            int split_dq, int split_dkv, void* stream) {
+                            const float* delta, float* dq, float* dk,
+                            float* dv, int bh, int nq, int nk, int d,
+                            int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (bh == 0 || nq == 0 || nk == 0) return 0;
-  if (split_dq < 1 || split_dkv < 1) return (int)cudaErrorInvalidValue;
+  int dev, sms;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
   if (dtype == sf::kBF16) {
     switch (d) {
       case 32:
         return launch_bf16<32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, nq,
-                               nk, split_dq, split_dkv, s);
+                               nk, sms, s);
       case 128:
         return launch_bf16<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, nq,
-                                nk, split_dq, split_dkv, s);
+                                nk, sms, s);
     }
     return (int)cudaErrorInvalidValue;
   }
   switch (d) {
     case 32:
       return launch_f32<32>(q, k, v, dout, lse, delta, dq, dk, dv, bh, nq, nk,
-                            split_dq, split_dkv, s);
+                            sms, s);
     case 128:
       return launch_f32<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, nq,
-                             nk, split_dq, split_dkv, s);
+                             nk, sms, s);
   }
   return (int)cudaErrorInvalidValue;
 }

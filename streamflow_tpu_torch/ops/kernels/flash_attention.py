@@ -113,17 +113,11 @@ def flash_attention_fwd(q, k, v, return_lse: bool = False):
     return (out, lse) if return_lse else out
 
 
-def _split(blocks: int, tiles: int, sms: int) -> int:
-    """Slices of the walked axis (of ``tiles`` tiles) so that ``blocks``
-    blocks per slice give the card about four blocks per SM; each slice
-    keeps at least four tiles."""
-    return max(1, min(tiles // 4, -(-4 * sms // blocks)))
-
-
 def flash_attention_bwd(q, k, v, do, lse, delta):
     """B5: (dq, dk, dv) of softmax(q k^T) v from dO, the forward's lse and
     delta = rowsum(dO * O) (both (B, H, N) f32); outputs in the input
-    dtypes. Launches the dq kernel and the dk/dv kernel (one count)."""
+    dtypes. Launches two kernels, the dq pass and the dk/dv pass, and
+    counts each."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)
     _check(q, k, v)
@@ -138,30 +132,16 @@ def flash_attention_bwd(q, k, v, do, lse, delta):
             raise ValueError(f"{name} {tuple(t.shape)} != {(b, h, n)}")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention_bwd needs 16-byte aligned tensors")
-    # rows per block and walked rows per tile of csrc/flash_attn_bwd.cu
-    if q.dtype == torch.bfloat16:
-        rows, tile = 64, (32 if d == 128 else 64)
-    else:
-        rows, tile = 256 // (d // 32), 32
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split_dq = _split(-(-n // rows) * b * h, -(-m // tile), sms)
-    split_dkv = _split(-(-m // rows) * b * h, -(-n // tile), sms)
-
-    def out(like, split):
-        if split > 1:   # f32 partial sums, added by the kernel's slices
-            return torch.zeros(like.shape, dtype=torch.float32,
-                               device=like.device)
-        return torch.empty_like(like)
-
-    dq, dk, dv = out(q, split_dq), out(k, split_dkv), out(v, split_dkv)
+    # f32 buffers that the kernels' blocks add into, rounded once below
+    dq, dk, dv = (torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                  for t in (q, k, v))
     lib = _build.library()
     p = _build.ptr
     code = lib.sf_flash_bwd(p(q), p(k), p(v), p(do), p(lse), p(delta), p(dq),
                             p(dk), p(dv), b * h, n, m, d,
-                            _build.dtype_code(q.dtype), split_dq, split_dkv,
-                            _build.stream_of(q))
+                            _build.dtype_code(q.dtype), _build.stream_of(q))
     _build.check(code, "flash_attention_bwd")
-    LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES["flash_attention_bwd"] += 2
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
