@@ -7,7 +7,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   1. device check (CUDA required; card name and power limit; TF32 off);
   2. kernel build (nvcc, from csrc/, into build/streamflow_tpu_torch/);
   3. every kernel against its plain PyTorch version, on the card, at the
-     main path's shapes, in f32 and bf16, with times from CUDA events;
+     main path's shapes, in f32 and bf16, with times from CUDA events:
+     the default SK layout's K2 forms and the dw_impl='pallas' layout's
+     (K2 ffn_pair and pw_ffn_pair, K5 dw_chain, with the cuDNN depthwise
+     conv of the default layout timed beside K5);
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
@@ -24,12 +27,17 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      counts checked exactly; ms/step, peak memory, every parameter moves,
      a torch.profiler breakdown of one step;
   8. training guard: one step's loss and gradients at 128x256 through the
-     kernel path on the card against the plain path on the CPU.
+     kernel path on the card against the plain path on the CPU;
+  9-12. phases 4, 5, 7 and 8 again for StreamFlowConfig(dw_impl='pallas'),
+     the SK blocks' dw-chain layout (K2 ffn_pair, K5 dw_chain, K2
+     pw_ffn_pair), at the same sizes and depths.
 The line before the last is a JSON object with one entry per kernel and
 path ("inference": phases 3-4, per clip; "train_step": phases 6-7, per
-step): "launches" is the path's count, "ms", "plain_ms", "bound_ms" and
-"library_ms" are summed over the same calls at the path's shapes. The
-last line is {"ok": true, "device": {...}}.
+step; "inference_dw_pallas" and "train_step_dw_pallas": the same for the
+dw_impl='pallas' layout, phases 3, 6, 9 and 11): "launches" is the path's
+count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed over the
+same calls at the path's shapes. The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -97,13 +105,15 @@ KERNELS = {
         "streamflow_tpu/ops/pallas/_attention_kernel.py:327"),
     "lga_attention": ("streamflow_tpu_torch/csrc/lga_attn.cu",
                       "streamflow_tpu/ops/pallas/_lga_kernel.py:116"),
+    "dw_chain": ("streamflow_tpu_torch/csrc/dw_chain.cu",
+                 "streamflow_tpu/ops/pallas/_dw_conv_kernel.py:170"),
 }
 # launches of each kernel in one 12-iteration forward: K1 once per
 # iteration; K2 2 per SK block (6 blocks) per iteration + 8 Twins MLPs;
 # K3 12 GMA + 4 GSA; K4 2 LGA blocks in each of fnet and cnet
 EXPECTED_LAUNCHES = {"corr_lookup": ITERS, "ffn_pair": 12 * ITERS + 8,
                      "flash_attention": ITERS + 4, "flash_attention_bwd": 0,
-                     "lga_attention": 4}
+                     "lga_attention": 4, "dw_chain": 0}
 # launches in one train step with remat: the refinement kernels run in the
 # forward and again in each step's recompute (K1 2x12, K2 2x144 + the 8 of
 # the encoders, K3 2x12 GMA + 4 GSA), K4 once; B5's two kernels (dq pass,
@@ -112,7 +122,17 @@ EXPECTED_TRAIN_LAUNCHES = {"corr_lookup": 2 * ITERS,
                            "ffn_pair": 2 * 12 * ITERS + 8,
                            "flash_attention": 2 * ITERS + 4,
                            "flash_attention_bwd": 2 * (ITERS + 4),
-                           "lga_attention": 4}
+                           "lga_attention": 4, "dw_chain": 0}
+# the dw_impl='pallas' layout: each SK block runs K2 twice (ffn_pair,
+# pw_ffn_pair) and K5 once, in place of K2 twice and a cuDNN conv
+EXPECTED_LAUNCHES_DW = dict(EXPECTED_LAUNCHES, dw_chain=6 * ITERS)
+EXPECTED_TRAIN_LAUNCHES_DW = dict(EXPECTED_TRAIN_LAUNCHES,
+                                  dw_chain=2 * 6 * ITERS)
+# per SK layout (the port's dw_impl): the suffix of its paths in the
+# kernels line and the profile files, its launches per clip and per step
+LAYOUTS = {"auto": ("", EXPECTED_LAUNCHES, EXPECTED_TRAIN_LAUNCHES),
+           "pallas": ("_dw_pallas", EXPECTED_LAUNCHES_DW,
+                      EXPECTED_TRAIN_LAUNCHES_DW)}
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -132,7 +152,12 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
+    """Print a line, and keep it in OUT_DIR/chip_smoke.log (the whole
+    run's lines; a runner may return only the end of the output)."""
     print(msg, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as fh:
+        fh.write(msg + "\n")
 
 
 def smi() -> str:
@@ -250,18 +275,20 @@ def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
     return b
 
 
-def kernel_checks(dev, summary, hp, wp, train):
+def kernel_checks(dev, summaries, hp, wp, train):
     """Every forward kernel against its plain version at the shapes of an
     hp x wp clip (padded size, T frames, B=1), in f32 and bf16; per-kernel
-    bf16 numbers summed into ``summary`` over the calls of one inference
-    clip, or of one train step (``train``: the refinement kernels run twice,
-    forward and remat's recompute, and K3 also returns its logsumexp)."""
+    bf16 numbers summed into ``summaries[layout]`` (per SK layout, "auto"
+    and "pallas") over the calls of one inference clip, or of one train
+    step (``train``: the refinement kernels run twice, forward and remat's
+    recompute, and K3 also returns its logsumexp)."""
     import torch
     import torch.nn.functional as F
 
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import dw_chain as K5
     from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
     from streamflow_tpu_torch.ops.kernels import lga_attention as K4
@@ -271,20 +298,32 @@ def kernel_checks(dev, summary, hp, wp, train):
     def rnd(*shape, scale=1.0, dt=torch.float32):
         return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
 
-    # each make(dt) -> (kernel fn, plain fn, FLOPs, inputs, library fn)
+    # each make(dt) -> (kernel fn, plain fn, FLOPs, inputs, library fn,
+    # None or the default layout's cuDNN conv, timed beside K5)
     def ffn_case(variant, rows, c, ch, co):
         def make(dt):
             w = lambda i, o: rnd(o, i, scale=i ** -0.5, dt=dt)  # noqa: E731
             b = lambda n: rnd(n, scale=0.1, dt=dt)  # noqa: E731
             x = rnd(rows, c, dt=dt)
             flops = 2 * rows * (c * ch + ch * co)
+            if variant == "ffn_pair":
+                args = (x, w(c, ch), b(ch), w(ch, co), b(co))
+                return (lambda: K2.ffn_pair(*args),
+                        lambda: K2.ffn_pair_plain(*args, True),
+                        flops, args, None, None)
+            if variant == "pw_ffn_pair":
+                args = (x, w(c, c), b(c), w(c, ch), b(ch), w(ch, co), b(co))
+                return (lambda: K2.pw_ffn_pair(*args),
+                        lambda: K2.ffn_pair_plain(x, *args[3:], False,
+                                                  wp=args[1], bp=args[2]),
+                        flops + 2 * rows * c * c, args, None, None)
             if variant == "ffn_pair_k1":
                 args = (x, w(c, ch), b(ch), w(ch, co), b(co),
                         rnd(co, scale=0.3, dt=dt), b(co))
                 return (lambda: K2.ffn_pair_k1(*args),
                         lambda: K2.ffn_pair_plain(*args[:5], True,
                                                   kw=args[5], kb=args[6]),
-                        flops, args, None)
+                        flops, args, None, None)
             if variant == "dwres_pw_ffn_pair":
                 args = (x, rnd(rows, c, dt=dt), b(c), w(c, c), b(c),
                         w(c, ch), b(ch), w(ch, co), b(co))
@@ -292,13 +331,32 @@ def kernel_checks(dev, summary, hp, wp, train):
                         lambda: K2.ffn_pair_plain(
                             x, *args[5:], False, wp=args[3], bp=args[4],
                             yres=args[1], db=args[2]),
-                        flops + 2 * rows * c * c, args, None)
+                        flops + 2 * rows * c * c, args, None, None)
             args = (x, 1.0 + rnd(c, scale=0.1, dt=dt), b(c), w(c, ch),
                     b(ch), w(ch, co), b(co))
             return (lambda: K2.ln_ffn_pair(*args),
                     lambda: K2.ffn_pair_plain(x, *args[3:], False,
                                               ln=args[1:3], add_res=True),
-                    flops, args, None)
+                    flops, args, None, None)
+        return make
+
+    def dw_case(nimg, c, k):
+        def make(dt):
+            x = rnd(nimg, h8, w8, c, dt=dt)
+            ws = (rnd(c, 1, 1, 1, scale=0.3, dt=dt),
+                  rnd(c, 1, k, k, scale=1 / k, dt=dt))
+            bs = (rnd(c, scale=0.1, dt=dt), rnd(c, scale=0.1, dt=dt))
+
+            def cudnn():
+                # the default layout's conv of the same tensor, copies
+                # included (layers/sk.py)
+                y = x.permute(0, 3, 1, 2)
+                y = y.contiguous() if k > 7 else y
+                y = F.conv2d(y, ws[1], None, 1, k // 2, 1, c)
+                return y.permute(0, 2, 3, 1).contiguous()
+            return (lambda: K5.dw_chain(x, ws, bs, (1, k)),
+                    lambda: K5.dw_chain_plain(x, ws, bs, (1, k)),
+                    2 * k * k * x.numel(), (x, *ws, *bs), None, cudnn)
         return make
 
     def flash_case(bh_shape, n, m, d):
@@ -311,7 +369,7 @@ def kernel_checks(dev, summary, hp, wp, train):
                                                      return_lse=train),
                     4 * bh * n * m * d, (q, k, v),
                     lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           scale=1.0))
+                                                           scale=1.0), None)
         return make
 
     def lga_case(hp, wp, c, nh):
@@ -327,7 +385,8 @@ def kernel_checks(dev, summary, hp, wp, train):
                     lambda: K4.lga_attention_plain(qkv, ws, nh),
                     4 * windows * nh * (ws * ws) ** 2 * hd, (qkv,),
                     lambda: F.scaled_dot_product_attention(
-                        parts[0], parts[1], parts[2], scale=hd ** -0.5))
+                        parts[0], parts[1], parts[2], scale=hd ** -0.5),
+                    None)
         return make
 
     def corr_case():
@@ -354,7 +413,7 @@ def kernel_checks(dev, summary, hp, wp, train):
                 taps += int((nx * ny).sum())
             return (lambda: K1.corr_lookup(f1, levels, coords, r),
                     lambda: K1.corr_lookup_plain(f1, levels, coords, r),
-                    2 * c * taps, (f1, *levels, coords), None)
+                    2 * c * taps, (f1, *levels, coords), None, None)
         return make
 
     # token grids at 1/8 and 1/4 of the padded clip; the refinement kernels
@@ -365,45 +424,56 @@ def kernel_checks(dev, summary, hp, wp, train):
     h4, w4 = 2 * h8, 2 * w8
     path = "train step" if train else "clip"
     refine = 2 * ITERS if train else ITERS
-    sk = [(324, 256, 3), (256, 192, 3), (128, 64, 3), (256, 126, 3),
-          (640, 128, 3), (384, 6, 1)]
-    cases = []  # (kernel, label, make, calls per clip or train step)
-    for c, co, pairs in sk:
+    # the six SK blocks (c_in, out_dim, images, dw k): convc1, convc2,
+    # convf2, conv, gru, flow_head; cases tagged with the SK layouts whose
+    # path runs them ("auto", "pallas")
+    sk = [(324, 256, 3, 15), (256, 192, 3, 15), (128, 64, 3, 15),
+          (256, 126, 3, 15), (640, 128, 3, 7), (384, 6, 1, 15)]
+    both, auto, chain = ("auto", "pallas"), ("auto",), ("pallas",)
+    cases = []  # (kernel, label, make, calls per clip or step, layouts)
+    for c, co, pairs, k in sk:
         ch, rows = int(1.5 * c), pairs * h8 * w8
         cases.append(("ffn_pair", f"ffn_pair_k1 {rows}x{c}-{ch}-{c}",
-                      ffn_case("ffn_pair_k1", rows, c, ch, c), refine))
+                      ffn_case("ffn_pair_k1", rows, c, ch, c), refine, auto))
         cases.append(("ffn_pair", f"dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("dwres_pw_ffn_pair", rows, c, ch, co),
-                      refine))
+                      refine, auto))
+        cases.append(("ffn_pair", f"ffn_pair {rows}x{c}-{ch}-{c}",
+                      ffn_case("ffn_pair", rows, c, ch, c), refine, chain))
+        cases.append(("dw_chain", f"{pairs}x{h8}x{w8}x{c} ks (1, {k})",
+                      dw_case(pairs, c, k), refine, chain))
+        cases.append(("ffn_pair", f"pw_ffn_pair {rows}x{c}-{ch}-{co}",
+                      ffn_case("pw_ffn_pair", rows, c, ch, co), refine,
+                      chain))
     for c, rows in ((128, T * h4 * w4), (128, (T - 1) * h4 * w4),
                     (256, T * h8 * w8), (256, (T - 1) * h8 * w8)):
         cases.append(("ffn_pair", f"ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
-                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2))
+                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, both))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
-                  flash_case((3, 1), n, n, 128), refine))
+                  flash_case((3, 1), n, n, 128), refine, both))
     # GSA: keys from a stride-sr conv of the frames stacked along H
     for stage, nh, sr, hh, ww in ((0, 4, 8, h4, w4), (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             n, m = t * hh * ww, (t * hh // sr) * (ww // sr)
             cases.append(("flash_attention",
                           f"gsa{stage} {enc} h{nh} n{n} m{m} d32",
-                          flash_case((1, nh), n, m, 32), 1))
+                          flash_case((1, nh), n, m, 32), 1, both))
     cases.append(("flash_attention", "padded kv h2 n300 m1000 d128",
-                  flash_case((1, 2), 300, 1000, 128), 0))
+                  flash_case((1, 2), 300, 1000, 128), 0, both))
     # LGA: the qkv grid of the frames stacked along H, padded to 7x7 windows
     for stage, c, nh, hh, ww in ((0, 128, 4, h4, w4), (1, 256, 8, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             hq, wq = -(-t * hh // 7) * 7, -(-ww // 7) * 7
             cases.append(("lga_attention",
                           f"stage{stage} {enc} {hq}x{wq}x{3 * c} h{nh}",
-                          lga_case(hq, wq, c, nh), 1))
+                          lga_case(hq, wq, c, nh), 1, both))
     cases.append(("corr_lookup", f"3x{h8}x{w8}x256 4 levels r4", corr_case(),
-                  refine))
+                  refine, both))
 
-    for kernel, label, make, calls in cases:
+    for kernel, label, make, calls, layouts in cases:
         for dt in (torch.float32, torch.bfloat16):
-            run, plain, flops, inputs, library = make(dt)
+            run, plain, flops, inputs, library, aside = make(dt)
             got, want = run(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -415,15 +485,23 @@ def kernel_checks(dev, summary, hp, wp, train):
             if dt == torch.bfloat16:
                 ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
                 lib_ms = cuda_ms(library, REPS) if library else None
-                s = summary[kernel]
-                s["err"] = max(s["err"], err)
                 io = nbytes(*inputs, *got)
-                b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                for layout in layouts:
+                    s = summaries[layout][kernel]
+                    s["err"] = max(s["err"], err)
+                    b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                extra = ""
+                if aside is not None:
+                    extra = (f"; the default layout's cuDNN conv of the "
+                             f"same tensor {cuda_ms(aside, REPS):.4f} ms, "
+                             f"f32 FMA floor (67 TFLOP/s) "
+                             f"{1e3 * flops / PEAK_FLOPS['float32']:.4f} ms")
                 log(f"time {kernel} [{label}] bf16: kernel {ms:.4f} ms "
                     f"plain {pms:.4f} ms bound {b:.4f} ms ({flops:.4g} "
                     f"FLOP, {io:.4g} B) library "
                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-                    + f"; calls per {path} {calls}")
+                    + f"; calls per {path} {calls} ({'/'.join(layouts)})"
+                    + extra)
             del got, want
         torch.cuda.empty_cache()
 
@@ -441,14 +519,16 @@ def make_clip(dev):
     return imgs.reshape(B, T, *padder.padded_shape, 3).to(dev)
 
 
-def full_forward(dev):
+def full_forward(dev, dw_impl):
     import torch
 
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    cfg = StreamFlowConfig(T=T, iters=ITERS, mixed_precision=True)
+    suffix, expected, _ = LAYOUTS[dw_impl]
+    cfg = StreamFlowConfig(T=T, iters=ITERS, mixed_precision=True,
+                           dw_impl=dw_impl)
     model = create_model("streamflow", cfg=cfg)
     init_weights(model, SEED)
     imgs = make_clip(dev)
@@ -461,9 +541,9 @@ def full_forward(dev):
     flows = model(imgs)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    log(f"forward launches {json.dumps(counts)} expected "
-        f"{json.dumps(EXPECTED_LAUNCHES)}")
-    assert counts == EXPECTED_LAUNCHES, "launch counts differ"
+    log(f"forward dw_impl={dw_impl!r} launches {json.dumps(counts)} expected "
+        f"{json.dumps(expected)}")
+    assert counts == expected, "launch counts differ"
     assert flows.shape == (B, T - 1, hp, wp, 2), flows.shape
     assert bool(torch.isfinite(flows).all()), "non-finite flows"
     peak = torch.cuda.max_memory_allocated()
@@ -477,13 +557,14 @@ def full_forward(dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = 1e3 * sum(times) / len(times)
-    log(f"forward {tuple(flows.shape)} finite; ms/clip {ms:.3f} (mean of "
+    log(f"forward dw_impl={dw_impl!r} {tuple(flows.shape)} finite; ms/clip "
+        f"{ms:.3f} (mean of "
         f"{REPS}, min {1e3 * min(times):.3f}); frames/s {T / (ms / 1e3):.3f};"
         f" max_memory_allocated {peak / 2 ** 30:.3f} GiB; |flow| px mean "
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
-    profile_device(lambda: model(imgs), ms, "forward")
+    profile_device(lambda: model(imgs), ms, "forward" + suffix)
     return counts
 
 
@@ -515,6 +596,7 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
         for pat, group in (("corr_lookup", "corr_lookup"),
                            ("ffn_pair", "ffn_pair"),
                            ("flash_fwd", "flash_fwd"),
+                           ("dw_chain", "dw_chain"),
                            ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
                            ("lga_kernel", "lga_kernel"), ("conv", "conv"),
                            ("gemm", "gemm"), ("elementwise", "elementwise"),
@@ -536,10 +618,10 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
     return {"total_ms": total / 1e3, "idle": idle}
 
 
-def accuracy_guards(dev) -> None:
-    """iters=1, one clip, the same weights: the kernel path on the card and
-    the plain path on the CPU, each in f32 and bf16, against the f32 plain
-    path."""
+def accuracy_guards(dev, dw_impl) -> None:
+    """iters=1, one clip, the same weights, the SK layout ``dw_impl``: the
+    kernel path on the card and the plain path on the CPU, each in f32 and
+    bf16, against the f32 plain path."""
     import copy
 
     import torch
@@ -551,7 +633,8 @@ def accuracy_guards(dev) -> None:
     flows = {}
     for dtype in ("float32", "bfloat16"):
         cfg = StreamFlowConfig(T=T, iters=1,
-                               mixed_precision=dtype == "bfloat16")
+                               mixed_precision=dtype == "bfloat16",
+                               dw_impl=dw_impl)
         cpu_model = create_model("streamflow", cfg=cfg, device="cpu")
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
@@ -569,7 +652,8 @@ def accuracy_guards(dev) -> None:
     f32 = rel_epe(flows["float32", "card"])
     bf16, bf16_plain = (rel_epe(flows["bfloat16", where])
                         for where in ("card", "cpu"))
-    log(f"accuracy guard iters=1 against the f32 plain path (|flow_ref| px "
+    log(f"accuracy guard dw_impl={dw_impl!r} iters=1 against the f32 plain "
+        f"path (|flow_ref| px "
         f"mean {float(mag.mean()):.4g} max {float(mag.max()):.4g}), rel EPE "
         f"global / per-pixel p99: f32 kernels {f32[0]:.3e} / {f32[1]:.3e} "
         f"(bound {F32_GUARD_TOL} each); bf16 kernels {bf16[0]:.3e} / "
@@ -581,18 +665,19 @@ def accuracy_guards(dev) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def backward_checks(dev, summary) -> None:
+def backward_checks(dev, summaries) -> None:
     """B5, with K3's output and lse, against their plain versions at the
     training shapes (f32, bf16; bf16 timed beside its bound and SDPA's
-    backward, summed over one train step's calls into ``summary``), and
-    each kernel wrapper's forward (f32, bf16) and gradient (f32) against
-    its plain version."""
+    backward, summed over one train step's calls into each of
+    ``summaries``), and each kernel wrapper's forward (f32, bf16) and
+    gradient (f32) against its plain version."""
     import torch
     import torch.nn.functional as F
 
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import dw_chain as K5
     from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
     from streamflow_tpu_torch.ops.kernels import lga_attention as K4
@@ -644,9 +729,10 @@ def backward_checks(dev, summary) -> None:
                     ref, (qs, ks, vs), do, retain_graph=True), REPS)
                 flops = 10 * math.prod(bh_shape) * n * m * d
                 io = nbytes(q, k, v, do, lse, delta, *got)
-                s = summary["flash_attention_bwd"]
-                s["err"] = max(s["err"], err)
-                b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                for summary in summaries:
+                    s = summary["flash_attention_bwd"]
+                    s["err"] = max(s["err"], err)
+                    b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
                 log(f"time flash_attention_bwd [{label}] bf16: kernel "
                     f"{ms:.4f} ms plain {pms:.4f} ms bound {b:.4f} ms "
                     f"({flops:.4g} FLOP, {io:.4g} B) library (SDPA "
@@ -707,6 +793,24 @@ def backward_checks(dev, summary) -> None:
                list(zip("xyabcdefg", (x, rnd(rows, c), b(c), w(c, c), b(c),
                                       w(c, 486), b(486), w(486, 256),
                                       b(256)))))
+    grad_check("ffn_pair [convc1, dw_impl='pallas']", K2.ffn_pair,
+               lambda *a: K2.ffn_pair_plain(*a, True),
+               list(zip("xabcd", (x, w(c, 486), b(486), w(486, c), b(c)))))
+    grad_check("pw_ffn_pair [convc1, dw_impl='pallas']", K2.pw_ffn_pair,
+               lambda *a: K2.ffn_pair_plain(a[0], *a[3:], False, wp=a[1],
+                                            bp=a[2]),
+               list(zip("xabcdef", (x, w(c, c), b(c), w(c, 486), b(486),
+                                    w(486, 256), b(256)))))
+    xs = x.reshape(3, h8, w8, c)
+    for cc, k, xk in ((c, 15, xs), (640, 7, rnd(3, h8, w8, 640))):
+        grad_check(f"dw_chain [{tuple(xk.shape)} ks (1, {k})]",
+                   lambda a, w1, wk, b1, bk, k=k: K5.dw_chain(
+                       a, (w1, wk), (b1, bk), (1, k)),
+                   lambda a, w1, wk, b1, bk, k=k: K5.dw_chain_plain(
+                       a, (w1, wk), (b1, bk), (1, k)),
+                   list(zip("xabcd", (xk, rnd(cc, 1, 1, 1, scale=0.3),
+                                      rnd(cc, 1, k, k, scale=1 / k),
+                                      b(cc), b(cc)))))
     xt = rnd(T * 2 * h8 * 2 * w8, 128)
     grad_check("ln_ffn_pair [twins stage 0 fnet]", K2.ln_ffn_pair,
                lambda *a: K2.ffn_pair_plain(a[0], *a[3:], False,
@@ -731,29 +835,32 @@ def backward_checks(dev, summary) -> None:
 
 
 # ---------------------------------------------------------------- phase 7
-def train_setup(dev, h, w, iters, mixed_precision, seed):
-    """A TrainState holding a training model with the seeded weights, and a
-    seeded synthetic batch (uint8-range images, N(0, 4^2) px flows)."""
+def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl):
+    """A TrainState holding a training model (SK layout ``dw_impl``) with
+    the seeded weights, and a seeded synthetic batch (uint8-range images,
+    N(0, 4^2) px flows)."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.tools.train_bench import synthetic_batch
     from streamflow_tpu_torch.training.state import TrainState
 
     cfg = StreamFlowConfig(T=T, iters=iters, mixed_precision=mixed_precision,
-                           remat=True)
+                           remat=True, dw_impl=dw_impl)
     model = create_model("streamflow", cfg=cfg, device=dev, train=True)
     init_weights(model, seed)
     state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
     return state, synthetic_batch(B, T, h, w, seed, dev)
 
 
-def train_step_phase(dev) -> dict:
+def train_step_phase(dev, dw_impl) -> dict:
     import torch
 
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from streamflow_tpu_torch.training.step import make_train_step
 
-    state, batch = train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED)
+    suffix, _, expected = LAYOUTS[dw_impl]
+    state, batch = train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED,
+                               dw_impl)
     step = make_train_step(gamma=0.85, iters=ITERS)
     before = {n: p.detach().clone() for n, p in
               state.model.named_parameters()}
@@ -770,28 +877,30 @@ def train_step_phase(dev) -> dict:
         if i == 0:
             counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train step launches {json.dumps(counts)} expected "
-        f"{json.dumps(EXPECTED_TRAIN_LAUNCHES)}")
-    assert counts == EXPECTED_TRAIN_LAUNCHES, "train launch counts differ"
+    log(f"train step dw_impl={dw_impl!r} launches {json.dumps(counts)} "
+        f"expected {json.dumps(expected)}")
+    assert counts == expected, "train launch counts differ"
     loss, norm = float(m["loss"]), float(m["grad_norm"])
     assert math.isfinite(loss) and math.isfinite(norm), (loss, norm)
     still = [n for n, p in state.model.named_parameters()
              if torch.equal(p.detach(), before[n])]
     assert not still, f"parameters that did not move: {still[:5]}"
     ms = 1e3 * sum(times) / len(times)
-    log(f"train step {B}x{T}x{TRAIN_H}x{TRAIN_W} iters {ITERS} bf16 + f32 "
+    log(f"train step dw_impl={dw_impl!r} {B}x{T}x{TRAIN_H}x{TRAIN_W} iters "
+        f"{ITERS} bf16 + f32 "
         f"params + remat: ms/step {ms:.3f} (mean of {TRAIN_STEPS} after a "
         f"warm-up, each {[round(1e3 * t, 3) for t in times]}); steps/s "
         f"{1e3 / ms:.4f}; max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
         f"loss {loss:.6g} grad_norm {norm:.6g} epe {float(m['epe']):.6g}; "
         f"all {len(before)} parameters moved")
-    profile_device(lambda: step(state, batch), ms, "train_step")
+    profile_device(lambda: step(state, batch), ms, "train_step" + suffix)
     return counts
 
 
 # ---------------------------------------------------------------- phase 8
-def training_guard(dev) -> None:
-    """One step's loss and gradients at GUARD_H x GUARD_W: the kernel path
+def training_guard(dev, dw_impl) -> None:
+    """One step's loss and gradients at GUARD_H x GUARD_W, SK layout
+    ``dw_impl``: the kernel path
     on the card against the plain path on the CPU, f32 and bf16, each
     against the f32 plain path (same seeded weights and batch). The f32
     bound of each gradient is GRAD_TOL plus PERTURB_SLACK times that
@@ -812,7 +921,7 @@ def training_guard(dev) -> None:
             (True, "card", dev, 0.0)]
     for mp, path, where, eps in runs:
         state, batch = train_setup(where, GUARD_H, GUARD_W, GUARD_ITERS, mp,
-                                   SEED + 3)
+                                   SEED + 3, dw_impl)
         model = state.model
         if eps:
             g = torch.Generator().manual_seed(SEED + 4)
@@ -845,10 +954,12 @@ def training_guard(dev) -> None:
     def median(d):
         return sorted(d.values())[len(d) // 2]
 
-    log(f"training guard {GUARD_H}x{GUARD_W} iters {GUARD_ITERS} against "
+    log(f"training guard dw_impl={dw_impl!r} {GUARD_H}x{GUARD_W} iters "
+        f"{GUARD_ITERS} against "
         f"the f32 plain path (loss {ref_loss:.6g}): f32 kernels loss rel "
         f"err {f32[0]:.3e} (bound {GRAD_TOL}), gradients rel L2 global "
-        f"{f32[2]:.3e} (bound {GRAD_GLOBAL_TOL}) median {median(f32[1]):.3e} max "
+        f"{f32[2]:.3e} (bound {GRAD_GLOBAL_TOL}) median "
+        f"{median(f32[1]):.3e} max "
         f"{max(f32[1].values()):.3e}; 1e-6 weight perturbation of the plain "
         f"path: global {pert[2]:.3e} median {median(pert[1]):.3e} max "
         f"{max(pert[1].values()):.3e}; closest to its bound {worst}: "
@@ -876,6 +987,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
                          "() is False)")
     dev = torch.device("cuda:0")
+    os.makedirs(OUT_DIR, exist_ok=True)   # the log holds this run's lines
+    open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi()
@@ -888,32 +1001,61 @@ def main() -> None:
     _build.library()
     log(f"phase 2 build: {_build.build_seconds:.1f} s")
     log(_build.ptxas_summary())
+    ptxas = _build._BUILD / "ptxas.log"
+    if ptxas.exists():   # nvcc's own lines, registers and spills per kernel
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as fh:
+            fh.write(ptxas.read_text())
 
-    summary = {"inference": new_summary(), "train_step": new_summary()}
-    kernel_checks(dev, summary["inference"], 440, 1024, train=False)
-    log("phase 3 kernels: all checks passed")
-    counts = {"inference": full_forward(dev)}
-    log("phase 4 forward: passed")
-    accuracy_guards(dev)
-    log("phase 5 accuracy guards: passed")
-    kernel_checks(dev, summary["train_step"], TRAIN_H, TRAIN_W, train=True)
-    backward_checks(dev, summary["train_step"])
-    log("phase 6 training-shape kernels: all checks passed")
-    counts["train_step"] = train_step_phase(dev)
-    log("phase 7 train step: passed")
-    training_guard(dev)
-    log("phase 8 training guard: passed")
+    t_start = time.perf_counter()
+    # per path: its SK layout and its phases (kernel checks, forward or
+    # train step); phases 3 and 6 time each kernel for both layouts
+    summary = {path + LAYOUTS[dw][0]: new_summary()
+               for path in ("inference", "train_step") for dw in LAYOUTS}
+    counts = {}
+
+    def phase(n, what, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {n} {what}: passed ({time.perf_counter() - t0:.1f} s)")
+        return out
+
+    def per_layout(path):
+        return {dw: summary[path + LAYOUTS[dw][0]] for dw in LAYOUTS}
+
+    phase(3, "kernels", kernel_checks, dev, per_layout("inference"), 440,
+          1024, False)
+    counts["inference"] = phase(4, "forward", full_forward, dev, "auto")
+    phase(5, "accuracy guards", accuracy_guards, dev, "auto")
+
+    def training_kernels():
+        kernel_checks(dev, per_layout("train_step"), TRAIN_H, TRAIN_W, True)
+        backward_checks(dev, list(per_layout("train_step").values()))
+    phase(6, "training-shape kernels", training_kernels)
+    counts["train_step"] = phase(7, "train step", train_step_phase, dev,
+                                 "auto")
+    phase(8, "training guard", training_guard, dev, "auto")
+    counts["inference_dw_pallas"] = phase(
+        9, "forward dw_impl='pallas'", full_forward, dev, "pallas")
+    phase(10, "accuracy guards dw_impl='pallas'", accuracy_guards, dev,
+          "pallas")
+    counts["train_step_dw_pallas"] = phase(
+        11, "train step dw_impl='pallas'", train_step_phase, dev, "pallas")
+    phase(12, "training guard dw_impl='pallas'", training_guard, dev,
+          "pallas")
+    log(f"phases 3-12: {time.perf_counter() - t_start:.1f} s after the "
+        f"build")
 
     assert "jax" not in sys.modules, "the port must not import jax"
     kernels = []
-    for path in ("inference", "train_step"):
+    for path, path_counts in counts.items():
         for k, (src, rep) in KERNELS.items():
-            if not counts[path][k]:
-                continue   # not on this path (B5 in inference)
+            if not path_counts[k]:
+                continue   # not on this path (B5 in inference, K5 default)
             s = summary[path][k]
             kernels.append({
                 "name": k, "path": path, "route": "cuda", "source": src,
-                "replaces": rep, "launches": counts[path][k],
+                "replaces": rep, "launches": path_counts[k],
                 "max_abs_err": s["err"],
                 "ms": round(s["ms"], 4), "plain_ms": round(s["plain_ms"], 4),
                 "bound_ms": round(s["bound_ms"], 4),
@@ -922,10 +1064,10 @@ def main() -> None:
                 "library_ms": (None if s["library_ms"] is None
                                else round(s["library_ms"], 4))})
     log(smi())
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

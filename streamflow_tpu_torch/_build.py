@@ -2,8 +2,9 @@
 
 All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
 a plain C interface (no PyTorch headers: seconds to build, not minutes),
-loaded with ``ctypes``. The build runs at first use, from the repository's
-own sources, into ``build/streamflow_tpu_torch/`` (ignored by git), and is
+loaded with ``ctypes``: one ``nvcc -c`` per source, all started together,
+then one link. The build runs at first use, from the repository's own
+sources, into ``build/streamflow_tpu_torch/`` (ignored by git), and is
 redone whenever the sources' content hash changes.
 
 Every exported launcher takes device pointers and the CUDA stream as
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "sf_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
     "sf_lga_attn": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sf_dw_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -74,17 +76,39 @@ def library():
     _BUILD.mkdir(parents=True, exist_ok=True)
     so = _BUILD / f"libsf_kernels_{_digest()}.so"
     if not so.exists():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp)]
-        cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        (_BUILD / "ptxas.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-6000:]}")
-        os.replace(tmp, so)
+        nvcc, tag = _nvcc(), f"{_digest()}.{os.getpid()}"
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+        srcs = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [_BUILD / f"{p.stem}.{tag}.o" for p in srcs]
+        tmp, procs = so.with_suffix(f".{os.getpid()}.tmp"), []
+        try:
+            for src, obj in zip(srcs, objs):
+                procs.append(subprocess.Popen(
+                    [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                     str(src)], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+            outs = [p.communicate()[0] for p in procs]
+            (_BUILD / "ptxas.log").write_text("".join(
+                f"== {s.name}\n{o}" for s, o in zip(srcs, outs)))
+            failed = [f"{s.name} ({p.returncode}):\n{o[-4000:]}"
+                      for s, p, o in zip(srcs, procs, outs) if p.returncode]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            res = subprocess.run([nvcc, *flags, "-shared", "-o", str(tmp),
+                                  *map(str, objs)], capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                                   f"{res.stderr[-6000:]}")
+            os.replace(tmp, so)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -8,15 +8,24 @@ iterations, bf16 compute), so one dict of keyword arguments builds either.
 Kernels are chosen by the device of each tensor, in the wrapper that
 launches it (``ops/kernels/``): a CUDA tensor launches the kernel, a CPU
 tensor takes its plain PyTorch version. No field of this config enters
-that choice, so the fields that steer the JAX package's TPU kernels are
-accepted and ignored: ``corr_impl``, ``corr_store``, ``attn_impl``,
-``dw_impl`` (with all of its ``xla_cond*``, ``xla_fenced`` and ``banded*``
-variants), ``lga_impl``, ``twins_ffn_fused``, ``lookup_block_q``,
-``lookup_unroll``, ``lookup_f2_major``, ``lookup_rows``, ``scan_unroll``,
-``dropout`` and ``ffn_gelu`` (the port's gelu is always the exact erf,
-``torch.erf``). ``gsa_flash`` is honoured by the Twins encoders and
-``remat`` by the train-mode forward (each refinement step recomputed in
-the backward).
+that choice.
+
+``dw_impl`` picks the layout of the six SK blocks (``layers/sk.py``):
+``'pallas'`` is the JAX package's dw-chain layout (K2 ``ffn_pair``, K5
+``dw_chain``, K2 ``pw_ffn_pair``); every other value (``'auto'``, ``'xla'``,
+the ``xla_cond*`` and ``xla_fenced`` variants) keeps the edge-fused layout
+that JAX's ``resolve()`` picks on a TPU (``xla_cond``: K2 ``ffn_pair_k1``,
+the depthwise conv alone, K2 ``dwres_pw_ffn_pair``). The ``banded*``
+values are accepted and, until their kernels are ported, also keep the
+edge-fused layout.
+
+The other fields that steer the JAX package's TPU kernels are accepted and
+ignored: ``corr_impl``, ``corr_store``, ``attn_impl``, ``lga_impl``,
+``twins_ffn_fused``, ``lookup_block_q``, ``lookup_unroll``,
+``lookup_f2_major``, ``lookup_rows``, ``scan_unroll``, ``dropout`` and
+``ffn_gelu`` (the port's gelu is always the exact erf, ``torch.erf``).
+``gsa_flash`` is honoured by the Twins encoders and ``remat`` by the
+train-mode forward (each refinement step recomputed in the backward).
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ class StreamFlowConfig:
     mixed_precision: bool = True
     gsa_flash: bool = False
 
-    # accepted and ignored, except remat (TPU kernel choices; see above)
+    # TPU kernel choices: dw_impl picks the SK layout, the rest are
+    # accepted and ignored (remat aside; see above)
     corr_impl: str = "auto"
     corr_store: str = "auto"
     attn_impl: str = "auto"

@@ -1,11 +1,13 @@
 // K2: fused FFN pair with optional edge stages, one row tile per block.
 //
 // Replaces the Pallas kernel streamflow_tpu/ops/pallas/_ffn_kernel.py
-// (_ffn_pair_fwd -> pl.pallas_call) in its three main-path forms:
+// (_ffn_pair_fwd -> pl.pallas_call) in its five forms:
 //   ffn_pair_k1       y = k1(gelu(x + gelu(x W1 + b1) W2 + b2))
 //   dwres_pw_ffn_pair x = gelu(x + y_dw + b_dw); x = gelu(x + x Wp + bp);
 //                     y = gelu(x W1 + b1) W2 + b2
 //   ln_ffn_pair       y = x + gelu(LN(x) W1 + b1) W2 + b2
+//   ffn_pair          y = [gelu(x +)] gelu(x W1 + b1) W2 + b2
+//   pw_ffn_pair       x = gelu(x + x Wp + bp); y = [gelu(x +)] pair(x)
 // with k1(y) = gelu(y + y*kw + kb). Rounding to the io type happens exactly
 // where ffn_pair_xla rounds (after each prologue stage and after the hidden
 // gelu); all products accumulate in f32.

@@ -24,13 +24,13 @@ class SKMotionEncoder6(nn.Module):
     concat -> SK(out_dim - 2); concat flow -> out_dim channels."""
 
     def __init__(self, corr_planes: int = 324, out_dim: int = 128,
-                 k_conv: Sequence[int] = (1, 15)):
+                 k_conv: Sequence[int] = (1, 15), dw_impl: str = "auto"):
         super().__init__()
-        self.convc1 = SKBlock(corr_planes, 256, k_conv)
-        self.convc2 = SKBlock(256, 192, k_conv)
+        self.convc1 = SKBlock(corr_planes, 256, k_conv, dw_impl)
+        self.convc2 = SKBlock(256, 192, k_conv, dw_impl)
         self.convf1 = nn.Conv2d(2, 128, 1)
-        self.convf2 = SKBlock(128, 64, k_conv)
-        self.conv = SKBlock(192 + 64, out_dim - 2, k_conv)
+        self.convf2 = SKBlock(128, 64, k_conv, dw_impl)
+        self.conv = SKBlock(192 + 64, out_dim - 2, k_conv, dw_impl)
 
     def forward(self, flow, corr):
         cor = self.convc2(gelu(self.convc1(corr)))
@@ -43,20 +43,22 @@ class SKMotionEncoder6(nn.Module):
 class SKUpdateBlockTAMv3(nn.Module):
     """SK motion encoder + GMA aggregate + zero-init temporal layer + SK
     "gru" + joint flow head over all F frames + the convex-upsample mask
-    head (3x3 conv -> ReLU -> 1x1 conv, scaled by 0.25)."""
+    head (3x3 conv -> ReLU -> 1x1 conv, scaled by 0.25). ``dw_impl``
+    picks the layout of the six SK blocks (layers/sk.py)."""
 
     def __init__(self, embed_dim: int = 128, num_frames: int = 3,
                  corr_planes: int = 324, k_conv: Sequence[int] = (1, 15),
                  pc_updater_conv: Sequence[int] = (1, 7), num_heads: int = 1,
-                 ratio: int = 8):
+                 ratio: int = 8, dw_impl: str = "auto"):
         super().__init__()
         d = embed_dim
         self.num_frames = num_frames
-        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv)
+        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv, dw_impl)
         self.aggregator = GMAAggregate(d, num_heads, d)
         self.transformer_block = TemporalLayer(d)
-        self.gru = SKBlock(5 * d, d, pc_updater_conv)
-        self.flow_head = SKBlock(num_frames * d, 2 * num_frames, k_conv)
+        self.gru = SKBlock(5 * d, d, pc_updater_conv, dw_impl)
+        self.flow_head = SKBlock(num_frames * d, 2 * num_frames, k_conv,
+                                 dw_impl)
         self.mask = nn.Sequential(nn.Conv2d(d, 2 * d, 3, padding=1),
                                   nn.ReLU(), nn.Conv2d(2 * d, 9 * ratio ** 2,
                                                        1))

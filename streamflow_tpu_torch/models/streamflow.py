@@ -51,7 +51,7 @@ class StreamFlow(nn.Module):
                                 cfg.context_dim)
         self.update_block = SKUpdateBlockTAMv3(
             cfg.hidden_dim, cfg.T - 1, cfg.corr_planes, cfg.k_conv,
-            cfg.pc_updater_conv, cfg.num_heads, cfg.ratio)
+            cfg.pc_updater_conv, cfg.num_heads, cfg.ratio, cfg.dw_impl)
         self.to(self.dtype)
 
     def forward(self, images, iters=None, flow_init=None,

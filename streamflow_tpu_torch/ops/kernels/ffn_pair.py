@@ -1,13 +1,20 @@
 """K2, the fused FFN pair (CUDA source ``csrc/ffn_pair.cu``).
 
 Replaces the Pallas kernel ``streamflow_tpu/ops/pallas/_ffn_kernel.py::
-_ffn_pair_fwd`` in the three forms the main path runs:
+_ffn_pair_fwd`` in its five forms:
 
 - ``ffn_pair_k1``: the SK block's first FFN pair with the dw chain's k=1
   stage as an epilogue, y = k1(gelu(x + gelu(x W1 + b1) W2 + b2));
 - ``dwres_pw_ffn_pair``: the dw conv's bias + residual gelu, the pointwise
   stage and the second pair, no residual;
-- ``ln_ffn_pair``: the Twins pre-norm MLP, x + fc2(gelu(fc1(LN(x)))).
+- ``ln_ffn_pair``: the Twins pre-norm MLP, x + fc2(gelu(fc1(LN(x))));
+- ``ffn_pair``: the plain pair, with or without its residual gelu (the SK
+  block's first pair in the ``dw_impl='pallas'`` layout);
+- ``pw_ffn_pair``: the pointwise stage and the pair (that layout's second
+  pair, no residual).
+
+The first two and the Twins form run in the default layout, the last two
+in the ``dw_impl='pallas'`` layout; all five launch the same kernel.
 
 On the H100 the bf16 kernel runs its GEMMs on the tensor cores; the hidden
 activation never reaches device memory (see the source's header). Weights
@@ -17,7 +24,7 @@ The plain version is a port of ``ffn_pair_xla``: the same stages, rounded
 to the io type at the same points, products accumulated in f32.
 
 Gradients to every tensor argument, as the JAX package's custom_vjp of
-each Pallas form (``_ffn_kernel.py:367-450``, backward through
+each Pallas form (``_ffn_kernel.py:319-450``, backward through
 ``ffn_pair_xla``): the forward is the kernel, the backward is autograd of
 the plain version recomputed from the saved inputs
 (``ops.kernels.CompositeVJP``), ordinary PyTorch in both packages, not a
@@ -123,6 +130,24 @@ def _run(x, w1, b1, w2, b2, residual, ln=None, **kw):
     if ln is not None:
         kw.update(ln_g=ln[0], ln_b=ln[1])
     return _launch(x, w1, b1, w2, b2, residual, **kw)
+
+
+def ffn_pair(x, w1, b1, w2, b2, residual=True):
+    """[gelu(x +)] gelu(x W1 + b1) W2 + b2."""
+    def call(fn):
+        return lambda x, w1, b1, w2, b2: fn(x, w1, b1, w2, b2, residual)
+    return with_composite_vjp(call(_run), call(ffn_pair_plain),
+                              x, w1, b1, w2, b2)
+
+
+def pw_ffn_pair(x, wp, bp, w1, b1, w2, b2, residual=False):
+    """x' = gelu(x + x Wp + bp); out = [gelu(x' +)] gelu(x' W1 + b1) W2 +
+    b2."""
+    def call(fn):
+        return lambda x, wp, bp, w1, b1, w2, b2: fn(
+            x, w1, b1, w2, b2, residual, wp=wp, bp=bp)
+    return with_composite_vjp(call(_run), call(ffn_pair_plain),
+                              x, wp, bp, w1, b1, w2, b2)
 
 
 def ffn_pair_k1(x, w1, b1, w2, b2, kw, kb):

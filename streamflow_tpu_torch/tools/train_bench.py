@@ -7,7 +7,10 @@ eps 1e-8) under the linear OneCycle schedule over the preset's 180000 +
 
     python -m streamflow_tpu_torch.tools.train_bench [--steps N]
         [--height H] [--width W] [--batch B] [--iters N] [--T T]
-        [--bidir] [--seed S]
+        [--bidir] [--dw-impl auto|pallas] [--seed S]
+
+``--dw-impl pallas`` trains the SK blocks' dw-chain layout (K5
+``dw_chain``; config.py), as the JAX tool's ``dw=pallas`` spec.
 
 Clips are synthetic, made from the seed: uint8-range images and N(0, 4^2)
 px flows, all pixels valid. Weights are random (the model's own init from
@@ -53,6 +56,9 @@ def main(argv=None) -> dict:
     p.add_argument("--iters", type=int, default=12)
     p.add_argument("--T", type=int, default=4)
     p.add_argument("--bidir", action="store_true")
+    p.add_argument("--dw-impl", default="auto",
+                   help="SK block layout: 'pallas' (dw chain) or the "
+                        "default edge-fused layout")
     p.add_argument("--seed", type=int, default=3407)
     args = p.parse_args(argv)
 
@@ -67,7 +73,7 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(args.seed)
     cfg = StreamFlowConfig(T=args.T, iters=args.iters, mixed_precision=True,
-                           remat=True)
+                           remat=True, dw_impl=args.dw_impl)
     model = create_model("streamflow", cfg=cfg, train=True)
     state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
     step = make_train_step(gamma=0.85, iters=args.iters,
@@ -90,7 +96,7 @@ def main(argv=None) -> dict:
     ms = 1e3 * sum(times) / len(times)
     out = {"device": torch.cuda.get_device_name(0),
            "shape": [args.batch, args.T, args.height, args.width],
-           "iters": args.iters,
+           "iters": args.iters, "dw_impl": args.dw_impl,
            "bidirectional": args.bidir, "ms_per_step": ms,
            "steps_per_s": 1e3 / ms, "clips_per_s": args.batch * 1e3 / ms,
            "max_memory_allocated_gib":

@@ -32,11 +32,12 @@ def randomize_params(tree, seed: int):
     return walk(tree)
 
 
-def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1, train=False):
+def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1, train=False,
+                    dw_impl="auto"):
     """The JAX StreamFlow (f32, CPU) with fan-in-scaled random params and
     the port's StreamFlow holding the same weights through the bridge (a
-    training model with ``train``). Returns (jax_model, params, port_model,
-    images)."""
+    training model with ``train``), both built with ``dw_impl`` (the SK
+    blocks' layout). Returns (jax_model, params, port_model, images)."""
     import jax
     import jax.numpy as jnp
 
@@ -46,7 +47,7 @@ def streamflow_pair(T=4, H=64, W=96, iters=2, seed=1, train=False):
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.params import load_jax
 
-    kw = dict(T=T, iters=iters, mixed_precision=False)
+    kw = dict(T=T, iters=iters, mixed_precision=False, dw_impl=dw_impl)
     imgs = np.random.default_rng(0).integers(
         0, 255, (1, T, H, W, 3)).astype(np.float32)
     jm = jax_create("streamflow", cfg=StreamFlowConfig(**kw))

@@ -1,4 +1,4 @@
-"""K2 (fused FFN pair): the port's plain version of each main-path variant
+"""K2 (fused FFN pair): the port's plain version of each of its five forms
 vs the JAX package's Pallas kernel in interpret mode (_ffn_pair_fwd, as in
 tests/test_ffn_kernel.py:34) and its XLA composite ffn_pair_xla, at the SK
 blocks' unaligned widths (the port takes weights in nn.Linear layout,
@@ -65,6 +65,34 @@ def test_dwres_pw_ffn_pair(c, co):
     assert got.shape == (3, 4, 30, co)
     _check(got.numpy(), (x, w1, b1, w2, b2),
            dict(residual=False, wp=wp, bp=bp, yres=y, db=db))
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("c", [324, 640])
+def test_ffn_pair(c, residual):
+    rng = np.random.default_rng(c + residual)
+    ch = int(1.5 * c)
+    x = rng.standard_normal((3, 4, 30, c)).astype(np.float32)
+    w1, b1 = _w(rng, c, ch), _w(rng, ch, scale=0.1)
+    w2, b2 = _w(rng, ch, c), _w(rng, c, scale=0.1)
+    got = P.ffn_pair(*map(torch.from_numpy, (x, w1.T, b1, w2.T, b2)),
+                     residual=residual)
+    _check(got.numpy(), (x, w1, b1, w2, b2), dict(residual=residual))
+
+
+@pytest.mark.parametrize("c,co", [(324, 256), (640, 128), (384, 6)])
+def test_pw_ffn_pair(c, co):
+    rng = np.random.default_rng(3 * c + co)
+    ch = int(1.5 * c)
+    x = rng.standard_normal((3, 4, 30, c)).astype(np.float32)
+    wp, bp = _w(rng, c, c), _w(rng, c, scale=0.1)
+    w1, b1 = _w(rng, c, ch), _w(rng, ch, scale=0.1)
+    w2, b2 = _w(rng, ch, co), _w(rng, co, scale=0.1)
+    got = P.pw_ffn_pair(*map(torch.from_numpy,
+                             (x, wp.T, bp, w1.T, b1, w2.T, b2)))
+    assert got.shape == (3, 4, 30, co)
+    _check(got.numpy(), (x, w1, b1, w2, b2),
+           dict(residual=False, wp=wp, bp=bp))
 
 
 @pytest.mark.parametrize("c", [128, 256])

@@ -2,8 +2,12 @@
 fan-in-scaled random weights moved through the bridge (GMA's gamma and the
 temporal layer's zero-init weights randomised, so neither is an identity).
 CPU, f32, seeded numpy inputs; on the CPU every kernel wrapper runs its
-plain version. Tolerance 1e-4 abs/rel: f32 in another summation order,
-through gelu-residual chains."""
+plain version. The SK block and update-block tests run in both SK layouts
+(``dw_impl`` 'auto', the edge-fused default, as JAX's 'xla'; and 'pallas',
+the dw-chain layout), each against the JAX block of the same ``dw_impl``;
+the other layers do not depend on it and run once, in the default.
+Tolerance 1e-4 abs/rel: f32 in another summation order, through
+gelu-residual chains."""
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +26,26 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+def _pair(dw_impl):
+    jm, params, tm, imgs = streamflow_pair(dw_impl=dw_impl)
+    return params["params"], tm, imgs, dw_impl
+
+
 @pytest.fixture(scope="module")
 def pair():
-    jm, params, tm, imgs = streamflow_pair()
-    return params["params"], tm, imgs
+    return _pair("auto")
+
+
+@pytest.fixture(scope="module", params=["auto", "pallas"])
+def sk_pair(request, pair):
+    """``pair`` in each SK layout, for the tests that depend on it."""
+    return pair if request.param == "auto" else _pair(request.param)
+
+
+def _jax_dw(dw_impl):
+    """The JAX model's resolution of the port's dw_impl (models/
+    streamflow.py:137)."""
+    return "xla" if dw_impl == "auto" else dw_impl
 
 
 def _apply(module, params, *args):
@@ -39,13 +59,16 @@ def _rand(seed, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("name,c_in,out,k", [("convc1", 324, 256, (1, 15)),
-                                             ("conv", 256, 126, (1, 15))])
-def test_sk_block(pair, name, c_in, out, k):
-    p, tm, _ = pair
+                                             ("conv", 256, 126, (1, 15)),
+                                             ("gru", 640, 128, (1, 7))])
+def test_sk_block(sk_pair, name, c_in, out, k):
+    p, tm, _, dw_impl = sk_pair
     x = _rand(1, 3, 8, 12, c_in)
-    want = _apply(SKBlock(out, k, dw_impl="xla"),
-                  p["step"]["update_block"]["encoder"][name], x)
-    got = getattr(tm.update_block.encoder, name)(torch.from_numpy(x))
+    ub, tub = p["step"]["update_block"], tm.update_block
+    if name != "gru":
+        ub, tub = ub["encoder"], tub.encoder
+    want = _apply(SKBlock(out, k, dw_impl=_jax_dw(dw_impl)), ub[name], x)
+    got = getattr(tub, name)(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -53,7 +76,7 @@ def test_sk_block(pair, name, c_in, out, k):
 def test_gma(pair, mode):
     """The port's GMA (flash mode: (q, k), then K3's plain version per
     aggregate) against the JAX package's GMA in either of its modes."""
-    p, tm, _ = pair
+    p, tm, _, _ = pair
     inp = _rand(2, 3, 8, 12, 128)
     mf = _rand(3, 3, 8, 12, 128)
     attn = _apply(GMAAttention(1, 128, mode), p["att"], inp)
@@ -69,7 +92,7 @@ def test_gma(pair, mode):
 
 
 def test_temporal_layer(pair):
-    p, tm, _ = pair
+    p, tm, _, _ = pair
     x = _rand(4, 1, 3, 8, 12, 128)
     want = _apply(TemporalLayer(128),
                   p["step"]["update_block"]["transformer_block"], x)
@@ -78,8 +101,8 @@ def test_temporal_layer(pair):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
-def test_update_block_step(pair):
-    p, tm, _ = pair
+def test_update_block_step(sk_pair):
+    p, tm, _, dw_impl = sk_pair
     b, f, h, w = 1, 3, 8, 12
     net = np.tanh(_rand(5, b, f, h, w, 128))
     inp = np.maximum(_rand(6, b, f, h, w, 128), 0)
@@ -87,7 +110,8 @@ def test_update_block_step(pair):
     flow = _rand(8, b, f, h, w, 2, scale=3.0)
     attn = _apply(GMAAttention(1, 128, "flash"), p["att"],
                   inp.reshape(b * f, h, w, 128))   # (q, k) stacked
-    block = SKUpdateBlockTAMv3(128, 3, attn_mode="flash", dw_impl="xla")
+    block = SKUpdateBlockTAMv3(128, 3, attn_mode="flash",
+                               dw_impl=_jax_dw(dw_impl))
     want = jax.jit(block.apply)({"params": p["step"]["update_block"]},
                                 *map(jnp.asarray, (net, inp, corr, flow,
                                                    attn)))
@@ -99,7 +123,7 @@ def test_update_block_step(pair):
 
 @pytest.mark.parametrize("gsa_flash", [False, True])
 def test_twins_csc(pair, gsa_flash):
-    p, tm, imgs = pair
+    p, tm, imgs, _ = pair
     x = 2.0 * (imgs / 255.0) - 1.0
     want = _apply(TwinsCSC(gsa_flash=gsa_flash), p["fnet"], x)
     tm.fnet.gsa_flash = gsa_flash

@@ -1,7 +1,8 @@
 """The port's StreamFlow end to end against the JAX package's, with the same
 fan-in-scaled random weights through the bridge, at 64x96, T=4, iters=2,
-f32 on the CPU (iters <= 2: random-weight dynamics amplify rounding about
-2.7x per iteration, ROADMAP.md). Flows reach ~1e3 px, so the tolerance is
+f32 on the CPU, in each SK layout (dw_impl 'auto' and 'pallas'). iters <= 2:
+random-weight dynamics amplify rounding about 2.7x per iteration
+(ROADMAP.md). Flows reach ~1e3 px, so the tolerance is
 relative to the largest flow: 1e-5 of it, plus 1e-4 rtol. Also: the weight
 bridge's completeness checks, the warm start, that the port never imports
 jax, and that chip_smoke.py refuses to run without CUDA."""
@@ -25,9 +26,11 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module")
-def pair():
-    return streamflow_pair()
+@pytest.fixture(scope="module", params=["auto", "pallas"])
+def pair(request):
+    """Both packages built with each SK layout (dw_impl 'auto', the
+    edge-fused default; 'pallas', the dw-chain layout)."""
+    return streamflow_pair(dw_impl=request.param)
 
 
 def _close(got, want):
@@ -81,7 +84,9 @@ def test_port_never_imports_jax():
     """Importing the port loads neither jax nor the JAX package."""
     code = ("import sys, streamflow_tpu_torch, streamflow_tpu_torch.models, "
             "streamflow_tpu_torch.params, streamflow_tpu_torch.ops.kernels."
-            "corr_lookup; assert 'jax' not in sys.modules, 'jax imported'; "
+            "corr_lookup, streamflow_tpu_torch.ops.kernels.dw_chain, "
+            "streamflow_tpu_torch.tools.train_bench; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
             "bad = [m for m in sys.modules if m.split('.')[0] == "
             "'streamflow_tpu']; assert not bad, bad")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

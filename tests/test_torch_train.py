@@ -6,7 +6,8 @@ bridge).
     schedule against the JAX functions (1e-6 relative; the schedule also
     1e-7 of max_lr absolute, optax's f32 rounding near the end).
 (d) One full train step at 64x96, T=4, iters=2 (gamma 0.85, lr 1.75e-4,
-    AdamW, clip 1.0) against ``make_train_step`` + ``make_optimizer``:
+    AdamW, clip 1.0), with each SK layout (``dw_impl``), against
+    ``make_train_step`` + ``make_optimizer`` of the same configuration:
     loss, metrics, the global gradient norm, every clipped gradient (JAX's
     from its Adam first moment, mu = (1 - b1) g after one step) and every
     parameter after the update. Random-weight flows reach ~1e3 px after
@@ -101,10 +102,13 @@ def test_onecycle_schedule_matches_optax():
 
 
 # ------------------------------------------------------------------ (d)
-@pytest.fixture(scope="module")
-def one_step():
-    """One train step of each package from the same weights and batch."""
-    jm, params, tm, _ = streamflow_pair(iters=ITERS, train=True)
+@pytest.fixture(scope="module", params=["auto", "pallas"])
+def one_step(request):
+    """One train step of each package from the same weights and batch, with
+    each SK layout (dw_impl 'auto', the edge-fused default; 'pallas', the
+    dw-chain layout)."""
+    jm, params, tm, _ = streamflow_pair(iters=ITERS, train=True,
+                                        dw_impl=request.param)
     batch = _batch(5, 1, 4, 64, 96)
     tx = JO.make_optimizer(LR, 100)
     jstep = jax.jit(j_make_step(jm, tx, gamma=GAMMA, iters=ITERS))
