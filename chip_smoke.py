@@ -8,16 +8,19 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   2. kernel build (nvcc, from csrc/, into build/streamflow_tpu_torch/);
   3. every kernel against its plain PyTorch version, on the card, at the
      main path's shapes, in f32 and bf16, with times from CUDA events:
-     the default SK layout's K2 forms and the dw_impl='pallas' layout's
-     (K2 ffn_pair and pw_ffn_pair, K5 dw_chain, with the cuDNN depthwise
-     conv of the default layout timed beside K5);
+     the default SK layout's K2 forms, the pair layouts' (K2 ffn_pair and
+     pw_ffn_pair), K5 dw_chain (dw_impl='pallas', with the cuDNN depthwise
+     conv of the default layout timed beside it), K6 dw_banded_mxu and K7
+     dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
+     yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5);
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
      torch.profiler breakdown of one forward (table in chiprun_out/);
   5. accuracy guards: the same clip at iters=1 through the kernel path on
      the card and the plain path on the CPU, in f32 and in bf16, relative
-     EPE against the f32 plain path bounded;
+     EPE against the f32 plain path bounded (that f32 reference is the
+     same function in every layout: computed once, reused by 10, 14, ...);
   6. the training path's kernels at its own shapes (432x960): every
      forward kernel against its plain version as in phase 3 (K3 with its
      logsumexp), B5 against its plain version, and each kernel wrapper's
@@ -28,16 +31,20 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      a torch.profiler breakdown of one step;
   8. training guard: one step's loss and gradients at 128x256 through the
      kernel path on the card against the plain path on the CPU;
-  9-12. phases 4, 5, 7 and 8 again for StreamFlowConfig(dw_impl='pallas'),
-     the SK blocks' dw-chain layout (K2 ffn_pair, K5 dw_chain, K2
-     pw_ffn_pair), at the same sizes and depths.
-The line before the last is a JSON object with one entry per kernel and
-path ("inference": phases 3-4, per clip; "train_step": phases 6-7, per
-step; "inference_dw_pallas" and "train_step_dw_pallas": the same for the
-dw_impl='pallas' layout, phases 3, 6, 9 and 11): "launches" is the path's
-count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed over the
-same calls at the path's shapes. The last line is {"ok": true,
-"device": {...}}.
+  9-24. the other SK layouts (StreamFlowConfig.dw_impl), at the same sizes
+     and depths: phases 4, 5, 7 and 8 again for 'pallas' (9-12: K2
+     ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
+     place of K5) and 'banded_chain' (17-20: K8), phases 4 and 5 for
+     'banded_mxu_t' (21-22: K7) and 'banded' (23-24: the banded composite,
+     no dw kernel).
+The line before the kernels line gives ms/clip for the six layouts. The
+line before the last is a JSON object with one entry per kernel and path
+("inference": phases 3-4, per clip; "train_step": phases 6-7, per step;
+"inference_dw_<layout>" and "train_step_dw_<layout>": the same for each
+other layout, phases 3, 6 and that layout's forward and train step):
+"launches" is the path's count, "ms", "plain_ms", "bound_ms" and
+"library_ms" are summed over the same calls at the path's shapes. The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -107,32 +114,53 @@ KERNELS = {
                       "streamflow_tpu/ops/pallas/_lga_kernel.py:116"),
     "dw_chain": ("streamflow_tpu_torch/csrc/dw_chain.cu",
                  "streamflow_tpu/ops/pallas/_dw_conv_kernel.py:170"),
+    "dw_banded_mxu": ("streamflow_tpu_torch/csrc/dw_banded.cu",
+                      "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:122"),
+    "dw_banded_mxu_t": ("streamflow_tpu_torch/csrc/dw_banded.cu",
+                        "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:223"),
+    "sk_chain_banded": ("streamflow_tpu_torch/csrc/dw_banded.cu",
+                        "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:343"),
 }
 # launches of each kernel in one 12-iteration forward: K1 once per
 # iteration; K2 2 per SK block (6 blocks) per iteration + 8 Twins MLPs;
 # K3 12 GMA + 4 GSA; K4 2 LGA blocks in each of fnet and cnet
-EXPECTED_LAUNCHES = {"corr_lookup": ITERS, "ffn_pair": 12 * ITERS + 8,
-                     "flash_attention": ITERS + 4, "flash_attention_bwd": 0,
-                     "lga_attention": 4, "dw_chain": 0}
+EXPECTED_LAUNCHES = dict(dict.fromkeys(KERNELS, 0), corr_lookup=ITERS,
+                         ffn_pair=12 * ITERS + 8, flash_attention=ITERS + 4,
+                         lga_attention=4)
 # launches in one train step with remat: the refinement kernels run in the
 # forward and again in each step's recompute (K1 2x12, K2 2x144 + the 8 of
 # the encoders, K3 2x12 GMA + 4 GSA), K4 once; B5's two kernels (dq pass,
 # dk/dv pass) once per K3 forward that the loss reaches (12 GMA + 4 GSA)
-EXPECTED_TRAIN_LAUNCHES = {"corr_lookup": 2 * ITERS,
-                           "ffn_pair": 2 * 12 * ITERS + 8,
-                           "flash_attention": 2 * ITERS + 4,
-                           "flash_attention_bwd": 2 * (ITERS + 4),
-                           "lga_attention": 4, "dw_chain": 0}
-# the dw_impl='pallas' layout: each SK block runs K2 twice (ffn_pair,
-# pw_ffn_pair) and K5 once, in place of K2 twice and a cuDNN conv
-EXPECTED_LAUNCHES_DW = dict(EXPECTED_LAUNCHES, dw_chain=6 * ITERS)
-EXPECTED_TRAIN_LAUNCHES_DW = dict(EXPECTED_TRAIN_LAUNCHES,
-                                  dw_chain=2 * 6 * ITERS)
+EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES,
+                               corr_lookup=2 * ITERS,
+                               ffn_pair=2 * 12 * ITERS + 8,
+                               flash_attention=2 * ITERS + 4,
+                               flash_attention_bwd=2 * (ITERS + 4))
+
+
+def pair_layout(suffix, dw_kernel=None):
+    """A pair layout: each SK block runs K2 twice (ffn_pair, pw_ffn_pair)
+    in place of the default's two K2 forms, and its dw stack through
+    ``dw_kernel`` once (the kxk stage; k=1 stages and gelus are elementwise
+    or inside it), or through no kernel ('banded', the XLA composite)."""
+    dw = {dw_kernel: 6} if dw_kernel else {}
+    return (suffix,
+            dict(EXPECTED_LAUNCHES, **{k: n * ITERS for k, n in dw.items()}),
+            dict(EXPECTED_TRAIN_LAUNCHES,
+                 **{k: 2 * n * ITERS for k, n in dw.items()}))
+
+
 # per SK layout (the port's dw_impl): the suffix of its paths in the
 # kernels line and the profile files, its launches per clip and per step
 LAYOUTS = {"auto": ("", EXPECTED_LAUNCHES, EXPECTED_TRAIN_LAUNCHES),
-           "pallas": ("_dw_pallas", EXPECTED_LAUNCHES_DW,
-                      EXPECTED_TRAIN_LAUNCHES_DW)}
+           "pallas": pair_layout("_dw_pallas", "dw_chain"),
+           "banded_mxu": pair_layout("_dw_banded_mxu", "dw_banded_mxu"),
+           "banded_chain": pair_layout("_dw_banded_chain", "sk_chain_banded"),
+           "banded_mxu_t": pair_layout("_dw_banded_mxu_t", "dw_banded_mxu_t"),
+           "banded": pair_layout("_dw_banded")}
+# the layouts whose train step and training guard run (phases 7-8, 11-12,
+# 15-16, 19-20); the others run their forward and accuracy guards
+TRAINED = ("auto", "pallas", "banded_mxu", "banded_chain")
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -278,8 +306,8 @@ def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
 def kernel_checks(dev, summaries, hp, wp, train):
     """Every forward kernel against its plain version at the shapes of an
     hp x wp clip (padded size, T frames, B=1), in f32 and bf16; per-kernel
-    bf16 numbers summed into ``summaries[layout]`` (per SK layout, "auto"
-    and "pallas") over the calls of one inference clip, or of one train
+    bf16 numbers summed into ``summaries[layout]`` (per SK layout, the
+    keys of LAYOUTS) over the calls of one inference clip, or of one train
     step (``train``: the refinement kernels run twice, forward and remat's
     recompute, and K3 also returns its logsumexp)."""
     import torch
@@ -288,6 +316,7 @@ def kernel_checks(dev, summaries, hp, wp, train):
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import dw_banded as K6
     from streamflow_tpu_torch.ops.kernels import dw_chain as K5
     from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
@@ -340,12 +369,19 @@ def kernel_checks(dev, summaries, hp, wp, train):
                     flops, args, None, None)
         return make
 
-    def dw_case(nimg, c, k):
+    def dw_case(kind, nimg, c, k):
+        """The SK block's dw stack (1, k) of one (nimg, h8, w8, c) tensor:
+        K5 or K8 (the whole stack; cuDNN's conv of the default layout
+        timed beside it), K6 or K7 (the kxk stage; the library yardstick
+        is cuDNN's bf16 depthwise conv + bias, one call on the same
+        tensor). The work counted is the conv's, 2 k^2 N C FLOP, and K8's
+        k=1 stage, 3 N C."""
         def make(dt):
             x = rnd(nimg, h8, w8, c, dt=dt)
             ws = (rnd(c, 1, 1, 1, scale=0.3, dt=dt),
                   rnd(c, 1, k, k, scale=1 / k, dt=dt))
             bs = (rnd(c, scale=0.1, dt=dt), rnd(c, scale=0.1, dt=dt))
+            flops = 2 * k * k * x.numel()
 
             def cudnn():
                 # the default layout's conv of the same tensor, copies
@@ -354,9 +390,19 @@ def kernel_checks(dev, summaries, hp, wp, train):
                 y = y.contiguous() if k > 7 else y
                 y = F.conv2d(y, ws[1], None, 1, k // 2, 1, c)
                 return y.permute(0, 2, 3, 1).contiguous()
-            return (lambda: K5.dw_chain(x, ws, bs, (1, k)),
-                    lambda: K5.dw_chain_plain(x, ws, bs, (1, k)),
-                    2 * k * k * x.numel(), (x, *ws, *bs), None, cudnn)
+            if kind in ("dw_chain", "sk_chain_banded"):
+                mod = K5 if kind == "dw_chain" else K6
+                run, plain = getattr(mod, kind), getattr(mod, kind + "_plain")
+                return (lambda: run(x, ws, bs, (1, k)),
+                        lambda: plain(x, ws, bs, (1, k)),
+                        flops + 3 * (kind != "dw_chain") * x.numel(),
+                        (x, *ws, *bs), None, cudnn)
+            run, plain = getattr(K6, kind), getattr(K6, kind + "_plain")
+            return (lambda: run(x, ws[1], bs[1]),
+                    lambda: plain(x, ws[1], bs[1]), flops,
+                    (x, ws[1], bs[1]),
+                    lambda: F.conv2d(x.permute(0, 3, 1, 2), ws[1], bs[1], 1,
+                                     k // 2, 1, c), None)
         return make
 
     def flash_case(bh_shape, n, m, d):
@@ -426,10 +472,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
     refine = 2 * ITERS if train else ITERS
     # the six SK blocks (c_in, out_dim, images, dw k): convc1, convc2,
     # convf2, conv, gru, flow_head; cases tagged with the SK layouts whose
-    # path runs them ("auto", "pallas")
+    # path runs them (LAYOUTS' keys: the default "auto" and the pair
+    # layouts, each with its own dw kernel, none for "banded")
     sk = [(324, 256, 3, 15), (256, 192, 3, 15), (128, 64, 3, 15),
           (256, 126, 3, 15), (640, 128, 3, 7), (384, 6, 1, 15)]
-    both, auto, chain = ("auto", "pallas"), ("auto",), ("pallas",)
+    every, auto = tuple(LAYOUTS), ("auto",)
+    pair = tuple(lt for lt in LAYOUTS if lt != "auto")
+    dw_kernels = (("dw_chain", "pallas"), ("dw_banded_mxu", "banded_mxu"),
+                  ("dw_banded_mxu_t", "banded_mxu_t"),
+                  ("sk_chain_banded", "banded_chain"))
     cases = []  # (kernel, label, make, calls per clip or step, layouts)
     for c, co, pairs, k in sk:
         ch, rows = int(1.5 * c), pairs * h8 * w8
@@ -439,37 +490,38 @@ def kernel_checks(dev, summaries, hp, wp, train):
                       ffn_case("dwres_pw_ffn_pair", rows, c, ch, co),
                       refine, auto))
         cases.append(("ffn_pair", f"ffn_pair {rows}x{c}-{ch}-{c}",
-                      ffn_case("ffn_pair", rows, c, ch, c), refine, chain))
-        cases.append(("dw_chain", f"{pairs}x{h8}x{w8}x{c} ks (1, {k})",
-                      dw_case(pairs, c, k), refine, chain))
+                      ffn_case("ffn_pair", rows, c, ch, c), refine, pair))
+        for kernel, layout in dw_kernels:
+            cases.append((kernel, f"{pairs}x{h8}x{w8}x{c} ks (1, {k})",
+                          dw_case(kernel, pairs, c, k), refine, (layout,)))
         cases.append(("ffn_pair", f"pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("pw_ffn_pair", rows, c, ch, co), refine,
-                      chain))
+                      pair))
     for c, rows in ((128, T * h4 * w4), (128, (T - 1) * h4 * w4),
                     (256, T * h8 * w8), (256, (T - 1) * h8 * w8)):
         cases.append(("ffn_pair", f"ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
-                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, both))
+                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
-                  flash_case((3, 1), n, n, 128), refine, both))
+                  flash_case((3, 1), n, n, 128), refine, every))
     # GSA: keys from a stride-sr conv of the frames stacked along H
     for stage, nh, sr, hh, ww in ((0, 4, 8, h4, w4), (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             n, m = t * hh * ww, (t * hh // sr) * (ww // sr)
             cases.append(("flash_attention",
                           f"gsa{stage} {enc} h{nh} n{n} m{m} d32",
-                          flash_case((1, nh), n, m, 32), 1, both))
+                          flash_case((1, nh), n, m, 32), 1, every))
     cases.append(("flash_attention", "padded kv h2 n300 m1000 d128",
-                  flash_case((1, 2), 300, 1000, 128), 0, both))
+                  flash_case((1, 2), 300, 1000, 128), 0, every))
     # LGA: the qkv grid of the frames stacked along H, padded to 7x7 windows
     for stage, c, nh, hh, ww in ((0, 128, 4, h4, w4), (1, 256, 8, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             hq, wq = -(-t * hh // 7) * 7, -(-ww // 7) * 7
             cases.append(("lga_attention",
                           f"stage{stage} {enc} {hq}x{wq}x{3 * c} h{nh}",
-                          lga_case(hq, wq, c, nh), 1, both))
+                          lga_case(hq, wq, c, nh), 1, every))
     cases.append(("corr_lookup", f"3x{h8}x{w8}x256 4 levels r4", corr_case(),
-                  refine, both))
+                  refine, every))
 
     for kernel, label, make, calls, layouts in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -565,7 +617,7 @@ def full_forward(dev, dw_impl):
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
     profile_device(lambda: model(imgs), ms, "forward" + suffix)
-    return counts
+    return counts, ms
 
 
 def profile_device(fn, wall_ms: float, name: str) -> dict:
@@ -597,6 +649,7 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
                            ("ffn_pair", "ffn_pair"),
                            ("flash_fwd", "flash_fwd"),
                            ("dw_chain", "dw_chain"),
+                           ("dw_banded", "dw_banded"),
                            ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
                            ("lga_kernel", "lga_kernel"), ("conv", "conv"),
                            ("gemm", "gemm"), ("elementwise", "elementwise"),
@@ -618,10 +671,12 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
     return {"total_ms": total / 1e3, "idle": idle}
 
 
-def accuracy_guards(dev, dw_impl) -> None:
+def accuracy_guards(dev, dw_impl, refs) -> None:
     """iters=1, one clip, the same weights, the SK layout ``dw_impl``: the
     kernel path on the card and the plain path on the CPU, each in f32 and
-    bf16, against the f32 plain path."""
+    bf16, against the f32 plain path. Every layout computes the same
+    function in f32, so that reference is made once, by the first call,
+    and kept in ``refs``."""
     import copy
 
     import torch
@@ -639,8 +694,11 @@ def accuracy_guards(dev, dw_impl) -> None:
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         flows[dtype, "card"] = gpu_model(imgs.to(dev)).float().cpu()
-        flows[dtype, "cpu"] = cpu_model(imgs).float()
-    ref = flows["float32", "cpu"]
+        if dtype == "bfloat16" or "f32" not in refs:
+            flows[dtype, "cpu"] = cpu_model(imgs).float()
+        if dtype == "float32" and "f32" not in refs:
+            refs["f32"] = (flows[dtype, "cpu"], dw_impl)
+    ref, ref_layout = refs["f32"]
     mag = ref.norm(dim=-1)
 
     def rel_epe(x):
@@ -653,7 +711,7 @@ def accuracy_guards(dev, dw_impl) -> None:
     bf16, bf16_plain = (rel_epe(flows["bfloat16", where])
                         for where in ("card", "cpu"))
     log(f"accuracy guard dw_impl={dw_impl!r} iters=1 against the f32 plain "
-        f"path (|flow_ref| px "
+        f"path (of dw_impl={ref_layout!r}; |flow_ref| px "
         f"mean {float(mag.mean()):.4g} max {float(mag.max()):.4g}), rel EPE "
         f"global / per-pixel p99: f32 kernels {f32[0]:.3e} / {f32[1]:.3e} "
         f"(bound {F32_GUARD_TOL} each); bf16 kernels {bf16[0]:.3e} / "
@@ -677,6 +735,7 @@ def backward_checks(dev, summaries) -> None:
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import dw_banded as K6
     from streamflow_tpu_torch.ops.kernels import dw_chain as K5
     from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
@@ -803,14 +862,20 @@ def backward_checks(dev, summaries) -> None:
                                     w(486, 256), b(256)))))
     xs = x.reshape(3, h8, w8, c)
     for cc, k, xk in ((c, 15, xs), (640, 7, rnd(3, h8, w8, 640))):
-        grad_check(f"dw_chain [{tuple(xk.shape)} ks (1, {k})]",
-                   lambda a, w1, wk, b1, bk, k=k: K5.dw_chain(
-                       a, (w1, wk), (b1, bk), (1, k)),
-                   lambda a, w1, wk, b1, bk, k=k: K5.dw_chain_plain(
-                       a, (w1, wk), (b1, bk), (1, k)),
-                   list(zip("xabcd", (xk, rnd(cc, 1, 1, 1, scale=0.3),
-                                      rnd(cc, 1, k, k, scale=1 / k),
-                                      b(cc), b(cc)))))
+        stack = list(zip("xabcd", (xk, rnd(cc, 1, 1, 1, scale=0.3),
+                                   rnd(cc, 1, k, k, scale=1 / k), b(cc),
+                                   b(cc))))
+        for mod, name in ((K5, "dw_chain"), (K6, "sk_chain_banded")):
+            fn, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            grad_check(f"{name} [{tuple(xk.shape)} ks (1, {k})]",
+                       lambda a, w1, wk, b1, bk, k=k, fn=fn: fn(
+                           a, (w1, wk), (b1, bk), (1, k)),
+                       lambda a, w1, wk, b1, bk, k=k, fn=plain: fn(
+                           a, (w1, wk), (b1, bk), (1, k)), stack)
+        for name in ("dw_banded_mxu", "dw_banded_mxu_t"):
+            grad_check(f"{name} [{tuple(xk.shape)} k {k}]",
+                       getattr(K6, name), getattr(K6, name + "_plain"),
+                       [stack[0], stack[2], stack[4]])
     xt = rnd(T * 2 * h8 * 2 * w8, 128)
     grad_check("ln_ffn_pair [twins stage 0 fnet]", K2.ln_ffn_pair,
                lambda *a: K2.ffn_pair_plain(a[0], *a[3:], False,
@@ -1025,8 +1090,10 @@ def main() -> None:
 
     phase(3, "kernels", kernel_checks, dev, per_layout("inference"), 440,
           1024, False)
-    counts["inference"] = phase(4, "forward", full_forward, dev, "auto")
-    phase(5, "accuracy guards", accuracy_guards, dev, "auto")
+    refs, ms_clip = {}, {}
+    counts["inference"], ms_clip["auto"] = phase(4, "forward", full_forward,
+                                                 dev, "auto")
+    phase(5, "accuracy guards", accuracy_guards, dev, "auto", refs)
 
     def training_kernels():
         kernel_checks(dev, per_layout("train_step"), TRAIN_H, TRAIN_W, True)
@@ -1035,16 +1102,25 @@ def main() -> None:
     counts["train_step"] = phase(7, "train step", train_step_phase, dev,
                                  "auto")
     phase(8, "training guard", training_guard, dev, "auto")
-    counts["inference_dw_pallas"] = phase(
-        9, "forward dw_impl='pallas'", full_forward, dev, "pallas")
-    phase(10, "accuracy guards dw_impl='pallas'", accuracy_guards, dev,
-          "pallas")
-    counts["train_step_dw_pallas"] = phase(
-        11, "train step dw_impl='pallas'", train_step_phase, dev, "pallas")
-    phase(12, "training guard dw_impl='pallas'", training_guard, dev,
-          "pallas")
-    log(f"phases 3-12: {time.perf_counter() - t_start:.1f} s after the "
+    n = 9
+    for dw in LAYOUTS:
+        if dw == "auto":
+            continue
+        suffix, tag = LAYOUTS[dw][0], f" dw_impl={dw!r}"
+        counts["inference" + suffix], ms_clip[dw] = phase(
+            n, "forward" + tag, full_forward, dev, dw)
+        phase(n + 1, "accuracy guards" + tag, accuracy_guards, dev, dw,
+              refs)
+        n += 2
+        if dw in TRAINED:
+            counts["train_step" + suffix] = phase(
+                n, "train step" + tag, train_step_phase, dev, dw)
+            phase(n + 1, "training guard" + tag, training_guard, dev, dw)
+            n += 2
+    log(f"phases 3-{n - 1}: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
+    log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
+        + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()}))
 
     assert "jax" not in sys.modules, "the port must not import jax"
     kernels = []

@@ -41,6 +41,10 @@ _SIGNATURES = {
                      _P],
     "sf_lga_attn": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "sf_dw_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sf_dw_banded_mxu": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sf_dw_banded_mxu_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sf_sk_chain_banded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
 }
 
 _lib = None

@@ -10,14 +10,17 @@ launches it (``ops/kernels/``): a CUDA tensor launches the kernel, a CPU
 tensor takes its plain PyTorch version. No field of this config enters
 that choice.
 
-``dw_impl`` picks the layout of the six SK blocks (``layers/sk.py``):
-``'pallas'`` is the JAX package's dw-chain layout (K2 ``ffn_pair``, K5
-``dw_chain``, K2 ``pw_ffn_pair``); every other value (``'auto'``, ``'xla'``,
-the ``xla_cond*`` and ``xla_fenced`` variants) keeps the edge-fused layout
-that JAX's ``resolve()`` picks on a TPU (``xla_cond``: K2 ``ffn_pair_k1``,
-the depthwise conv alone, K2 ``dwres_pw_ffn_pair``). The ``banded*``
-values are accepted and, until their kernels are ported, also keep the
-edge-fused layout.
+``dw_impl`` picks the layout of the six SK blocks (``layers/sk.py``).
+The pair layouts run K2 ``ffn_pair``, the dw stack, K2 ``pw_ffn_pair``,
+with the dw stack as: ``'pallas'`` K5 ``dw_chain``; ``'banded_mxu'`` K6
+``dw_banded_mxu`` per kxk stage; ``'banded_mxu_t'`` K7 ``dw_banded_mxu_t``
+per kxk stage; ``'banded_chain'`` K8 ``sk_chain_banded`` (k_conv (1,)*n +
+(k,), else as ``'banded_mxu'``); ``'banded'`` the XLA banded composite
+``dw_banded_xla`` in PyTorch, no kernel, as in JAX. Every other value
+(``'auto'``, ``'xla'``, the ``xla_cond*`` and ``xla_fenced`` variants)
+keeps the edge-fused layout that JAX's ``resolve()`` picks on a TPU
+(``xla_cond``: K2 ``ffn_pair_k1``, the depthwise conv alone, K2
+``dwres_pw_ffn_pair``).
 
 The other fields that steer the JAX package's TPU kernels are accepted and
 ignored: ``corr_impl``, ``corr_store``, ``attn_impl``, ``lga_impl``,

@@ -7,7 +7,7 @@ path between the two.
 (plain-version calls are not counted); ``reset_launches`` zeroes it.
 
 Gradients: K3 has a backward kernel of its own (B5, in
-``flash_attention``). K1, K2, K4 and K5 differentiate like the JAX
+``flash_attention``). K1, K2 and K4-K8 differentiate like the JAX
 package's ``custom_vjp`` wrappers of their Pallas kernels: the forward is
 the kernel, the backward is autograd of a differentiable PyTorch composite of
 the same function recomputed from the saved inputs (``CompositeVJP``).
@@ -18,7 +18,8 @@ backward is ordinary PyTorch, not a plain version standing in for a kernel.
 import torch
 
 LAUNCHES = {"corr_lookup": 0, "ffn_pair": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "lga_attention": 0, "dw_chain": 0}
+            "flash_attention_bwd": 0, "lga_attention": 0, "dw_chain": 0,
+            "dw_banded_mxu": 0, "dw_banded_mxu_t": 0, "sk_chain_banded": 0}
 
 
 def reset_launches() -> None:

@@ -7,10 +7,12 @@ eps 1e-8) under the linear OneCycle schedule over the preset's 180000 +
 
     python -m streamflow_tpu_torch.tools.train_bench [--steps N]
         [--height H] [--width W] [--batch B] [--iters N] [--T T]
-        [--bidir] [--dw-impl auto|pallas] [--seed S]
+        [--bidir] [--dw-impl LAYOUT] [--seed S]
 
-``--dw-impl pallas`` trains the SK blocks' dw-chain layout (K5
-``dw_chain``; config.py), as the JAX tool's ``dw=pallas`` spec.
+``--dw-impl`` picks the SK blocks' layout (config.py), as the JAX tool's
+``dw=`` spec: ``auto`` (the edge-fused default), ``pallas`` (K5
+``dw_chain``), ``banded_mxu`` (K6), ``banded_mxu_t`` (K7),
+``banded_chain`` (K8) or ``banded`` (the XLA banded composite).
 
 Clips are synthetic, made from the seed: uint8-range images and N(0, 4^2)
 px flows, all pixels valid. Weights are random (the model's own init from
@@ -57,8 +59,12 @@ def main(argv=None) -> dict:
     p.add_argument("--T", type=int, default=4)
     p.add_argument("--bidir", action="store_true")
     p.add_argument("--dw-impl", default="auto",
-                   help="SK block layout: 'pallas' (dw chain) or the "
-                        "default edge-fused layout")
+                   choices=("auto", "pallas", "banded_mxu", "banded_mxu_t",
+                            "banded_chain", "banded"),
+                   help="SK block layout: 'auto' (edge-fused default), "
+                        "'pallas' (K5 dw chain), 'banded_mxu' (K6), "
+                        "'banded_mxu_t' (K7), 'banded_chain' (K8), "
+                        "'banded' (XLA banded composite)")
     p.add_argument("--seed", type=int, default=3407)
     args = p.parse_args(argv)
 

@@ -2,10 +2,13 @@
 fan-in-scaled random weights moved through the bridge (GMA's gamma and the
 temporal layer's zero-init weights randomised, so neither is an identity).
 CPU, f32, seeded numpy inputs; on the CPU every kernel wrapper runs its
-plain version. The SK block and update-block tests run in both SK layouts
-(``dw_impl`` 'auto', the edge-fused default, as JAX's 'xla'; and 'pallas',
-the dw-chain layout), each against the JAX block of the same ``dw_impl``;
-the other layers do not depend on it and run once, in the default.
+plain version. The SK block and update-block tests run in every SK
+layout (``dw_impl`` 'auto', the edge-fused default, as JAX's 'xla';
+'pallas', the dw-chain layout; the banded family 'banded_mxu',
+'banded_mxu_t', 'banded_chain' and 'banded'), each against the JAX block
+of the same ``dw_impl`` (off a TPU JAX's banded values all run its XLA
+banded composite, so its 'banded' block serves the four); the other
+layers do not depend on it and run once, in the default.
 Tolerance 1e-4 abs/rel: f32 in another summation order, through
 gelu-residual chains."""
 
@@ -15,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import streamflow_pair
+from _torch_parity import jax_layout, streamflow_pair
 from streamflow_tpu.layers.gma import GMAAggregate, GMAAttention
 from streamflow_tpu.layers.sk import SKBlock
 from streamflow_tpu.layers.temporal import TemporalLayer
@@ -36,7 +39,9 @@ def pair():
     return _pair("auto")
 
 
-@pytest.fixture(scope="module", params=["auto", "pallas"])
+@pytest.fixture(scope="module", params=["auto", "pallas", "banded_mxu",
+                                        "banded_mxu_t", "banded_chain",
+                                        "banded"])
 def sk_pair(request, pair):
     """``pair`` in each SK layout, for the tests that depend on it."""
     return pair if request.param == "auto" else _pair(request.param)
@@ -44,8 +49,8 @@ def sk_pair(request, pair):
 
 def _jax_dw(dw_impl):
     """The JAX model's resolution of the port's dw_impl (models/
-    streamflow.py:137)."""
-    return "xla" if dw_impl == "auto" else dw_impl
+    streamflow.py:137), and the JAX layout that serves as its reference."""
+    return "xla" if dw_impl == "auto" else jax_layout(dw_impl)
 
 
 def _apply(module, params, *args):

@@ -1,6 +1,8 @@
 """The port's StreamFlow end to end against the JAX package's, with the same
 fan-in-scaled random weights through the bridge, at 64x96, T=4, iters=2,
-f32 on the CPU, in each SK layout (dw_impl 'auto' and 'pallas'). iters <= 2:
+f32 on the CPU, in each SK layout (dw_impl 'auto', 'pallas' and the banded
+family; one JAX 'banded' model, run once, serves the four banded layouts,
+since off a TPU they all run JAX's XLA banded composite). iters <= 2:
 random-weight dynamics amplify rounding about 2.7x per iteration
 (ROADMAP.md). Flows reach ~1e3 px, so the tolerance is
 relative to the largest flow: 1e-5 of it, plus 1e-4 rtol. Also: the weight
@@ -26,11 +28,26 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module", params=["auto", "pallas"])
+@pytest.fixture(scope="module", params=["auto", "pallas", "banded_mxu",
+                                        "banded_mxu_t", "banded_chain",
+                                        "banded"])
 def pair(request):
     """Both packages built with each SK layout (dw_impl 'auto', the
-    edge-fused default; 'pallas', the dw-chain layout)."""
+    edge-fused default; 'pallas', the dw-chain layout; the banded family,
+    against JAX's 'banded' model)."""
     return streamflow_pair(dw_impl=request.param)
+
+
+_JAX_RUNS = {}
+
+
+def _jax_once(jm, name, fn):
+    """fn()'s result, computed once per JAX model (the banded layouts share
+    theirs) and test."""
+    key = (id(jm), name)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = fn()
+    return _JAX_RUNS[key]
 
 
 def _close(got, want):
@@ -41,8 +58,9 @@ def _close(got, want):
 
 def test_streamflow_test_mode_matches_jax(pair):
     jm, params, tm, imgs = pair
-    want = jax.jit(lambda p, x: jm.apply(p, x, test_mode=True))(
-        params, jnp.asarray(imgs))
+    want = _jax_once(jm, "test_mode", lambda: jax.jit(
+        lambda p, x: jm.apply(p, x, test_mode=True))(params,
+                                                      jnp.asarray(imgs)))
     got = tm(torch.from_numpy(imgs))
     assert got.shape == (1, 3, 64, 96, 2) and got.dtype == torch.float32
     _close(got.numpy(), want)
@@ -52,9 +70,9 @@ def test_streamflow_flow_init_matches_jax(pair):
     jm, params, tm, imgs = pair
     finit = (4.0 * np.random.default_rng(9).standard_normal(
         (1, 3, 8, 12, 2))).astype(np.float32)
-    flows, low = jax.jit(lambda p, x, f: jm.apply(
-        p, x, test_mode=True, flow_init=f))(params, jnp.asarray(imgs),
-                                            jnp.asarray(finit))
+    flows, low = _jax_once(jm, "flow_init", lambda: jax.jit(
+        lambda p, x, f: jm.apply(p, x, test_mode=True, flow_init=f))(
+            params, jnp.asarray(imgs), jnp.asarray(finit)))
     gflows, glow = tm(torch.from_numpy(imgs), flow_init=torch.from_numpy(finit))
     assert glow.shape == (1, 3, 8, 12, 2)
     _close(gflows.numpy(), flows)
@@ -85,6 +103,7 @@ def test_port_never_imports_jax():
     code = ("import sys, streamflow_tpu_torch, streamflow_tpu_torch.models, "
             "streamflow_tpu_torch.params, streamflow_tpu_torch.ops.kernels."
             "corr_lookup, streamflow_tpu_torch.ops.kernels.dw_chain, "
+            "streamflow_tpu_torch.ops.kernels.dw_banded, "
             "streamflow_tpu_torch.tools.train_bench; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "bad = [m for m in sys.modules if m.split('.')[0] == "

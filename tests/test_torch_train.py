@@ -6,8 +6,11 @@ bridge).
     schedule against the JAX functions (1e-6 relative; the schedule also
     1e-7 of max_lr absolute, optax's f32 rounding near the end).
 (d) One full train step at 64x96, T=4, iters=2 (gamma 0.85, lr 1.75e-4,
-    AdamW, clip 1.0), with each SK layout (``dw_impl``), against
-    ``make_train_step`` + ``make_optimizer`` of the same configuration:
+    AdamW, clip 1.0), with each SK layout (``dw_impl`` 'auto', 'pallas',
+    'banded_mxu', 'banded_chain'), against ``make_train_step`` +
+    ``make_optimizer`` of the same configuration (one JAX 'banded' step,
+    run once, for both banded layouts: off a TPU JAX runs them all through
+    its XLA banded composite):
     loss, metrics, the global gradient norm, every clipped gradient (JAX's
     from its Adam first moment, mu = (1 - b1) g after one step) and every
     parameter after the update. Random-weight flows reach ~1e3 px after
@@ -102,18 +105,26 @@ def test_onecycle_schedule_matches_optax():
 
 
 # ------------------------------------------------------------------ (d)
-@pytest.fixture(scope="module", params=["auto", "pallas"])
+_JAX_STEPS = {}
+
+
+@pytest.fixture(scope="module", params=["auto", "pallas", "banded_mxu",
+                                        "banded_chain"])
 def one_step(request):
     """One train step of each package from the same weights and batch, with
     each SK layout (dw_impl 'auto', the edge-fused default; 'pallas', the
-    dw-chain layout)."""
+    dw-chain layout; 'banded_mxu' and 'banded_chain', against JAX's
+    'banded' step, run once for both)."""
     jm, params, tm, _ = streamflow_pair(iters=ITERS, train=True,
                                         dw_impl=request.param)
     batch = _batch(5, 1, 4, 64, 96)
-    tx = JO.make_optimizer(LR, 100)
-    jstep = jax.jit(j_make_step(jm, tx, gamma=GAMMA, iters=ITERS))
-    jstate, jmet = jstep(JState.create(params, tx),
-                         {k: jnp.asarray(v) for k, v in batch.items()})
+    if id(jm) not in _JAX_STEPS:
+        tx = JO.make_optimizer(LR, 100)
+        jstep = jax.jit(j_make_step(jm, tx, gamma=GAMMA, iters=ITERS))
+        _JAX_STEPS[id(jm)] = jstep(
+            JState.create(params, tx),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    jstate, jmet = _JAX_STEPS[id(jm)]
     state = TrainState.create(tm, lr=LR, num_steps=100)
     met = make_train_step(GAMMA, ITERS)(state, _torch(batch))
     return params, jstate, jmet, tm, met
