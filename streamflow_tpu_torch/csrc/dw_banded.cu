@@ -267,7 +267,9 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
 
   // the haloed slabs: slab row i, column j of channel ch holds padded
   // position (wp, hp) = (wo0 + i, ho0 + j), zero outside the image
-  const int rows = RW + k - 1, ne = CB * rows * QC;
+  // (indices divided by the allocated row count QR, a constant: slab rows
+  // past the band, i >= rows, are skipped)
+  const int rows = RW + k - 1, ne = CB * QR * QC;
   for (int e0 = tid; e0 < ne; e0 += NB * NT) {
     float v[NB];
     int dst[NB], cs[NB];  // slab index (-1: past the end), channel
@@ -278,15 +280,16 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
       int ch, i, j;
       if (MODE == kNHWC) {  // channels fastest: NHWC's contiguous axis
         ch = e % CB;
-        i = (e / CB) % rows;
-        j = e / (CB * rows);
+        i = (e / CB) % QR;
+        j = e / (CB * QR);
       } else {  // H fastest: the C-major operand's contiguous axis
         j = e % QC;
-        i = (e / QC) % rows;
-        ch = e / (QC * rows);
+        i = (e / QC) % QR;
+        ch = e / (QC * QR);
       }
       const int c = c0 + ch, wp = wo0 + i, hp = ho0 + j;
-      bool ok = e < ne && c < C;
+      const bool in_slab = e < ne && i < rows;
+      bool ok = in_slab && c < C;
       size_t src;
       if (MODE == kNHWC) {
         const int hh = hp - R, ww = wp - R;
@@ -297,7 +300,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
         src = (((size_t)c * a.nb + bi) * Wp + wp) * Hp + hp;
       }
       v[u] = ok ? to_f(x[src]) : 0.f;
-      dst[u] = e < ne ? ch * QSZ + i * LDQ + j : -1;
+      dst[u] = in_slab ? ch * QSZ + i * LDQ + j : -1;
       cs[u] = c;
       inner[u] = ok && wp >= R && wp < R + W && hp >= R && hp < R + H;
     }
