@@ -13,6 +13,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      conv of the default layout timed beside it), K6 dw_banded_mxu and K7
      dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
      yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5);
+     K3 and K4 also at the tails of their tiles (one query row, fewer keys
+     than a tile, one-window grids of two images), and every timed case
+     with its achieved TFLOP/s and GB/s;
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
@@ -418,13 +421,13 @@ def kernel_checks(dev, summaries, hp, wp, train):
                                                            scale=1.0), None)
         return make
 
-    def lga_case(hp, wp, c, nh):
+    def lga_case(hp, wp, c, nh, b=1):
         def make(dt):
-            qkv = rnd(1, hp, wp, 3 * c, dt=dt)
+            qkv = rnd(b, hp, wp, 3 * c, dt=dt)
             hd, ws = c // nh, 7
-            windows = (hp // ws) * (wp // ws)
+            windows = b * (hp // ws) * (wp // ws)
             # the yardstick: SDPA on the window-partitioned q, k, v
-            parts = qkv.reshape(1, hp // ws, ws, wp // ws, ws, 3, nh, hd)
+            parts = qkv.reshape(b, hp // ws, ws, wp // ws, ws, 3, nh, hd)
             parts = parts.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(
                 3, windows, nh, ws * ws, hd).contiguous()
             return (lambda: K4.lga_attention(qkv, ws, nh),
@@ -511,8 +514,14 @@ def kernel_checks(dev, summaries, hp, wp, train):
             cases.append(("flash_attention",
                           f"gsa{stage} {enc} h{nh} n{n} m{m} d32",
                           flash_case((1, nh), n, m, 32), 1, every))
-    cases.append(("flash_attention", "padded kv h2 n300 m1000 d128",
-                  flash_case((1, 2), 300, 1000, 128), 0, every))
+    # tails of K3's tiles (128 query rows; 128 keys at d=128, 64 at d=32):
+    # fewer keys than one tile, ragged query and key counts, one query row
+    for bh_shape, n, m, d in (((1, 2), 300, 1000, 128), ((2, 1), 1, 1000, 128),
+                              ((1, 4), 300, 50, 32), ((1, 8), 1000, 1312, 32),
+                              ((1, 4), 1, 70, 32)):
+        cases.append(("flash_attention",
+                      f"tail bh{math.prod(bh_shape)} n{n} m{m} d{d}",
+                      flash_case(bh_shape, n, m, d), 0, every))
     # LGA: the qkv grid of the frames stacked along H, padded to 7x7 windows
     for stage, c, nh, hh, ww in ((0, 128, 4, h4, w4), (1, 256, 8, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
@@ -520,6 +529,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
             cases.append(("lga_attention",
                           f"stage{stage} {enc} {hq}x{wq}x{3 * c} h{nh}",
                           lga_case(hq, wq, c, nh), 1, every))
+    # K4's tails: one-window grids and a stage-1 grid, two images each
+    for hq, wq, c, nh in ((7, 7, 128, 4), (7, 7, 256, 8), (14, 21, 256, 8)):
+        cases.append(("lga_attention", f"tail b2 {hq}x{wq}x{3 * c} h{nh}",
+                      lga_case(hq, wq, c, nh, b=2), 0, every))
     cases.append(("corr_lookup", f"3x{h8}x{w8}x256 4 levels r4", corr_case(),
                   refine, every))
 
@@ -550,7 +563,8 @@ def kernel_checks(dev, summaries, hp, wp, train):
                              f"{1e3 * flops / PEAK_FLOPS['float32']:.4f} ms")
                 log(f"time {kernel} [{label}] bf16: kernel {ms:.4f} ms "
                     f"plain {pms:.4f} ms bound {b:.4f} ms ({flops:.4g} "
-                    f"FLOP, {io:.4g} B) library "
+                    f"FLOP, {io:.4g} B; achieved {flops / ms / 1e9:.1f} "
+                    f"TFLOP/s, {io / ms / 1e6:.0f} GB/s) library "
                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
                     + f"; calls per {path} {calls} ({'/'.join(layouts)})"
                     + extra)

@@ -51,13 +51,13 @@ _lib = None
 build_seconds = None
 
 
-def _sources():
-    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+def _sources(csrc: Path):
+    return sorted(list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")))
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in _sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -71,20 +71,20 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library():
-    """Compile (if the sources changed) and load the kernel library."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
-    t0 = time.perf_counter()
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    so = _BUILD / f"libsf_kernels_{_digest()}.so"
+def build(csrc: Path, out_dir: Path):
+    """Compile (if those sources changed) the ``.cu`` files of ``csrc`` into
+    one library under ``out_dir`` and load it with the launchers' argument
+    types (``tools/attn_bench.py`` builds another checkout's kernels
+    beside this tree's)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digest = _digest(csrc)
+    so = out_dir / f"libsf_kernels_{digest}.so"
     if not so.exists():
-        nvcc, tag = _nvcc(), f"{_digest()}.{os.getpid()}"
+        nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
         flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC"]
-        srcs = [p for p in _sources() if p.suffix == ".cu"]
-        objs = [_BUILD / f"{p.stem}.{tag}.o" for p in srcs]
+        srcs = [p for p in _sources(csrc) if p.suffix == ".cu"]
+        objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
         tmp, procs = so.with_suffix(f".{os.getpid()}.tmp"), []
         try:
             for src, obj in zip(srcs, objs):
@@ -93,7 +93,7 @@ def library():
                      str(src)], stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True))
             outs = [p.communicate()[0] for p in procs]
-            (_BUILD / "ptxas.log").write_text("".join(
+            (out_dir / "ptxas.log").write_text("".join(
                 f"== {s.name}\n{o}" for s, o in zip(srcs, outs)))
             failed = [f"{s.name} ({p.returncode}):\n{o[-4000:]}"
                       for s, p, o in zip(srcs, procs, outs) if p.returncode]
@@ -118,9 +118,17 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
-    build_seconds = time.perf_counter() - t0
     return lib
+
+
+def library():
+    """Compile (if the sources changed) and load the kernel library."""
+    global _lib, build_seconds
+    if _lib is None:
+        t0 = time.perf_counter()
+        _lib = build(_CSRC, _BUILD)
+        build_seconds = time.perf_counter() - t0
+    return _lib
 
 
 def check(code: int, name: str) -> None:

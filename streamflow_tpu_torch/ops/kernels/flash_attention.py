@@ -15,7 +15,7 @@ aggregate (1 head, d=128) and the Twins GSA blocks above 16384 tokens
 (q, k, v, o, lse), and the backward computes delta = rowsum(dO * O) as a
 small PyTorch pass and calls B5; otherwise the forward skips the
 logsumexp output. On the H100 the bf16 kernels run their products on the
-tensor cores (see the sources' headers). The plain versions are a port of
+tensor cores (K3 on wgmma fed by TMA; see the sources' headers). The plain versions are a port of
 ``_flash_xla`` (streaming softmax over kv chunks, f32) and the backward's
 math written out in f32 torch ops, rounded where the TPU kernels round.
 """
@@ -101,6 +101,8 @@ def flash_attention_fwd(q, k, v, return_lse: bool = False):
     out = torch.empty_like(q)
     lse = (torch.empty(b, h, n, dtype=torch.float32, device=q.device)
            if return_lse else None)
+    # the bf16 kernel's TMA maps need 16-byte aligned bases and row strides
+    # (d * 2 bytes: every HEAD_DIMS entry)
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention needs 16-byte aligned tensors")
     lib = _build.library()

@@ -8,8 +8,9 @@ in the io dtype, the softmax is f32 and the probabilities are rounded to
 the io dtype, as in ``layers/twins.py::lga_xla``. Padded grid tokens are
 not masked (they hold qkv = bias, as in the JAX composite).
 
-On the H100 the kernel is bound by the latency of many tiny blocks (see
-the source's header). The plain version is the attention part of
+On the H100 the kernel is bound by bytes: the bf16 kernel reads each qkv
+row once, a block per window for all heads, and runs the products on the
+tensor cores (see the source's header). The plain version is the attention part of
 ``lga_xla``: window partition, per-head softmax attention, inverse
 partition.
 

@@ -1,8 +1,9 @@
 """K3 (flash attention forward): the port's plain version, which the CUDA
 kernel is held against on the card, vs the JAX package's Pallas kernel
 flash_attention_tpu in interpret mode (as tests/test_attention.py:54) and
-its streaming composite _flash_xla, at d=32 and d=128 with a kv length
-that needs padding. CPU, f32, seeded numpy inputs. Tolerance 2e-4 abs/rel,
+its streaming composite _flash_xla, at d=32 and d=128 with kv lengths
+that need padding (among them the CUDA kernel's tails: fewer keys than one
+tile, a query count that is no multiple of its 128-row tile). CPU, f32, seeded numpy inputs. Tolerance 2e-4 abs/rel,
 as tests/test_attention.py:58 (f32 softmax over a few hundred keys)."""
 
 import jax.numpy as jnp
@@ -30,7 +31,10 @@ def _qkv(seed, bh, nq, nk, d):
 
 @pytest.mark.parametrize("bh,nq,nk,d", [((1, 4), 256, 200, 32),
                                         ((3, 1), 256, 384, 128),
-                                        ((1, 2), 100, 130, 128)])
+                                        ((1, 2), 100, 130, 128),
+                                        # tails of the CUDA kernel's tiles
+                                        ((1, 4), 300, 1312, 32),
+                                        ((1, 4), 300, 50, 32)])
 def test_plain_matches_pallas_interpret(bh, nq, nk, d):
     q, k, v = _qkv(nq + nk + d, bh, nq, nk, d)
     with pltpu.force_tpu_interpret_mode():

@@ -24,7 +24,9 @@ TOL = dict(atol=2e-4, rtol=2e-4)
 
 @pytest.mark.parametrize("shape,nh,ws", [((1, 14, 21, 384), 4, 7),
                                          ((2, 7, 14, 768), 8, 7),
-                                         ((1, 10, 15, 384), 4, 5)])
+                                         ((1, 10, 15, 384), 4, 5),
+                                         # one window per image, two images
+                                         ((2, 7, 7, 384), 4, 7)])
 def test_plain_matches_pallas_interpret(shape, nh, ws):
     qkv = np.random.default_rng(sum(shape)).standard_normal(shape).astype(
         np.float32)
