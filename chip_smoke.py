@@ -600,11 +600,11 @@ def full_forward(dev, dw_impl):
     imgs = make_clip(dev)
     hp, wp = imgs.shape[2], imgs.shape[3]
 
-    flows = model(imgs)                       # warm-up (builds nothing new)
+    flows = model(imgs, test_mode=True)       # warm-up (builds nothing new)
     torch.cuda.synchronize()
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    flows = model(imgs)
+    flows = model(imgs, test_mode=True)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
     log(f"forward dw_impl={dw_impl!r} launches {json.dumps(counts)} expected "
@@ -619,7 +619,7 @@ def full_forward(dev, dw_impl):
     for _ in range(REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model(imgs)
+        model(imgs, test_mode=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = 1e3 * sum(times) / len(times)
@@ -630,7 +630,8 @@ def full_forward(dev, dw_impl):
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
-    profile_device(lambda: model(imgs), ms, "forward" + suffix)
+    profile_device(lambda: model(imgs, test_mode=True), ms,
+                   "forward" + suffix)
     return counts, ms
 
 
@@ -707,9 +708,10 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
         cpu_model = create_model("streamflow", cfg=cfg, device="cpu")
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
-        flows[dtype, "card"] = gpu_model(imgs.to(dev)).float().cpu()
+        flows[dtype, "card"] = gpu_model(imgs.to(dev),
+                                         test_mode=True).float().cpu()
         if dtype == "bfloat16" or "f32" not in refs:
-            flows[dtype, "cpu"] = cpu_model(imgs).float()
+            flows[dtype, "cpu"] = cpu_model(imgs, test_mode=True).float()
         if dtype == "float32" and "f32" not in refs:
             refs["f32"] = (flows[dtype, "cpu"], dw_impl)
     ref, ref_layout = refs["f32"]

@@ -26,9 +26,9 @@ def create_model(name: str, cfg=None, device="cuda", train: bool = False,
                            "to build the model on the CPU")
     model = StreamFlow(cfg or StreamFlowConfig(**kwargs))
     if train:
-        model = model.float().train().requires_grad_(True)
+        model = model.train().requires_grad_(True)
     else:
-        model = model.eval().requires_grad_(False)
+        model = model.to(model.dtype).eval().requires_grad_(False)
     return model.to(device)
 
 

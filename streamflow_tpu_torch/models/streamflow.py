@@ -7,9 +7,11 @@ compute in bf16 under ``mixed_precision`` (each layer casts its parameters
 to that dtype where it uses them); the correlation output is cast to the
 model dtype; coordinates, the flow carry and the convex upsampling stay
 f32. The refinement ``nn.scan`` is a Python loop and ``stop_gradient`` a
-``detach``.
+``detach``. Parameters are built in f32, as JAX's ``param_dtype``;
+``create_model`` casts an inference model to the compute dtype.
 
-Test mode (no autograd) runs the mask head on the last iteration only and
+``test_mode`` defaults to False, as JAX's ``__call__``. Test mode (no
+autograd) runs the mask head on the last iteration only and
 returns the final flows. Train mode (``test_mode=False``) returns the
 flows of every iteration, (iters, B, T-1, H, W, 2), with the mask head and
 the convex upsampling on every iteration, as JAX's ``compute_mask=None``
@@ -52,13 +54,13 @@ class StreamFlow(nn.Module):
         self.update_block = SKUpdateBlockTAMv3(
             cfg.hidden_dim, cfg.T - 1, cfg.corr_planes, cfg.k_conv,
             cfg.pc_updater_conv, cfg.num_heads, cfg.ratio, cfg.dw_impl)
-        self.to(self.dtype)
 
     def forward(self, images, iters=None, flow_init=None,
-                test_mode: bool = True):
-        """Test mode: flows (B, T-1, H, W, 2) f32, and with ``flow_init``
-        (B, T-1, H/8, W/8, 2) also the low-res flows. Train mode: the
-        per-iteration flows (iters, B, T-1, H, W, 2) f32."""
+                test_mode: bool = False):
+        """Test mode (``test_mode=True``): flows (B, T-1, H, W, 2) f32,
+        and with ``flow_init`` (B, T-1, H/8, W/8, 2) also the low-res
+        flows. Train mode (the default): the per-iteration flows (iters,
+        B, T-1, H, W, 2) f32."""
         if test_mode:
             with torch.no_grad():
                 return self._run(images, iters, flow_init, True)

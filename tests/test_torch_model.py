@@ -61,7 +61,7 @@ def test_streamflow_test_mode_matches_jax(pair):
     want = _jax_once(jm, "test_mode", lambda: jax.jit(
         lambda p, x: jm.apply(p, x, test_mode=True))(params,
                                                       jnp.asarray(imgs)))
-    got = tm(torch.from_numpy(imgs))
+    got = tm(torch.from_numpy(imgs), test_mode=True)
     assert got.shape == (1, 3, 64, 96, 2) and got.dtype == torch.float32
     _close(got.numpy(), want)
 
@@ -73,10 +73,36 @@ def test_streamflow_flow_init_matches_jax(pair):
     flows, low = _jax_once(jm, "flow_init", lambda: jax.jit(
         lambda p, x, f: jm.apply(p, x, test_mode=True, flow_init=f))(
             params, jnp.asarray(imgs), jnp.asarray(finit)))
-    gflows, glow = tm(torch.from_numpy(imgs), flow_init=torch.from_numpy(finit))
+    gflows, glow = tm(torch.from_numpy(imgs), test_mode=True,
+                     flow_init=torch.from_numpy(finit))
     assert glow.shape == (1, 3, 8, 12, 2)
     _close(gflows.numpy(), flows)
     _close(glow.numpy(), low)
+
+
+def test_streamflow_default_call_matches_jax():
+    """Without the flag both packages run train mode (JAX's __call__
+    defaults to test_mode=False): the flows of every iteration."""
+    jm, params, tm, imgs = streamflow_pair()
+    want = _jax_once(jm, "default", lambda: jax.jit(
+        lambda p, x: jm.apply(p, x))(params, jnp.asarray(imgs)))
+    got = tm(torch.from_numpy(imgs))
+    assert got.shape == (2, 1, 3, 64, 96, 2) == want.shape
+    _close(got.detach().numpy(), want)
+
+
+def test_training_model_keeps_f32_parameters():
+    """A training model under mixed precision holds f32 parameters that
+    were never rounded to bf16; an inference model holds bf16 ones."""
+    from streamflow_tpu_torch.models import create_model
+
+    model = create_model("streamflow", device="cpu", train=True)
+    assert model.cfg.mixed_precision
+    ps = list(model.parameters())
+    assert all(p.dtype == torch.float32 for p in ps)
+    assert any(bool((p != p.bfloat16().float()).any()) for p in ps)
+    infer = create_model("streamflow", device="cpu")
+    assert all(p.dtype == torch.bfloat16 for p in infer.parameters())
 
 
 def test_bridge_raises_on_unused_leaf_and_unset_parameter(pair):
