@@ -14,8 +14,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
      yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5);
      K3 and K4 also at the tails of their tiles (one query row, fewer keys
-     than a tile, one-window grids of two images), and every timed case
-     with its achieved TFLOP/s and GB/s;
+     than a tile, one-window grids of two images), K2 at ragged row
+     counts (1, 65, 21121) in all five forms at every width of the path,
+     each K2 call timed beside its library composite (bf16 torch ops, the
+     hidden activation through device memory: a yardstick, not a
+     library_ms), and every timed case with its achieved TFLOP/s and GB/s;
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
@@ -26,8 +29,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      same function in every layout: computed once, reused by 10, 14, ...);
   6. the training path's kernels at its own shapes (432x960): every
      forward kernel against its plain version as in phase 3 (K3 with its
-     logsumexp), B5 against its plain version, and each kernel wrapper's
-     forward and gradient against its plain version;
+     logsumexp), B5 against its plain version (also at the tails of its
+     tiles: one query row, fewer keys than a tile, ragged counts at d=128
+     and d=32), and each kernel wrapper's forward and gradient against its
+     plain version;
   7. the train step: seeded weights and batch, 432x960, T=4, 12
      iterations, bf16 compute with f32 parameters, remat, AdamW; launch
      counts checked exactly; ms/step, peak memory, every parameter moves,
@@ -324,6 +329,7 @@ def kernel_checks(dev, summaries, hp, wp, train):
     from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
     from streamflow_tpu_torch.ops.kernels import lga_attention as K4
+    from streamflow_tpu_torch.tools import kernel_bench as KB
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -331,9 +337,23 @@ def kernel_checks(dev, summaries, hp, wp, train):
         return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
 
     # each make(dt) -> (kernel fn, plain fn, FLOPs, inputs, library fn,
-    # None or the default layout's cuDNN conv, timed beside K5)
+    # None or (what, fn) timed beside it as a yardstick: the default
+    # layout's cuDNN conv beside K5 and K8, K2's library composite)
     def ffn_case(variant, rows, c, ch, co):
         def make(dt):
+            run, plain, flops, args, _, _ = make_k2(dt)
+            names = {"ffn_pair": "x w1 b1 w2 b2",
+                     "pw_ffn_pair": "x wp bp w1 b1 w2 b2",
+                     "ffn_pair_k1": "x w1 b1 w2 b2 kw kb",
+                     "dwres_pw_ffn_pair": "x yres db wp bp w1 b1 w2 b2",
+                     "ln_ffn_pair": "x ln_g ln_b w1 b1 w2 b2"}[variant]
+            a = dict(zip(names.split(), args))
+            return (run, plain, flops, args, None,
+                    ("the library composite (bf16 torch ops, the hidden "
+                     "activation through device memory)",
+                     lambda: KB.ffn_composite(variant, a)))
+
+        def make_k2(dt):
             w = lambda i, o: rnd(o, i, scale=i ** -0.5, dt=dt)  # noqa: E731
             b = lambda n: rnd(n, scale=0.1, dt=dt)  # noqa: E731
             x = rnd(rows, c, dt=dt)
@@ -386,13 +406,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
             bs = (rnd(c, scale=0.1, dt=dt), rnd(c, scale=0.1, dt=dt))
             flops = 2 * k * k * x.numel()
 
-            def cudnn():
+            def conv():
                 # the default layout's conv of the same tensor, copies
                 # included (layers/sk.py)
                 y = x.permute(0, 3, 1, 2)
                 y = y.contiguous() if k > 7 else y
                 y = F.conv2d(y, ws[1], None, 1, k // 2, 1, c)
                 return y.permute(0, 2, 3, 1).contiguous()
+            cudnn = ("the default layout's cuDNN conv of the same tensor",
+                     conv)
             if kind in ("dw_chain", "sk_chain_banded"):
                 mod = K5 if kind == "dw_chain" else K6
                 run, plain = getattr(mod, kind), getattr(mod, kind + "_plain")
@@ -504,6 +526,22 @@ def kernel_checks(dev, summaries, hp, wp, train):
                     (256, T * h8 * w8), (256, (T - 1) * h8 * w8)):
         cases.append(("ffn_pair", f"ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
                       ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, every))
+    # K2's tails (64-row tiles): one row, one row past a tile, one row past
+    # the main path's 21120, in every form at every width of the path
+    if not train:
+        for rows in (1, 65, 3 * h8 * w8 + 1):
+            for c, co, _, _ in sk:
+                ch = int(1.5 * c)
+                for form, out in (("ffn_pair_k1", c), ("dwres_pw_ffn_pair", co),
+                                  ("ffn_pair", c), ("pw_ffn_pair", co)):
+                    cases.append(("ffn_pair",
+                                  f"tail {form} {rows}x{c}-{ch}-{out}",
+                                  ffn_case(form, rows, c, ch, out), 0, every))
+            for c in (128, 256):
+                cases.append(("ffn_pair",
+                              f"tail ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
+                              ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 0,
+                              every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
                   flash_case((3, 1), n, n, 128), refine, every))
@@ -547,7 +585,7 @@ def kernel_checks(dev, summaries, hp, wp, train):
             err = max(check_close(f"{kernel}{' lse' if i else ''} [{label}]",
                                   a, b, a.dtype)
                       for i, (a, b) in enumerate(zip(got, want)))
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and calls:   # tails: checked only
                 ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
                 lib_ms = cuda_ms(library, REPS) if library else None
                 io = nbytes(*inputs, *got)
@@ -557,10 +595,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
                     b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
                 extra = ""
                 if aside is not None:
-                    extra = (f"; the default layout's cuDNN conv of the "
-                             f"same tensor {cuda_ms(aside, REPS):.4f} ms, "
-                             f"f32 FMA floor (67 TFLOP/s) "
-                             f"{1e3 * flops / PEAK_FLOPS['float32']:.4f} ms")
+                    extra = f"; {aside[0]} {cuda_ms(aside[1], REPS):.4f} ms"
+                if kernel in ("dw_chain", "sk_chain_banded"):
+                    extra += (f", f32 FMA floor (67 TFLOP/s) "
+                              f"{1e3 * flops / PEAK_FLOPS['float32']:.4f} ms")
                 log(f"time {kernel} [{label}] bf16: kernel {ms:.4f} ms "
                     f"plain {pms:.4f} ms bound {b:.4f} ms ({flops:.4g} "
                     f"FLOP, {io:.4g} B; achieved {flops / ms / 1e9:.1f} "
@@ -773,6 +811,12 @@ def backward_checks(dev, summaries) -> None:
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             cases.append((f"gsa{stage} {enc}", (1, nh), t * hh * ww,
                           (t * hh // sr) * (ww // sr), 32, 1))
+    # B5's tails (128 resident and 64 walked rows a block): one query row,
+    # fewer keys than one tile, ragged query and key counts
+    for bh_shape, n, m, d in (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
+                              ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
+                              ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32)):
+        cases.append(("tail", bh_shape, n, m, d, 0))
     for label, bh_shape, n, m, d, calls in cases:
         label = f"{label} bh{math.prod(bh_shape)} n{n} m{m} d{d}"
         for dt in (torch.float32, torch.bfloat16):
@@ -795,7 +839,7 @@ def backward_checks(dev, summaries) -> None:
             err = max(check_close(f"flash_attention_bwd {name} [{label}]",
                                   a, b, dt)
                       for name, a, b in zip(("dq", "dk", "dv"), got, want))
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and calls:   # tails: checked only
                 ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
                 qs, ks, vs = (t.detach().clone().requires_grad_(True)
                               for t in (q, k, v))

@@ -2,6 +2,7 @@
 // to the io type at the points where the JAX reference rounds, exact gelu.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,12 +85,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ------------------------------------------------ asynchronous copies (sm_80+)
-// 16 bytes global -> shared, completion tracked by commit/wait groups
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
+// BYTES (4, 8 or 16) global -> shared, completion tracked by commit/wait
+// groups
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
@@ -147,6 +155,40 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// a 2-D box (c0 the inner coordinate) of a tensor map into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands, TMA stores)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// registers per thread of the calling warpgroup (every warp of it runs the
+// same call): a producer warpgroup gives registers back, the consumer
+// warpgroups take them. ptxas sizes a block of three warpgroups at 168
+// registers a thread; one producer at 40 leaves 232 for two consumers.
+template <uint32_t N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ----------------------------------------------------------- wgmma (sm_90a)
@@ -302,21 +344,57 @@ __device__ __forceinline__ void wgmma_rs_n32_mn(float (&d)[16], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// rows [r0, r0 + rows) of a row-major (n, D) bf16 matrix into shared memory
-// (row stride LD elements) by the block's NTH threads, zeros past row n
-template <int D, int LD, int NTH>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int rows, int n) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < rows * CPR; e += NTH) {
-    int r = e / CPR, ch = e % CPR;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D +
-                                            ch * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + ch * 8) = val;
+// ------------------------------------------------ tensor maps (host side)
+// cuTensorMapEncodeTiled through the CUDA runtime's entry-point query
+// (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// tensor map of a contiguous bf16 tensor of `rank` dims (dims[0] the inner,
+// contiguous one; its length times 2 bytes a multiple of 16), boxes of
+// box[0] x box[1] (x 1); box[0] * 2 bytes = 128 takes the 128-byte swizzle,
+// 64 the 64-byte one; elements past the ends read as zeros
+inline bool tensor_map(CUtensorMap* m, const void* base, int rank,
+                       const uint64_t* dims, const uint32_t* box) {
+  if (encoder() == nullptr) return false;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3], unit[3] = {1, 1, 1};
+  uint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = i < 2 ? box[i] : 1;
+    if (i > 0) strides[i - 1] = stride;
+    stride *= dims[i];
+  }
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                   const_cast<void*>(base), d, strides, b, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sf

@@ -1,4 +1,4 @@
-// K2: fused FFN pair with optional edge stages, one row tile per block.
+// K2: fused FFN pair with optional edge stages, on row tiles of 64.
 //
 // Replaces the Pallas kernel streamflow_tpu/ops/pallas/_ffn_kernel.py
 // (_ffn_pair_fwd -> pl.pallas_call) in its five forms:
@@ -12,18 +12,51 @@
 // where ffn_pair_xla rounds (after each prologue stage and after the hidden
 // gelu); all products accumulate in f32.
 //
-// Bound on the H100: the two (or three) GEMMs. The bf16 kernel runs them on
-// the tensor cores (mma.sync m16n8k16, f32 accumulation; A fragments from
-// shared memory by ldmatrix, B fragments straight from the L2-resident
-// weights), so it is bound by re-reading the weights once per row tile
-// and by the elementwise epilogues. The f32 kernel (used by f32 models
-// only) runs the GEMMs on the CUDA cores. What the design does about HBM:
-// the hidden activation (1.5x or 4x wide) and every prologue intermediate
-// stay in shared memory; device memory sees one read of x (and y_dw) and
-// one write of y.
+// Bound on the H100: the two (or three) GEMMs on the tensor cores (every
+// main-path call is far above the card's 295 FLOP per byte of device
+// memory), and in practice the weights' bytes from L2: every row tile
+// reads all of them, 16 KB for each 64 x 128 x 64 product per consumer.
+// bf16 design (Hopper): persistent blocks (one per SM) walk row tiles of
+// 64 rows. A producer warpgroup's first thread streams every weight as TMA
+// boxes (128 rows x 64 k, 128-byte swizzle) through a ring of up to 8
+// stages, in the order the consumers use them, across all the tiles a
+// block walks, so the next tile's weights load while this tile's epilogue
+// runs; it hands its registers to the two consumer warpgroups (setmaxnreg
+// 40 / 232: ptxas sizes a block of three warpgroups at 168). The two
+// consumers share the tile and split the work by columns: each computes 64
+// of every 128 pw-stage and hidden columns (wgmma from shared memory, the
+// A tile against its half of the box) and 64 NBW of the pass's output
+// columns (NBW <= 5, 160 f32 registers a thread: gru's 640 outputs in one
+// pass). For each hidden chunk of 128 columns a consumer computes its half
+// of h = gelu(x W1 + b1), rounds it to bf16 into its panel of the chunk's
+// buffer (two buffers, so the next chunk's product overlaps this one's
+// y += h W2), meets the other at a named barrier, and accumulates y += h
+// W2 with wgmma over both panels: the hidden activation stays in shared
+// memory, and only the f32 order of the sum over chunks differs from
+// ffn_pair_xla. The x tile arrives by TMA (64-row boxes, zero past n and
+// c) where no prologue rewrites it and its rows are whole 16-byte units;
+// otherwise the consumers copy it in by cp.async (y_dw into the pw tile,
+// free until the pw stage), then apply the prologue stages in place in f32
+// and round. The pw stage's output goes into a tile beside x. The
+// epilogue stages each 64-column block in shared memory and stores whole
+// rows with 16-byte stores (8 or 4 bytes where co is not a multiple of
+// 8). Shared memory (Plan): the x tile, 8 KB per 64 columns (80 KB at C =
+// 640), the pw output beside it, 48 KB of hidden buffers and staging
+// (inside x's space once the pw stage has run, where it fits), then the
+// ring: 4 stages for gru's pw form, 6 for its first pair, 7-8 elsewhere.
+// A consumer per 64 rows of a 128-row tile would hold 64 x 256 f32 of y
+// and the hidden chunk, past what ptxas allots without spilling into the
+// ~25 KB of L1 that shared memory leaves or serialising wgmmas (C7512).
+// TMA needs rows of
+// whole 16-byte units: the wrapper pads a weight whose input width is not
+// a multiple of 8 (only convc1's 324 and 486) with zero columns, and the
+// tensor maps read rows up8(in) long. Ragged row counts and widths read as
+// zeros (TMA's out-of-bounds fill; the register loads zero past n and c)
+// and are masked in the stores. The f32 kernel (used by f32 models only)
+// runs the GEMMs on the CUDA cores, 16 rows per block.
 //
-// Layout: x (n, c) row-major; weights in nn.Linear layout (out, in), so a
-// tensor-core B fragment's two k-neighbours are one 32-bit load.
+// Layout: x (n, c) row-major; weights in nn.Linear layout (out, in), rows
+// K-major as wgmma's B operand wants them.
 
 #include "common.cuh"
 
@@ -39,6 +72,7 @@ struct Args {
       *kw, *kb;
   void* out;
   int n, c, ch, co, residual, add_res;
+  int x_tma;  // bf16: x read by TMA (set by the launcher)
 };
 
 // ---------------------------------------------------------------- f32 path
@@ -192,235 +226,536 @@ __global__ void __launch_bounds__(NT) ffn_pair_f32_kernel(Args a) {
 // --------------------------------------------------------------- bf16 path
 typedef __nv_bfloat16 bf16;
 
-__host__ __device__ inline int up16(int v) { return (v + 15) & ~15; }
-// shared-memory row stride (elements) of a bf16 tile with K columns: a
-// multiple of 8 (16-byte ldmatrix rows) offset by 8 so that the 8 rows of
-// one ldmatrix phase fall in distinct banks
-__host__ __device__ inline int ld16(int k) { return up16(k) + 8; }
+constexpr int STAGE = 16384;   // a weight box: 128 rows x 64 k
+constexpr int PANEL = 8192;    // 64 rows x 64 columns of a row tile
+constexpr int HC = 128;        // hidden columns per chunk, 64 per consumer
+constexpr int MAXB = 5;        // output blocks per consumer and pass, at most
+constexpr int SMEM_MAX = 232448;
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* w, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const unsigned int*>(w)) : 0u;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// 64-column output blocks each consumer accumulates in one pass over the
+// hidden chunks (its 64 x 64 NBW f32 in registers); a pass covers 2 NBW
+// blocks, split between the two consumers; wider outputs take passes of
+// equal width, each recomputing h (none on the main path: 640 is 2 x 5)
+__host__ __device__ inline int wg_blocks(int co) {
+  const int blocks = cdiv(co, 64), passes = cdiv(blocks, 2 * MAXB);
+  return cdiv(cdiv(blocks, passes), 2);
 }
 
-// B fragments of NJ n8 tiles at k (two 32-bit loads per tile, zero past
-// N or K)
-template <int NJ>
-__device__ __forceinline__ void load_b(uint32_t (&b)[NJ][2],
-                                       const bf16* const (&wrow)[NJ],
-                                       const bool (&nok)[NJ], int k, int K) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    b[j][0] = ld_pair(wrow[j] + k, nok[j] && k < K);
-    b[j][1] = ld_pair(wrow[j] + k + 8, nok[j] && k + 8 < K);
+// Shared memory of the bf16 kernel, byte offsets from the 1024-aligned
+// base: the x tile (XP panels of 64 columns, zero past n and c), with the
+// pw stage its output beside it; two hidden-chunk buffers of two panels
+// and one staging panel per consumer (inside x's space once the pw stage
+// has run, where it is large enough); the ring of weight stages; the
+// mbarriers (two per stage, one for the x tile).
+struct Plan {
+  int xp, x_off, xb_off, h_off, stg_off, st_off, bar_off, ns, bytes;
+};
+
+Plan make_plan(int c, bool pw) {
+  Plan p;
+  p.xp = cdiv(c, 64);
+  const int xbytes = p.xp * PANEL, aux = 6 * PANEL;
+  p.x_off = 0;
+  int off = xbytes;
+  p.xb_off = off;
+  if (pw) off += xbytes;
+  if (pw && xbytes >= aux) {
+    p.h_off = 0;
+  } else {
+    p.h_off = off;
+    off += aux;
+  }
+  p.stg_off = p.h_off + 4 * PANEL;
+  p.st_off = off;
+  const int room = SMEM_MAX - 1024 - 256 - off;
+  p.ns = room < 0 ? 0 : (room / STAGE < 8 ? room / STAGE : 8);
+  p.bar_off = off + p.ns * STAGE;
+  p.bytes = p.bar_off + 16 * p.ns + 16 + 1024;
+  return p;
+}
+
+// byte offset of element (r, k) in a K-major tile of 64-row, 64-column
+// panels, 128-byte swizzle (the layout TMA writes and wgmma reads)
+__device__ __forceinline__ int swz(int r, int k) {
+  return (k >> 6) * PANEL + r * 128 + ((((k >> 3) & 7) ^ (r & 7)) << 4) +
+         ((k & 7) << 1);
+}
+
+__device__ __forceinline__ uint64_t desc128(const void* p) {
+  return wgmma_desc(p, 16, 1024, 1);
+}
+
+// V consecutive bf16 (V = 8, 4 or 2) as V/2 words, to and from shared
+// memory (within one 16-byte unit of the swizzled tile)
+template <int V>
+__device__ __forceinline__ void ld_words(uint32_t (&w)[V / 2],
+                                         const uint8_t* p) {
+  if constexpr (V == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (V == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
   }
 }
-
-// C[BM x N] = A[BM x K] (shared, stride lda) . W^T, W (N x K) in global
-// memory; every warp takes (8 NJ)-column chunks and hands each finished
-// value to epi(row, col, value). The next k step's B fragments are loaded
-// before the current step's products, hiding part of the L2 latency. K is
-// even (pairs of k load as one word).
-template <int MT, int NJ, class Epi>
-__device__ __forceinline__ void tc_gemm_nj(const bf16* A, int lda, int K,
-                                           const bf16* __restrict__ W, int N,
-                                           Epi& epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  for (int nc = warp * 8 * NJ; nc < N; nc += NW * 8 * NJ) {
-    float acc[MT][NJ][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    const bf16* wrow[NJ];
-    bool nok[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      int col = nc + j * 8 + g;
-      nok[j] = col < N;
-      wrow[j] = W + (size_t)(nok[j] ? col : 0) * K;
-    }
-    uint32_t bn[NJ][2];
-    load_b<NJ>(bn, wrow, nok, 2 * t, K);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t bc[NJ][2];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        bc[j][0] = bn[j][0];
-        bc[j][1] = bn[j][1];
-      }
-      load_b<NJ>(bn, wrow, nok, k0 + 16 + 2 * t, K);
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], A + (i * 16 + (lane & 15)) * lda + k0 +
-                               (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          mma_bf16(acc[i][j], af[i], bc[j][0], bc[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int row = i * 16 + g + (e >> 1) * 8;
-          int col = nc + j * 8 + 2 * t + (e & 1);
-          if (col < N) epi(row, col, acc[i][j][e]);
-        }
-  }
-}
-
-// 32-column chunks for wide outputs, 16-column ones for narrow outputs so
-// that all 8 warps get work
-template <int MT, class Epi>
-__device__ __forceinline__ void tc_gemm(const bf16* A, int lda, int K,
-                                        const bf16* __restrict__ W, int N,
-                                        Epi& epi) {
-  if (N >= 8 * NW * 4)
-    tc_gemm_nj<MT, 4>(A, lda, K, W, N, epi);
+template <int V>
+__device__ __forceinline__ void st_words(uint8_t* p,
+                                         const uint32_t (&w)[V / 2]) {
+  if constexpr (V == 8)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
   else
-    tc_gemm_nj<MT, 2>(A, lda, K, W, N, epi);
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
 }
 
-struct EpiPw {  // x' = gelu(x + x Wp + bp)
-  const bf16 *xa, *bp;
-  bf16* xb;
-  int ld;
-  __device__ void operator()(int r, int col, float v) const {
-    xb[r * ld + col] = __float2bfloat16_rn(
-        gelu(__bfloat162float(xa[r * ld + col]) + v + __bfloat162float(bp[col])));
-  }
-};
-
-struct EpiHidden {  // h = gelu(x W1 + b1)
-  const bf16* b1;
-  bf16* hs;
-  int ld;
-  __device__ void operator()(int r, int col, float v) const {
-    hs[r * ld + col] = __float2bfloat16_rn(gelu(v + __bfloat162float(b1[col])));
-  }
-};
-
-struct EpiOut {  // y = h W2 + b2, then residual / k1 / add_res
-  const bf16 *xs, *b2, *kw, *kb, *x;
-  bf16* out;
-  int ld, row0, n, c, co, residual, add_res;
-  __device__ void operator()(int r, int col, float v) const {
-    int row = row0 + r;
-    if (row >= n) return;
-    float y = v + __bfloat162float(b2[col]);
-    if (residual) y = gelu(__bfloat162float(xs[r * ld + col]) + y);
-    if (kw != nullptr)
-      y = gelu(y + y * __bfloat162float(kw[col]) + __bfloat162float(kb[col]));
-    if (add_res) y += __bfloat162float(x[(size_t)row * c + col]);
-    out[(size_t)row * co + col] = __float2bfloat16_rn(y);
-  }
-};
-
-template <int MT>
-__global__ void __launch_bounds__(NT) ffn_pair_bf16_kernel(Args a) {
-  constexpr int R = 16 * MT;  // rows per block
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// The x tile's 64 rows from r0 where TMA cannot take them (a prologue
+// stage, or rows not of whole 16-byte units): V-element cp.async granules
+// by the consumers' 256 threads, zero past n and c; yres, where given, into
+// the pw tile ys (free until the pw stage) at the same offsets.
+template <int V>
+__device__ void copy_x(uint8_t* xs, uint8_t* ys, const Args& a, int r0,
+                       int kpad, int t) {
   const bf16 *x = (const bf16*)a.x, *yres = (const bf16*)a.yres;
-  const bf16* db = (const bf16*)a.db;
-  const int n = a.n, c = a.c, ch = a.ch;
-  const int ldc = ld16(c), ldh = ld16(ch);
-  const bool pw = a.wp != nullptr;
-  // x tile R x ldc and hidden R x ldh; with the pw stage its output xb
-  // (R x ldc) follows, and the hidden tile reuses x's space (x is dead once
-  // the pw stage has run), so 64-row tiles fit at C = 640 as well
-  bf16* xa = (bf16*)smem_raw;
-  bf16* hs = pw ? xa : xa + R * ldc;
-  bf16* xb = xa + R * (pw ? max(ldc, ldh) : ldc);
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * R;
-
-  // x tile (+ dw-residual prologue); pad columns and rows are zero
-  for (int e = tid; e < R * ldc; e += NT) {
-    int m = e / ldc, col = e % ldc, row = row0 + m;
-    float v = 0.f;
-    if (col < c && row < n) {
-      v = __bfloat162float(x[(size_t)row * c + col]);
+  const int c = a.c, gpr = kpad / V;
+  for (int e = t; e < 64 * gpr; e += 256) {
+    const int r = e / gpr, k = (e - r * gpr) * V, o = swz(r, k);
+    if (r0 + r < a.n && k < c) {
+      cp_async<2 * V>(xs + o, x + (size_t)(r0 + r) * c + k);
       if (yres != nullptr)
-        v = gelu(v + __bfloat162float(yres[(size_t)row * c + col]) +
-                 __bfloat162float(db[col]));
+        cp_async<2 * V>(ys + o, yres + (size_t)(r0 + r) * c + k);
+    } else {
+      const uint32_t z[V / 2] = {};
+      st_words<V>(xs + o, z);
     }
-    xa[e] = __float2bfloat16_rn(v);
-    if (pw) xb[e] = __float2bfloat16_rn(0.f);
   }
-  if (!pw)
-    for (int e = tid; e < R * ldh; e += NT) hs[e] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-
-  if (a.ln_g != nullptr) {  // LayerNorm: f32 stats, E[x^2] - mean^2
-    const bf16 *g = (const bf16*)a.ln_g, *be = (const bf16*)a.ln_b;
-    const int warp = tid / 32, lane = tid % 32;
-    for (int m = warp; m < R; m += NW) {
-      float s = 0.f, ss = 0.f;
-      for (int col = lane; col < c; col += 32) {
-        float v = __bfloat162float(xa[m * ldc + col]);
-        s += v;
-        ss += v * v;
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      float mean = s / c;
-      float rstd = rsqrtf(ss / c - mean * mean + 1e-5f);
-      for (int col = lane; col < c; col += 32) {
-        float v = __bfloat162float(xa[m * ldc + col]);
-        xa[m * ldc + col] = __float2bfloat16_rn(
-            (v - mean) * rstd * __bfloat162float(g[col]) +
-            __bfloat162float(be[col]));
-      }
-    }
-    __syncthreads();
-  }
-
-  const bf16* xs = xa;
-  if (pw) {
-    EpiPw epi{xa, (const bf16*)a.bp, xb, ldc};
-    tc_gemm<MT>(xa, ldc, c, (const bf16*)a.wp, c, epi);
-    __syncthreads();
-    xs = xb;
-    // the hidden GEMM's epilogue writes columns < ch; the ones GEMM2 reads
-    // beyond them must be zero
-    const int pad = up16(ch) - ch;
-    for (int e = tid; e < R * pad; e += NT)
-      hs[(e / pad) * ldh + ch + e % pad] = __float2bfloat16_rn(0.f);
-  }
-  {
-    EpiHidden epi{(const bf16*)a.b1, hs, ldh};
-    tc_gemm<MT>(xs, ldc, c, (const bf16*)a.w1, ch, epi);
-  }
-  __syncthreads();
-  EpiOut epi{xs, (const bf16*)a.b2, (const bf16*)a.kw, (const bf16*)a.kb, x,
-             (bf16*)a.out, ldc, row0, n, c, a.co, a.residual, a.add_res};
-  tc_gemm<MT>(hs, ldh, ch, (const bf16*)a.w2, a.co, epi);
 }
 
-size_t bf16_smem(int mt, const Args& a) {
-  int r = 16 * mt;
-  int lc = ld16(a.c), lh = ld16(a.ch);
-  return sizeof(bf16) * (size_t)r *
-         (a.wp ? lc + (lc > lh ? lc : lh) : lc + lh);
+// The prologue stages in place on the copied tile: gelu(x + yres + db) or
+// LayerNorm (f32 stats, E[x^2] - mean^2), each rounded to bf16. Consumer
+// warp w8 (0..7) takes rows w8, w8 + 8, ...; a lane V columns at a time.
+template <int V>
+__device__ void prologue_x(uint8_t* xs, const uint8_t* ys, const Args& a,
+                           int r0, int w8, int lane) {
+  const bf16 *db = (const bf16*)a.db, *lg = (const bf16*)a.ln_g,
+             *lb = (const bf16*)a.ln_b;
+  const int c = a.c;
+  for (int rr = w8; rr < 64; rr += 8) {
+    if (r0 + rr >= a.n) continue;
+    float s = 0.f, ss = 0.f;
+    for (int k = lane * V; k < c; k += 32 * V) {
+      uint32_t w[V / 2], y[V / 2];
+      ld_words<V>(w, xs + swz(rr, k));
+      if (a.yres != nullptr) ld_words<V>(y, ys + swz(rr, k));
+#pragma unroll
+      for (int e = 0; e < V / 2; ++e) {
+        float2 f = unpack_bf16(w[e]);
+        if (a.yres != nullptr) {
+          const float2 yv = unpack_bf16(y[e]);
+          w[e] = pack_bf16(gelu(f.x + yv.x + to_f(db[k + 2 * e])),
+                           gelu(f.y + yv.y + to_f(db[k + 2 * e + 1])));
+          f = unpack_bf16(w[e]);
+        }
+        s += f.x + f.y;
+        ss += f.x * f.x + f.y * f.y;
+      }
+      if (a.yres != nullptr) st_words<V>(xs + swz(rr, k), w);
+    }
+    if (lg == nullptr) continue;
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mean = s / c;
+    const float rstd = rsqrtf(ss / c - mean * mean + 1e-5f);
+    for (int k = lane * V; k < c; k += 32 * V) {
+      uint32_t w[V / 2];
+      ld_words<V>(w, xs + swz(rr, k));
+#pragma unroll
+      for (int e = 0; e < V / 2; ++e) {
+        const float2 f = unpack_bf16(w[e]);
+        const int i = k + 2 * e;
+        w[e] = pack_bf16((f.x - mean) * rstd * to_f(lg[i]) + to_f(lb[i]),
+                         (f.y - mean) * rstd * to_f(lg[i + 1]) +
+                             to_f(lb[i + 1]));
+      }
+      st_words<V>(xs + swz(rr, k), w);
+    }
+  }
 }
 
-template <int MT>
-int launch_bf16(const Args& a, cudaStream_t s) {
-  size_t smem = bf16_smem(MT, a);
+// rows [0, 64) x columns [0, ncols) of a staging panel to out at rows
+// r0.., columns c0.. (row stride co), V columns per store, by the
+// warpgroup's 128 threads
+template <int V>
+__device__ void store_block(bf16* out, const uint8_t* sg, int r0, int n,
+                            int co, int c0, int ncols, int tid) {
+  const int vpr = ncols / V;
+  for (int e = tid; e < 64 * vpr; e += 128) {
+    const int r = e / vpr, k = (e % vpr) * V;
+    if (r0 + r < n) {
+      uint32_t w[V / 2];
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i)
+        w[i] = *reinterpret_cast<const uint32_t*>(sg + swz(r, k + 2 * i));
+      st_words<V>(reinterpret_cast<uint8_t*>(out + (size_t)(r0 + r) * co +
+                                             c0 + k),
+                  w);
+    }
+  }
+}
+
+__device__ __forceinline__ float ld_bf(const bf16* p, int i, bool ok) {
+  return ok ? __bfloat162float(p[i]) : 0.f;
+}
+
+// NBW: 64-column output blocks per consumer and pass. Two consumer
+// warpgroups share each 64-row tile: each computes half of every 128-wide
+// chunk (the pw stage's and the hidden activation's) and half of the
+// output blocks; a third warpgroup produces (its first thread streams the
+// weights) and hands its registers to them.
+template <int NBW>
+__global__ void __launch_bounds__(384, 1)
+    ffn_pair_tc_kernel(const __grid_constant__ CUtensorMap tw1,
+                       const __grid_constant__ CUtensorMap tw2,
+                       const __grid_constant__ CUtensorMap twp,
+                       const __grid_constant__ CUtensorMap tx, const Args a,
+                       const Plan pl) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* xs = sm + pl.x_off;
+  uint8_t* xbs = sm + pl.xb_off;
+  uint8_t* hs = sm + pl.h_off;
+  uint8_t* st = sm + pl.st_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + pl.bar_off);
+  uint64_t* empty = full + pl.ns;
+  uint64_t* xbar = empty + pl.ns;
+  const bool pw = a.wp != nullptr;
+  const int c = a.c, ch = a.ch, co = a.co, ns = pl.ns;
+  const int ntiles = cdiv(a.n, 64);
+  const int kpc = pl.xp;               // 64-wide k panels of x
+  const int nqc = cdiv(c, 128);        // pw output chunks
+  const int nchunk = cdiv(ch, HC);
+  const int npass = cdiv(co, 128 * NBW);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index, known warp-uniform to the compiler (ptxas C7520)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    regs_dealloc<40>();
+    // producer: one thread streams every weight box, in the consumers'
+    // order, through the ring, for all the tiles the block walks
+    if (threadIdx.x == 256) {
+      int it = 0;
+      auto load = [&](const CUtensorMap* m, int k0, int n0) {
+        const int s = it % ns;
+        mbar_wait(&empty[s], ((it / ns) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load_2d(st + s * STAGE, m, &full[s], k0, n0);
+        ++it;
+      };
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        if (pw)
+          for (int q = 0; q < nqc; ++q)
+            for (int kp = 0; kp < kpc; ++kp) load(&twp, 64 * kp, 128 * q);
+        for (int ps = 0; ps < npass; ++ps) {
+          const int col0 = ps * 128 * NBW;
+          const int nbox = cdiv(min(128 * NBW, co - col0), 128);
+          for (int j = 0; j < nchunk; ++j) {
+            for (int kp = 0; kp < kpc; ++kp) load(&tw1, 64 * kp, HC * j);
+            for (int kk = 0; kk < 2; ++kk)
+              if (HC * j + 64 * kk < ch)
+                for (int i = 0; i < nbox; ++i)
+                  load(&tw2, HC * j + 64 * kk, col0 + 128 * i);
+          }
+        }
+      }
+    }
+    return;
+  }
+  regs_alloc<232>();
+
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x % 128;
+  int it = 0, held = -1;  // ring position; stage whose wgmmas may be in flight
+  auto acquire = [&]() {
+    const int s = it % ns;
+    mbar_wait(&full[s], (it / ns) & 1);
+    return st + s * STAGE;
+  };
+  // after a stage's wgmmas are committed: wait for the previous stage's
+  // group and hand that stage back to the producer
+  auto release_prev = [&]() {
+    wgmma_wait<1>();
+    if (held >= 0) mbar_arrive(&empty[held]);
+    held = it % ns;
+    ++it;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    if (held >= 0) mbar_arrive(&empty[held]);
+    held = -1;
+  };
+  // D (64 x 64) = the A tile (64 x c) . this warpgroup's half (rows
+  // 64 wg..) of each 128-row box^T, over the kpc k panels
+  auto gemm_half = [&](float (&d)[32], const uint8_t* A) {
+    for (int kp = 0; kp < kpc; ++kp) {
+      const uint8_t* b = acquire();
+      const int ks = min(4, cdiv(c - 64 * kp, 16));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk >= ks) break;
+        wgmma_ss_n64(d, desc128(A + kp * PANEL + kk * 32),
+                     desc128(b + wg * 8192 + kk * 32), kp > 0 || kk > 0);
+      }
+      wgmma_commit();
+      release_prev();
+    }
+    drain();
+    fence_regs(d);
+  };
+  auto allbar = [&]() { bar_sync(1, 256); };
+  auto wgbar = [&]() { bar_sync(2 + wg, 128); };
+
+  const int vx = c % 8 == 0 ? 8 : (c % 4 == 0 ? 4 : 2);
+  const int vo = co % 8 == 0 ? 8 : (co % 4 == 0 ? 4 : 2);
+  const bf16 *b1 = (const bf16*)a.b1, *b2 = (const bf16*)a.b2,
+             *bp = (const bf16*)a.bp, *kw = (const bf16*)a.kw,
+             *kb = (const bf16*)a.kb, *x = (const bf16*)a.x;
+  uint8_t* sg = sm + pl.stg_off + wg * PANEL;  // this consumer's staging
+  int xphase = 0;
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int r0 = tile * 64;
+    allbar();  // the last tile's readers of x, h and the staging are done
+    if (a.x_tma) {
+      if (threadIdx.x == 0) {
+        fence_async_smem();
+        mbar_expect_tx(xbar, kpc * PANEL);
+        for (int kp = 0; kp < kpc; ++kp)
+          tma_load_2d(xs + kp * PANEL, &tx, xbar, 64 * kp, r0);
+      }
+      mbar_wait(xbar, xphase);
+      xphase ^= 1;
+    } else {
+      if (vx == 8)
+        copy_x<8>(xs, xbs, a, r0, kpc * 64, threadIdx.x);
+      else if (vx == 4)
+        copy_x<4>(xs, xbs, a, r0, kpc * 64, threadIdx.x);
+      else
+        copy_x<2>(xs, xbs, a, r0, kpc * 64, threadIdx.x);
+      cp_async_wait_all();
+      allbar();
+      if (a.yres != nullptr || a.ln_g != nullptr) {
+        if (vx == 8)
+          prologue_x<8>(xs, xbs, a, r0, 4 * wg + warp, lane);
+        else if (vx == 4)
+          prologue_x<4>(xs, xbs, a, r0, 4 * wg + warp, lane);
+        else
+          prologue_x<2>(xs, xbs, a, r0, 4 * wg + warp, lane);
+      }
+      fence_async_smem();
+      allbar();
+    }
+
+    const uint8_t* A = xs;
+    if (pw) {  // x' = gelu(x + x Wp + bp), 64 of each 128 columns each
+      for (int q = 0; q < nqc; ++q) {
+        float d[32];
+        gemm_half(d, xs);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r;
+            const int col = 128 * q + 64 * wg + 8 * i + 2 * t;
+            if (col >= 64 * kpc) continue;   // past the tile's panels
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cc = col + e;
+              v[e] = cc < c ? gelu(to_f(*reinterpret_cast<const bf16*>(
+                                       xs + swz(row, cc))) +
+                                   d[4 * i + 2 * r + e] + to_f(bp[cc]))
+                            : 0.f;
+            }
+            *reinterpret_cast<uint32_t*>(xbs + swz(row, col)) =
+                pack_bf16(v[0], v[1]);
+          }
+      }
+      fence_async_smem();
+      allbar();
+      A = xbs;
+    }
+
+    for (int ps = 0; ps < npass; ++ps) {
+      const int col0 = ps * 128 * NBW;
+      const int nbox = cdiv(min(128 * NBW, co - col0), 128);
+      float y[NBW][32];
+#pragma unroll
+      for (int b = 0; b < NBW; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) y[b][i] = 0.f;
+      for (int j = 0; j < nchunk; ++j) {
+        // h = gelu(x W1 + b1): this consumer's 64 of the chunk's 128
+        // hidden columns, rounded into its panel of the chunk's buffer
+        uint8_t* hb = hs + (j & 1) * 2 * PANEL;
+        {
+          float d[32];
+          gemm_half(d, A);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int row = warp * 16 + g + 8 * r;
+              const int kc = 64 * wg + 8 * i + 2 * t;
+              const int hid = HC * j + kc;
+              *reinterpret_cast<uint32_t*>(hb + swz(row, kc)) = pack_bf16(
+                  gelu(d[4 * i + 2 * r] + ld_bf(b1, hid, hid < ch)),
+                  gelu(d[4 * i + 2 * r + 1] +
+                       ld_bf(b1, hid + 1, hid + 1 < ch)));
+            }
+        }
+        fence_async_smem();
+        allbar();  // both halves of the chunk are in place
+        // y += h W2: the chunk's two 64-wide k panels, each against the
+        // pass's boxes of 128 output rows; block gb = NBW wg + b of the
+        // pass lies in box gb / 2, half gb % 2
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          if (HC * j + 64 * kk >= ch) break;
+          for (int i = 0; i < nbox; ++i) {
+            const uint8_t* b = acquire();
+            wgmma_fence();
+#pragma unroll
+            for (int bb = 0; bb < NBW; ++bb) {
+              const int gb = NBW * wg + bb;
+              if (gb / 2 != i) continue;
+#pragma unroll
+              for (int k16 = 0; k16 < 4; ++k16)
+                wgmma_ss_n64(y[bb], desc128(hb + kk * PANEL + k16 * 32),
+                             desc128(b + (gb & 1) * 8192 + k16 * 32), 1);
+            }
+            wgmma_commit();
+            release_prev();
+          }
+        }
+      }
+      drain();
+#pragma unroll
+      for (int b = 0; b < NBW; ++b) fence_regs(y[b]);
+
+      // epilogue: + b2, [gelu(x +)], [k1], [+ x]; staged, stored as rows
+#pragma unroll
+      for (int bb = 0; bb < NBW; ++bb) {
+        const int c0 = col0 + 64 * (NBW * wg + bb);
+        if (c0 >= co) break;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r;
+            const int kc = 8 * i + 2 * t;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = c0 + kc + e;
+              const bool ok = col < co;
+              float yv = y[bb][4 * i + 2 * r + e] + ld_bf(b2, col, ok);
+              if (a.residual && ok)
+                yv = gelu(
+                    to_f(*reinterpret_cast<const bf16*>(A + swz(row, col))) +
+                    yv);
+              if (kw != nullptr)
+                yv = gelu(yv + yv * ld_bf(kw, col, ok) + ld_bf(kb, col, ok));
+              if (a.add_res && ok && r0 + row < a.n)
+                yv += to_f(x[(size_t)(r0 + row) * c + col]);
+              v[e] = yv;
+            }
+            *reinterpret_cast<uint32_t*>(sg + swz(row, kc)) =
+                pack_bf16(v[0], v[1]);
+          }
+        wgbar();
+        const int ncols = min(64, co - c0);
+        if (vo == 8)
+          store_block<8>((bf16*)a.out, sg, r0, a.n, co, c0, ncols, tid);
+        else if (vo == 4)
+          store_block<4>((bf16*)a.out, sg, r0, a.n, co, c0, ncols, tid);
+        else
+          store_block<2>((bf16*)a.out, sg, r0, a.n, co, c0, ncols, tid);
+        wgbar();
+      }
+    }
+  }
+}
+
+// rows of each weight (nn.Linear layout, (out, in)) are up8(in) long: the
+// wrapper pads a row that is not a whole number of 16 bytes
+inline int up8(int v) { return (v + 7) & ~7; }
+
+template <int NBW>
+int launch_tc(const Args& a, const Plan& pl, cudaStream_t s) {
+  CUtensorMap tw1, tw2, twp, tx;
+  const uint64_t d1[2] = {(uint64_t)up8(a.c), (uint64_t)a.ch};
+  const uint64_t d2[2] = {(uint64_t)up8(a.ch), (uint64_t)a.co};
+  const uint64_t dp[2] = {(uint64_t)up8(a.c), (uint64_t)a.c};
+  const uint64_t dx[2] = {(uint64_t)a.c, (uint64_t)a.n};
+  const uint32_t box[2] = {64, 128}, boxx[2] = {64, 64};
+  if (!tensor_map(&tw1, a.w1, 2, d1, box) ||
+      !tensor_map(&tw2, a.w2, 2, d2, box) ||
+      (a.wp != nullptr && !tensor_map(&twp, a.wp, 2, dp, box)) ||
+      (a.x_tma && !tensor_map(&tx, a.x, 2, dx, boxx)))
+    return (int)cudaErrorInvalidValue;
+  if (a.wp == nullptr) twp = tw1;  // never read
+  if (!a.x_tma) tx = tw1;          // never read
+  auto kernel = ffn_pair_tc_kernel<NBW>;
   cudaError_t e = cudaFuncSetAttribute(
-      ffn_pair_bf16_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.bytes);
   if (e != cudaSuccess) return (int)e;
-  int grid = (a.n + 16 * MT - 1) / (16 * MT);
-  ffn_pair_bf16_kernel<MT><<<grid, NT, smem, s>>>(a);
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  const int ntiles = cdiv(a.n, 64);
+  kernel<<<ntiles < sms ? ntiles : sms, 384, pl.bytes, s>>>(tw1, tw2, twp,
+                                                            tx, a, pl);
   return (int)cudaGetLastError();
+}
+
+int launch_bf16(Args a, cudaStream_t s) {
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  const Plan pl = make_plan(a.c, a.wp != nullptr);
+  // y_dw is staged in the pw tile
+  if (pl.ns < 2 || a.co > 640 || (a.yres != nullptr && a.wp == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // x straight from TMA where no prologue stage rewrites it and its rows
+  // are whole 16-byte units
+  a.x_tma = a.yres == nullptr && a.ln_g == nullptr && a.c % 8 == 0;
+  switch (wg_blocks(a.co)) {
+    case 1: return launch_tc<1>(a, pl, s);
+    case 2: return launch_tc<2>(a, pl, s);
+    case 3: return launch_tc<3>(a, pl, s);
+    case 4: return launch_tc<4>(a, pl, s);
+    case 5: return launch_tc<5>(a, pl, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_f32(const Args& a, cudaStream_t s) {
@@ -449,7 +784,5 @@ extern "C" int sf_ffn_pair(const void* x, const void* yres, const void* db,
   Args a{x, yres, db, ln_g, ln_b, wp, bp, w1, b1, w2, b2, kw, kb, out,
          n, c, ch, co, residual, add_res};
   if (dtype != sf::kBF16) return launch_f32(a, s);
-  // 64-row tiles where they fit the 227 KB of shared memory, else 32
-  if (bf16_smem(4, a) <= 232448) return launch_bf16<4>(a, s);
-  return launch_bf16<2>(a, s);
+  return launch_bf16(a, s);
 }

@@ -26,8 +26,6 @@
 // models only): CUDA cores, K/V tiles staged as f32 with a padded row;
 // D/32 threads share a query.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-
 #include "common.cuh"
 
 using namespace sf;
@@ -372,48 +370,13 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
   }
 }
 
-// cuTensorMapEncodeTiled through the CUDA runtime's entry-point query
-// (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // tensor map of a contiguous (bh, rows, d) bf16 tensor, boxes of
 // (1, box_rows, panel); rows past the end read as zeros
-bool tensor_map(CUtensorMap* m, const void* base, int bh, int rows, int d,
-                int panel, int box_rows) {
-  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
-  cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  cuuint32_t box[3] = {(cuuint32_t)panel, (cuuint32_t)box_rows, 1};
-  cuuint32_t unit[3] = {1, 1, 1};
-  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                   const_cast<void*>(base), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   panel == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+bool qkv_map(CUtensorMap* m, const void* base, int bh, int rows, int d,
+             int panel, int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)d, (uint64_t)rows, (uint64_t)bh};
+  const uint32_t box[2] = {(uint32_t)panel, (uint32_t)box_rows};
+  return tensor_map(m, base, 3, dims, box);
 }
 
 template <int D>
@@ -423,9 +386,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   const int rows = nk > 0 ? nk : 1;  // no tile is read when nk == 0
-  if (!tensor_map(&tq, q, bh, nq, D, C::PANEL, C::BM) ||
-      !tensor_map(&tk, k, bh, rows, D, C::PANEL, C::BN) ||
-      !tensor_map(&tv, v, bh, rows, D, C::PANEL, C::BN))
+  if (!qkv_map(&tq, q, bh, nq, D, C::PANEL, C::BM) ||
+      !qkv_map(&tk, k, bh, rows, D, C::PANEL, C::BN) ||
+      !qkv_map(&tv, v, bh, rows, D, C::PANEL, C::BN))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

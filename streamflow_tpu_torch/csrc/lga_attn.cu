@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(LW * 32, 16 / LW)
       const int tk = by_cpt.div(e), r = e - tk * cpt;
       const int part = by_seg.div(r), ch = r - part * seg;
       const int ty = by_ws.div(tk), tx = tk - ty * ws;
-      cp_async16(xs + tk * LDR + part * CP + ch * 8,
+      cp_async<16>(xs + tk * LDR + part * CP + ch * 8,
                  qkv + (tok0 + (size_t)ty * wp + tx) * 3 * c + part * c +
                      h0 * hd + ch * 8);
     }

@@ -16,9 +16,12 @@ _ffn_pair_fwd`` in its five forms:
 The first two and the Twins form run in the default layout, the last two
 in the ``dw_impl='pallas'`` layout; all five launch the same kernel.
 
-On the H100 the bf16 kernel runs its GEMMs on the tensor cores; the hidden
-activation never reaches device memory (see the source's header). Weights
-are in nn.Linear layout (out, in); 1x1 conv weights are the same matrix.
+On the H100 the bf16 kernel runs its GEMMs on wgmma with the weights
+staged by TMA; the hidden activation never reaches device memory (see the
+source's header). Weights are in nn.Linear layout (out, in); 1x1 conv
+weights are the same matrix. TMA reads rows of whole 16-byte units, so the
+bf16 launch pads a weight whose input width is not a multiple of 8 with
+zero columns (convc1's 324 and 486 only).
 
 The plain version is a port of ``ffn_pair_xla``: the same stages, rounded
 to the io type at the same points, products accumulated in f32.
@@ -40,17 +43,48 @@ from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 _SMEM_MAX = 232448        # bytes of shared memory a block may use
+_MAX_OUT = 640            # widest output the bf16 kernel takes
 
 
-def _smem_bytes(dt, c: int, ch: int, pw: bool) -> int:
-    """Shared memory of the smallest row tile csrc/ffn_pair.cu launches."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(c: int, pw: bool):
+    """csrc/ffn_pair.cu's make_plan: (bytes, weight stages) of the bf16
+    kernel's shared memory for a 64-row tile: x tile, pw output, two
+    hidden-chunk buffers and the staging (inside x's space after the pw
+    stage where it fits), the ring of 16 KB stages, the mbarriers."""
+    xbytes, aux = _cdiv(c, 64) * 8192, 6 * 8192
+    off = xbytes * (2 if pw else 1)
+    if not (pw and xbytes >= aux):
+        off += aux
+    stages = min(8, max(0, _SMEM_MAX - 1024 - 256 - off) // 16384)
+    return off + stages * 16384 + 16 * stages + 16 + 1024, stages
+
+
+def _smem_bytes(dt, c: int, ch: int, co: int, pw: bool) -> int:
+    """Shared memory of csrc/ffn_pair.cu's launch (bf16: at least two
+    weight stages); raises where the widths cannot fit."""
     if dt == torch.float32:                        # 16 rows, f32
-        return 4 * 16 * (2 * ((c + 3) // 4 * 4) + (ch + 3) // 4 * 4)
+        smem = 4 * 16 * (2 * ((c + 3) // 4 * 4) + (ch + 3) // 4 * 4)
+        stages = None
+    else:
+        if co > _MAX_OUT:
+            raise ValueError(f"ffn_pair (bf16) takes outputs up to "
+                             f"{_MAX_OUT} wide, got {co}")
+        smem, stages = _plan(c, pw)
+    if smem > _SMEM_MAX or stages is not None and stages < 2:
+        raise ValueError(f"ffn_pair tile needs {smem} B of shared memory "
+                         f"(C={c}, hidden={ch}, out={co})")
+    return smem
 
-    def ld(k):
-        return (k + 15) // 16 * 16 + 8
-    # 32 rows, bf16; with the pw stage the hidden tile reuses x's space
-    return 2 * 32 * (ld(c) + (max(ld(c), ld(ch)) if pw else ld(ch)))
+
+def _tma_rows(w):
+    """w with rows padded by zeros to a multiple of 8 elements (16 bytes),
+    as the bf16 kernel's tensor maps read them."""
+    k = w.shape[1]
+    return w if k % 8 == 0 else F.pad(w, (0, -k % 8))
 
 
 def _ln_f32(x, g, b, eps: float = 1e-5):
@@ -106,10 +140,14 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
     if c % 2 or ch % 2:
         raise ValueError(f"ffn_pair takes even widths, got C={c}, "
                          f"hidden={ch}")
-    smem = _smem_bytes(dt, c, ch, wp is not None)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"ffn_pair tile needs {smem} B of shared memory "
-                         f"(C={c}, hidden={ch})")
+    _smem_bytes(dt, c, ch, co, wp is not None)
+    if dt == torch.bfloat16:
+        w1, w2 = _tma_rows(w1), _tma_rows(w2)
+        wp = None if wp is None else _tma_rows(wp)
+        if any(t.data_ptr() % 16 for t in (x, yres, w1, w2, wp)
+               if t is not None):
+            raise ValueError("ffn_pair needs 16-byte aligned x, y and "
+                             "weights")
     out = torch.empty(*x.shape[:-1], co, dtype=dt, device=x.device)
     p = _build.ptr
     lib = _build.library()

@@ -14,8 +14,9 @@ aggregate (1 head, d=128) and the Twins GSA blocks above 16384 tokens
 (ops/pallas/attention.py:89-127): when autograd records, the forward keeps
 (q, k, v, o, lse), and the backward computes delta = rowsum(dO * O) as a
 small PyTorch pass and calls B5; otherwise the forward skips the
-logsumexp output. On the H100 the bf16 kernels run their products on the
-tensor cores (K3 on wgmma fed by TMA; see the sources' headers). The plain versions are a port of
+logsumexp output. On the H100 the bf16 kernels run their products on
+wgmma fed by TMA rings (K3, and both passes of B5; see the sources'
+headers). The plain versions are a port of
 ``_flash_xla`` (streaming softmax over kv chunks, f32) and the backward's
 math written out in f32 torch ops, rounded where the TPU kernels round.
 """

@@ -117,3 +117,44 @@ def test_cpu_wrappers_count_no_launch():
     b1, b2 = torch.zeros(12), torch.zeros(8)
     P.ffn_pair_k1(x, w1, b1, w2, b2, torch.ones(8), torch.zeros(8))
     assert LAUNCHES["ffn_pair"] == before
+
+
+# every K2 call of the main path (c, hidden, out, pw stage): the six SK
+# blocks' two pairs in both layouts and the Twins MLPs
+_MAIN_PATH = sorted({
+    case for c, co in ((324, 256), (256, 192), (128, 64), (256, 126),
+                       (640, 128), (384, 6))
+    for case in ((c, int(1.5 * c), c, False), (c, int(1.5 * c), co, True))}
+    | {(128, 512, 128, False), (256, 1024, 256, False)})
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,ch,co,pw", _MAIN_PATH)
+def test_smem_plan_takes_the_main_path(c, ch, co, pw, dt):
+    """The wrapper's copy of the kernel's shared-memory plan fits every
+    main-path call in the 227 KB a block may use (bf16: with at least four
+    weight stages)."""
+    smem = P._smem_bytes(dt, c, ch, co, pw)
+    assert 0 < smem <= P._SMEM_MAX
+    if dt == torch.bfloat16:
+        plan, stages = P._plan(c, pw)
+        assert smem == plan and stages >= 4
+
+
+@pytest.mark.parametrize("dt,c,ch,co,pw", [
+    (torch.bfloat16, 1600, 2400, 256, False),   # x tile past 227 KB
+    (torch.bfloat16, 1024, 1536, 256, True),    # x and its pw output
+    (torch.bfloat16, 256, 384, 704, False),     # wider than the registers
+    (torch.float32, 2048, 3072, 2048, False)])
+def test_smem_plan_raises_where_a_width_cannot_fit(dt, c, ch, co, pw):
+    with pytest.raises(ValueError):
+        P._smem_bytes(dt, c, ch, co, pw)
+
+
+def test_tma_rows_pads_only_unaligned_widths():
+    w = torch.randn(486, 324)
+    p = P._tma_rows(w)
+    assert p.shape == (486, 328) and torch.equal(p[:, :324], w)
+    assert not p[:, 324:].any()
+    w8 = torch.randn(126, 384)
+    assert P._tma_rows(w8) is w8
