@@ -13,8 +13,13 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      conv of the default layout timed beside it), K6 dw_banded_mxu and K7
      dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
      yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5);
-     K3 and K4 also at the tails of their tiles (one query row, fewer keys
-     than a tile, one-window grids of two images), K2 at ragged row
+     K1 under three traffics (chip_smoke's +-30 px jitter, a smooth flow
+     field, coordinates uniform over the frame; tools/kernel_bench.py
+     makes the last two), each timed, and checked at the branches of its
+     bf16 body (empty, mixed and multi-plane tiles at ragged sizes, C =
+     32, 96, 128 and 512, fewer levels, a smaller radius, a level of size
+     zero), K3 and K4 also at the tails of their tiles (one query row,
+     fewer keys than a tile, one-window grids of two images), K2 at ragged row
      counts (1, 65, 21121) in all five forms at every width of the path,
      each K2 call timed beside its library composite (bf16 torch ops, the
      hidden activation through device memory: a yardstick, not a
@@ -51,7 +56,8 @@ line before the last is a JSON object with one entry per kernel and path
 "inference_dw_<layout>" and "train_step_dw_<layout>": the same for each
 other layout, phases 3, 6 and that layout's forward and train step):
 "launches" is the path's count, "ms", "plain_ms", "bound_ms" and
-"library_ms" are summed over the same calls at the path's shapes. The
+"library_ms" are summed over the same calls at the path's shapes (K1's
+under the jitter traffic; its "ms_by_traffic" gives all three). The
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -471,21 +477,38 @@ def kernel_checks(dev, summaries, hp, wp, train):
             coords[0, :4] = torch.tensor([1e4, -1e4], device=dev)  # far out
             coords[1, :2] = torch.tensor([-20.0, 70.0], device=dev)
             coords = coords.contiguous()
-            # FLOPs of the taps inside each level (the kernel skips the
-            # rest): a C-long dot per tap of the (2r+2)^2 window
-            taps = 0
-            for lvl, f2 in enumerate(levels):
-                ctr = torch.floor(coords.clamp(-1e6, 1e6) / 2 ** lvl)
-                offs = torch.arange(-r, r + 2, device=dev)
-                xs = ctr[..., 0, None] + offs
-                ys = ctr[..., 1, None] + offs
-                nx = ((xs >= 0) & (xs <= f2.shape[2] - 1)).sum(-1)
-                ny = ((ys >= 0) & (ys <= f2.shape[1] - 1)).sum(-1)
-                taps += int((nx * ny).sum())
+            shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
             return (lambda: K1.corr_lookup(f1, levels, coords, r),
                     lambda: K1.corr_lookup_plain(f1, levels, coords, r),
-                    2 * c * taps, (f1, *levels, coords), None, None)
+                    KB.corr_flops(coords, shapes, c, r),
+                    (f1, *levels, coords), None, None)
         return make
+
+    def corr_traffic_case(traffic, b, h, w, c, nl, r, patch=None):
+        """K1 under one of kernel_bench's traffics; ``patch(coords)`` edits
+        the coordinates in place (far-out tiles, mixed tiles)."""
+        def make(dt):
+            f1 = rnd(b, h, w, c, dt=dt)
+            levels = [lv.contiguous() for lv in
+                      pool_pyramid(rnd(b, h, w, c, dt=dt), nl)]
+            coords = KB.corr_coords(traffic, b, h, w, g, dev)
+            if patch is not None:
+                patch(coords)
+            shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
+            return (lambda: K1.corr_lookup(f1, levels, coords, r),
+                    lambda: K1.corr_lookup_plain(f1, levels, coords, r),
+                    KB.corr_flops(coords, shapes, c, r),
+                    (f1, *levels, coords), None, None)
+        return make
+
+    def mixed_tiles(coords):
+        """Pair 0: whole 8x8 tiles far out (empty boxes at every level);
+        pair 1: tiles whose first rows are far out; pair 2: rows 20 on
+        uniform over the frame (boxes wider than one 128-column plane)."""
+        coords[0, :16, :24] = torch.tensor([1e4, 1e4], device=dev)
+        coords[1, :4] = torch.tensor([-1e4, 1e4], device=dev)
+        h, w = coords.shape[1:3]
+        coords[2, 20:] = KB.corr_coords("uniform", 1, h, w, g, dev)[0, 20:]
 
     # token grids at 1/8 and 1/4 of the padded clip; the refinement kernels
     # (SK pairs, GMA, K1) run on B*(T-1) = 3 frame pairs, the flow head's
@@ -572,9 +595,34 @@ def kernel_checks(dev, summaries, hp, wp, train):
         cases.append(("lga_attention", f"tail b2 {hq}x{wq}x{3 * c} h{nh}",
                       lga_case(hq, wq, c, nh, b=2), 0, every))
     cases.append(("corr_lookup", f"3x{h8}x{w8}x256 4 levels r4", corr_case(),
-                  refine, every))
+                  refine, every, "jitter30"))
+    # K1 under the other traffics (timed apart: the kernels line's ms is
+    # the jitter30 case's), then checked only: the branches of its bf16
+    # body (128-, 64- and 32-column planes, empty boxes, box rows of
+    # several planes) at ragged sizes, channel counts that leave a part
+    # or most of a 64-channel panel empty (96, 32), C = 128 and 512,
+    # fewer levels, a smaller radius and a level of size zero
+    for traffic in ("smooth", "uniform"):
+        cases.append(("corr_lookup", f"{traffic} 3x{h8}x{w8}x256 4 levels r4",
+                      corr_traffic_case(traffic, 3, h8, w8, 256, 4, 4),
+                      refine, every, traffic))
+    for label, args in (
+            ("mixed tiles 3x45x150x96 4 levels r4",
+             ("smooth", 3, 45, 150, 96, 4, 4, mixed_tiles)),
+            (f"jitter30 3x{h8}x{w8}x128 4 levels r4",
+             ("jitter30", 3, h8, w8, 128, 4, 4)),
+            ("uniform 2x13x21x32 2 levels r2",
+             ("uniform", 2, 13, 21, 32, 2, 2)),
+            ("uniform 1x20x40x512 3 levels r3",
+             ("uniform", 1, 20, 40, 512, 3, 3)),
+            ("jitter30 1x5x6x64 4 levels r4", ("jitter30", 1, 5, 6, 64, 4, 4)),
+            ("uniform 1x30x300x256 4 levels r4",
+             ("uniform", 1, 30, 300, 256, 4, 4))):
+        cases.append(("corr_lookup", f"tail {label}",
+                      corr_traffic_case(*args), 0, every))
 
-    for kernel, label, make, calls, layouts in cases:
+    for kernel, label, make, calls, layouts, *traffic in cases:
+        traffic = traffic[0] if traffic else None
         for dt in (torch.float32, torch.bfloat16):
             run, plain, flops, inputs, library, aside = make(dt)
             got, want = run(), plain()
@@ -589,10 +637,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
                 ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
                 lib_ms = cuda_ms(library, REPS) if library else None
                 io = nbytes(*inputs, *got)
+                b, _ = bound_ms(flops, io, dt)
                 for layout in layouts:
                     s = summaries[layout][kernel]
                     s["err"] = max(s["err"], err)
-                    b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                    if traffic is not None:   # K1: ms per traffic
+                        s.setdefault("ms_by_traffic", {})[traffic] = (
+                            calls * ms)
+                    if traffic in (None, "jitter30"):
+                        add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
                 extra = ""
                 if aside is not None:
                     extra = f"; {aside[0]} {cuda_ms(aside[1], REPS):.4f} ms"
@@ -1198,7 +1251,10 @@ def main() -> None:
                 "bound_by": ("operations" if s["ops_ms"] >= s["mem_ms"]
                              else "bytes"),
                 "library_ms": (None if s["library_ms"] is None
-                               else round(s["library_ms"], 4))})
+                               else round(s["library_ms"], 4)),
+                **({"ms_by_traffic": {t: round(v, 4) for t, v in
+                                      s["ms_by_traffic"].items()}}
+                   if "ms_by_traffic" in s else {})})
     log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

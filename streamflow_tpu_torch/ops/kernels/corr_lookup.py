@@ -6,10 +6,13 @@ For each query pixel and pyramid level l: the 9x9 bilinear window of
 f1 . f2_l^T / sqrt(C) around coords / 2^l, zeros out of range, written
 x-major (channel = l*81 + ix*9 + iy). The (N, N) volume is never stored.
 
-On the H100 the kernel is bound by L2 reads of the tapped f2 features; one
-warp per query keeps f1 in registers and reads each tap row once (see the
-source's header). Its plain version materialises each level's volume and
-looks it up like ``CorrPyramid``.
+On the H100 the kernel is bound by bytes. Its bf16 body shares work
+between neighbouring queries as the TPU kernel does: a block per (frame
+pair, 8x8 query tile, level) computes, on the tensor cores, the volume
+rows of the box of level positions its queries' windows touch, and takes
+each query's taps from them; the f32 body keeps one warp per query (see
+the source's header). Its plain version materialises each level's volume
+and looks it up like ``CorrPyramid``.
 
 Gradients to f1 and the pooled levels, as the JAX package's custom_vjp of
 the Pallas lookup (ops/pallas/corr.py:91-101, whose backward recomputes

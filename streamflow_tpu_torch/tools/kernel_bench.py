@@ -1,12 +1,23 @@
-"""K2 (the fused FFN pair) and B5 (the flash-attention backward) on one GPU
-at the main path's shapes: each bf16 call checked against its plain
-version, timed with CUDA events beside its bound and a yardstick, and
-optionally against the kernels of another checkout of the repository,
-built from that tree's ``streamflow_tpu_torch/csrc`` and timed in turns
-(others, this, this, others in reverse) in the same process, as
-``attn_bench`` does for K3 and K4.
+"""K1 (the correlation lookup), K2 (the fused FFN pair) and B5 (the
+flash-attention backward) on one GPU at the main path's shapes: each bf16
+call checked against its plain version, timed with CUDA events beside its
+bound and a yardstick, and optionally against the kernels of another
+checkout of the repository, built from that tree's
+``streamflow_tpu_torch/csrc`` and timed in turns (others, this, this,
+others in reverse) in the same process, as ``attn_bench`` does for K3 and
+K4.
 
     python -m streamflow_tpu_torch.tools.kernel_bench [--other DIR ...] [--reps N]
+
+K1's calls are those of one 440x1024 clip (12, one per refinement
+iteration, on the 3 frame pairs at 55x128, C=256, 4 levels, radius 4) and
+of one 432x960 train step (24 at 54x120), each under three traffics
+reported apart: ``smooth`` (a seeded low-frequency flow of tens of px, as
+real footage gives), ``jitter30`` (``chip_smoke.py``'s +-30 px per-pixel
+case with its far-out rows) and ``uniform`` (every coordinate uniform over
+the frame: each tile's box is the whole level, the worst case). Its bound
+is bytes (f1, the pyramid and coords read once, the output written once);
+no single library call computes it, so it has no yardstick.
 
 K2's calls are those of one 440x1024 clip and of one 432x960 train step
 (the refinement blocks twice, for remat) in the default SK layout
@@ -34,6 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from streamflow_tpu_torch import _build
+from streamflow_tpu_torch.ops.coords import coords_grid
+from streamflow_tpu_torch.ops.corr import pool_pyramid
+from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
 from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
 from streamflow_tpu_torch.ops.kernels import flash_attention as K3
 from streamflow_tpu_torch.tools.attn_bench import (HBM, PEAK_BF16, T, timed,
@@ -47,6 +61,63 @@ SK = [(324, 256, 3), (256, 192, 3), (128, 64, 3), (256, 126, 3),
 LAYOUTS = {"ffn_pair_k1": ("default",), "dwres_pw_ffn_pair": ("default",),
            "ffn_pair": ("pair",), "pw_ffn_pair": ("pair",),
            "ln_ffn_pair": ("default", "pair")}
+
+
+TRAFFICS = ("smooth", "jitter30", "uniform")
+
+
+def corr_cases(hp, wp, train):
+    """(traffic, pairs, h, w, c, levels, radius, calls per clip or step) of
+    K1: one call per refinement iteration (twice per step, for remat) on
+    the B*(T-1) = 3 frame pairs at 1/8 of the padded frame."""
+    return [(traffic, T - 1, hp // 8, wp // 8, 256, 4, 4, 24 if train else 12)
+            for traffic in TRAFFICS]
+
+
+def corr_bytes(pairs, h, w, c, levels, radius, itemsize=2):
+    """Bytes a K1 call must move: f1, the pooled pyramid (VALID 2x2 pools)
+    and the f32 coords read once, the output written once."""
+    n, pyramid, hl, wl = h * w, 0, h, w
+    for _ in range(levels):
+        pyramid += hl * wl
+        hl, wl = hl // 2, wl // 2
+    k = 2 * radius + 1
+    return pairs * (itemsize * c * (n + pyramid) + 8 * n
+                    + itemsize * n * levels * k * k)
+
+
+def corr_coords(traffic, pairs, h, w, gen, dev):
+    """Seeded level-0 pixel coordinates (x, y), (pairs, h, w, 2) f32."""
+    grid = coords_grid(pairs, h, w, dev)
+    if traffic == "smooth":
+        # a 3x4 field of N(0, 20^2) px displacements, bilinearly upsampled
+        coarse = 20.0 * torch.randn(pairs, 2, 3, 4, generator=gen, device=dev)
+        flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                             align_corners=True)
+        return (grid + flow.permute(0, 2, 3, 1)).contiguous()
+    if traffic == "uniform":
+        u = torch.rand(pairs, h, w, 2, generator=gen, device=dev)
+        return (u * torch.tensor([w, h], device=dev)).contiguous()
+    coords = grid + 30.0 * (
+        2 * torch.rand(pairs, h, w, 2, generator=gen, device=dev) - 1)
+    coords[0, :4] = torch.tensor([1e4, -1e4], device=dev)  # far out
+    coords[1:2, :2] = torch.tensor([-20.0, 70.0], device=dev)
+    return coords.contiguous()
+
+
+def corr_flops(coords, shapes, c, radius):
+    """FLOPs of the taps these coords need (those inside each level): a
+    C-long dot product per tap of the (2r+2)^2 window."""
+    offs = torch.arange(-radius, radius + 2, device=coords.device)
+    taps = 0
+    for lvl, (hl, wl) in enumerate(shapes):
+        ctr = torch.floor(coords.clamp(-1e6, 1e6) / 2 ** lvl)
+        nx = ((ctr[..., 0, None] + offs >= 0)
+              & (ctr[..., 0, None] + offs <= wl - 1)).sum(-1)
+        ny = ((ctr[..., 1, None] + offs >= 0)
+              & (ctr[..., 1, None] + offs <= hl - 1)).sum(-1)
+        taps += int((nx * ny).sum())
+    return 2 * c * taps
 
 
 def ffn_cases(hp, wp, train):
@@ -203,14 +274,16 @@ def main() -> int:
         for name, ts in times.items():
             row[f"ms_{name}"] = ts
             row[f"tflops_{name}"] = flops / min(ts) / 1e9
-        row["yardstick_ms"] = timed(yardstick, args.reps)
+        if yardstick is not None:
+            row["yardstick_ms"] = timed(yardstick, args.reps)
         print(json.dumps(row), flush=True)
         for k in key:
             s = sums.setdefault(k, {})
             for name, ts in times.items():
                 s[name] = s.get(name, 0.0) + calls * min(ts)
             for name in ("bound", "yardstick"):
-                s[name] = s.get(name, 0.0) + calls * row[f"{name}_ms"]
+                if f"{name}_ms" in row:
+                    s[name] = s.get(name, 0.0) + calls * row[f"{name}_ms"]
 
     def ffn(path, form, rows, c, ch, co, calls):
         a = ffn_inputs(form, rows, c, ch, co, rnd)
@@ -267,8 +340,35 @@ def main() -> int:
                                            retain_graph=True), clear)
         del ref
 
+    def corr(path, traffic, pairs, h, w, c, levels, radius, calls):
+        f1 = rnd(pairs, h, w, c)
+        lv = [t.contiguous() for t in pool_pyramid(rnd(pairs, h, w, c),
+                                                   levels)]
+        coords = corr_coords(traffic, pairs, h, w, g, dev)
+        shapes = [(t.shape[1], t.shape[2]) for t in lv]
+        k = 2 * radius + 1
+        out = torch.empty(pairs, h, w, levels * k * k, dtype=torch.bfloat16,
+                          device=dev)
+        ptrs = [p(t) for t in lv] + [None] * (K1.MAX_LEVELS - levels)
+        dims = [d for s in shapes for d in s] + [0, 0] * (K1.MAX_LEVELS
+                                                          - levels)
+
+        def run(name):
+            _build.check(libs[name][0].sf_corr_lookup(
+                p(f1), *ptrs, p(coords), p(out), pairs, h * w, c, levels,
+                *dims, radius, 1, 1.0 / math.sqrt(c), stream), "corr_lookup")
+        record([("corr_lookup", path, traffic)],
+               {"kernel": "corr_lookup", "path": path, "traffic": traffic,
+                "case": f"{pairs}x{h}x{w}x{c} {levels} levels r{radius}",
+                "calls": calls},
+               calls, corr_flops(coords, shapes, c, radius),
+               corr_bytes(pairs, h, w, c, levels, radius), run, [out],
+               [K1.corr_lookup_plain(f1, lv, coords, radius)], None)
+
     for path, (hp, wp, train) in (("clip", (440, 1024, False)),
                                   ("step", (432, 960, True))):
+        for case in corr_cases(hp, wp, train):
+            corr(path, *case)
         for case in ffn_cases(hp, wp, train):
             ffn(path, *case)
         torch.cuda.empty_cache()
@@ -276,6 +376,7 @@ def main() -> int:
         bwd(*case)
         torch.cuda.empty_cache()
     for (kernel, path, layout), s in sums.items():
+        # layout: K2's SK layout, K1's traffic, "all" for B5
         print(json.dumps({"sum": kernel, "per": path, "layout": layout, **{
             f"{k}_ms": v for k, v in s.items()}}), flush=True)
     print(json.dumps({"ok": ok, "card": card}), flush=True)
