@@ -71,19 +71,23 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def build(csrc: Path, out_dir: Path):
+def build(csrc: Path, out_dir: Path, only=None):
     """Compile (if those sources changed) the ``.cu`` files of ``csrc`` into
     one library under ``out_dir`` and load it with the launchers' argument
     types (``tools/attn_bench.py`` builds another checkout's kernels
-    beside this tree's)."""
+    beside this tree's). ``only``: the stems of the ``.cu`` files to
+    compile (default all); the launchers of the others are not bound."""
     out_dir.mkdir(parents=True, exist_ok=True)
     digest = _digest(csrc)
+    if only is not None:
+        digest += "_" + "-".join(sorted(only))
     so = out_dir / f"libsf_kernels_{digest}.so"
     if not so.exists():
         nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
         flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC"]
-        srcs = [p for p in _sources(csrc) if p.suffix == ".cu"]
+        srcs = [p for p in _sources(csrc) if p.suffix == ".cu"
+                and (only is None or p.stem in only)]
         objs = [out_dir / f"{p.stem}.{tag}.o" for p in srcs]
         tmp, procs = so.with_suffix(f".{os.getpid()}.tmp"), []
         try:
@@ -115,6 +119,8 @@ def build(csrc: Path, out_dir: Path):
                 f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
+        if only is not None and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -8,9 +8,10 @@
 //      transposes around it, as JAX does;
 //   K7 _dw_banded_mxu_t_fwd (pallas_call :223): NHWC in and out, the
 //      transposes and the zero halo done while the block loads;
-//   K8 _sk_chain_banded_fwd (pallas_call :343): K6's operand, with the SK
-//      block's k=1 stages, a zero halo after them, the bias, the residual
-//      and the final gelu fused.
+//   K8 _sk_chain_banded_fwd (pallas_call :343): NHWC in and out, as K7,
+//      with the SK block's k=1 stages, a zero halo after them, the bias,
+//      the residual and the final gelu fused (JAX pads and transposes
+//      outside its kernel, a TPU lane-layout choice, not the function).
 //
 // Math, per channel c and image b, X[wp][hp] the zero-padded input slab
 // (W along rows, H along columns, as the Pallas lhs) and w[c][ky][kx]
@@ -41,8 +42,9 @@
 // Design: one block of 256 threads per (image, 32 (H) x 64 (W) output
 // region, 8 channels). The block loads the haloed region of its 8
 // channels, (64 + k - 1) rows along W x 48 columns along H, zeros outside
-// the image, into shared memory as one (W, H) slab per channel (K7
-// transposes NHWC into it while it loads), and the weights as the pair
+// the image, into shared memory as one (W, H) slab per channel (K7 and
+// K8 transpose NHWC into it while they load, K8 applying its k=1 stages
+// there), and the weights as the pair
 // table. bf16: warp i computes channel i, the region as 4 m16 tiles along
 // W x 4 n8 tiles along H with mma.sync m16n8k16 (f32 accumulators, 64 a
 // thread); for each kx the A fragments are the slab's rows shifted by kx
@@ -278,7 +280,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
     for (int u = 0; u < NB; ++u) {
       const int e = e0 + u * NT;
       int ch, i, j;
-      if (MODE == kNHWC) {  // channels fastest: NHWC's contiguous axis
+      if (MODE != kCMajor) {  // channels fastest: NHWC's contiguous axis
         ch = e % CB;
         i = (e / CB) % QR;
         j = e / (CB * QR);
@@ -291,7 +293,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
       const bool in_slab = e < ne && i < rows;
       bool ok = in_slab && c < C;
       size_t src;
-      if (MODE == kNHWC) {
+      if (MODE != kCMajor) {
         const int hh = hp - R, ww = wp - R;
         ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
         src = (((size_t)bi * H + hh) * W + ww) * C + c;
@@ -302,7 +304,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
       v[u] = ok ? to_f(x[src]) : 0.f;
       dst[u] = in_slab ? ch * QSZ + i * LDQ + j : -1;
       cs[u] = c;
-      inner[u] = ok && wp >= R && wp < R + W && hp >= R && hp < R + H;
+      inner[u] = ok;  // NHWC: ok means inside the image
     }
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
@@ -326,8 +328,8 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
   }
   __syncthreads();
 
-  // epilogue and store: K6/K8 write (C, B*W, H), H fastest; K7 NHWC,
-  // channels fastest
+  // epilogue and store: K6 writes (C, B*W, H), H fastest; K7 and K8
+  // NHWC, channels fastest
   const T* bias = (const T*)a.b;
   T* out = (T*)a.out;
   for (int e0 = tid; e0 < CB * RW * RH; e0 += NB * NT) {
@@ -338,7 +340,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
     for (int u = 0; u < NB; ++u) {
       const int e = e0 + u * NT;
       int cl, wl, hl;
-      if (MODE == kNHWC) {
+      if (MODE != kCMajor) {
         cl = e % CB;
         wl = (e / CB) % RW;
         hl = e / (CB * RW);
@@ -352,13 +354,10 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
       cs[u] = ok ? c : -1;
       acc[u] = ok ? reinterpret_cast<const float*>(slabs + cl * QSZ)
                         [wl * SLD + hl] : 0.f;
-      oi[u] = MODE == kNHWC ? (((size_t)bi * H + ho) * W + wo) * C + c
-                            : (((size_t)c * a.nb + bi) * W + wo) * H + ho;
+      oi[u] = MODE != kCMajor ? (((size_t)bi * H + ho) * W + wo) * C + c
+                              : (((size_t)c * a.nb + bi) * W + wo) * H + ho;
       // K8's residual is A unrounded: recomputed from x at the centre tap
-      r0[u] = MODE == kChain && ok
-                  ? to_f(x[(((size_t)c * a.nb + bi) * Wp + wo + R) * Hp +
-                           ho + R])
-                  : 0.f;
+      r0[u] = MODE == kChain && ok ? to_f(x[oi[u]]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
@@ -416,13 +415,13 @@ extern "C" int sf_dw_banded_mxu_t(const void* x, const void* w, const void* b,
   return run<kNHWC>(a, dtype, (cudaStream_t)stream);
 }
 
-// K8. lhs as K6; k1w, k1b (n1, c), the k=1 stages (null when n1 == 0);
-// w (c, 1, k, k), b (c), the kxk stage; out (c, nb*wd, h).
-extern "C" int sf_sk_chain_banded(const void* lhs, const void* k1w,
+// K8. x, out (nb, h, wd, c) NHWC; k1w, k1b (n1, c), the k=1 stages (null
+// when n1 == 0); w (c, 1, k, k), b (c), the kxk stage.
+extern "C" int sf_sk_chain_banded(const void* x, const void* k1w,
                                   const void* k1b, const void* w,
                                   const void* b, void* out, int nb, int h,
                                   int wd, int c, int n1, int k, int dtype,
                                   void* stream) {
-  Args a{lhs, w, b, k1w, k1b, out, nb, h, wd, c, k, n1};
+  Args a{x, w, b, k1w, k1b, out, nb, h, wd, c, k, n1};
   return run<kChain>(a, dtype, (cudaStream_t)stream);
 }

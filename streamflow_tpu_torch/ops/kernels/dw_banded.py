@@ -14,7 +14,9 @@ per-channel banded matmul:
   kernel's C % 128 == 0 is a lane rule of the TPU);
 - K8 ``sk_chain_banded`` (``_sk_chain_banded_fwd``, :343): the whole SK dw
   stack for ks = (1,)*n1 + (k,), k=1 stages, zero halo, the banded conv,
-  bias, residual and gelu in one kernel, on K6's operand.
+  bias, residual and gelu in one kernel, NHWC in and out as K7 (JAX's pad
+  and transposes around its kernel are a TPU lane-layout choice): the
+  wrapper hands the launcher x itself and ``torch.empty_like(x)``.
 
 x is (B, H, W, C); weights are PyTorch's depthwise (C, 1, k, k) (the SK
 block's ``nn.Conv2d`` parameters as they are), biases (C,). The kernels
@@ -186,14 +188,15 @@ def _run_chain(x, weights, biases, ks):
             return ts[0].reshape(c)
         return torch.stack([t.reshape(c) for t in ts]) if n1 else None
     k1w, k1b = stages(weights[:-1]), stages(biases[:-1])
-    lhs, out = _operand(x, weights[-1], biases[-1])
+    _check(x, weights[-1], biases[-1])
+    out = torch.empty_like(x)
     _build.check(_build.library().sf_sk_chain_banded(
-        _build.ptr(lhs), _build.ptr(k1w), _build.ptr(k1b),
+        _build.ptr(x), _build.ptr(k1w), _build.ptr(k1b),
         _build.ptr(weights[-1]), _build.ptr(biases[-1]), _build.ptr(out),
         *x.shape, n1, ks[-1], _build.dtype_code(x.dtype),
         _build.stream_of(x)), "sk_chain_banded")
     LAUNCHES["sk_chain_banded"] += 1
-    return _from_cmajor(out)
+    return out
 
 
 def _check(x, w, b):
@@ -211,8 +214,8 @@ def _check(x, w, b):
 
 
 def _operand(x, w, b):
-    """K6's and K8's operand: x zero-padded by k // 2 and C-major,
-    (C, B, Wp, Hp) contiguous; and their (C, B, W, H) output."""
+    """K6's operand: x zero-padded by k // 2 and C-major, (C, B, Wp, Hp)
+    contiguous; and its (C, B, W, H) output."""
     _check(x, w, b)
     nb, h, wd, c = x.shape
     r = w.shape[-1] // 2

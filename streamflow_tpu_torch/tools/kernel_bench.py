@@ -1,13 +1,18 @@
-"""K1 (the correlation lookup), K2 (the fused FFN pair) and B5 (the
-flash-attention backward) on one GPU at the main path's shapes: each bf16
-call checked against its plain version, timed with CUDA events beside its
-bound and a yardstick, and optionally against the kernels of another
-checkout of the repository, built from that tree's
-``streamflow_tpu_torch/csrc`` and timed in turns (others, this, this,
-others in reverse) in the same process, as ``attn_bench`` does for K3 and
-K4.
+"""K1 (the correlation lookup), K2 (the fused FFN pair), B5 (the
+flash-attention backward) and K8 (the banded SK chain) on one GPU at the
+main path's shapes: each bf16 call checked against its plain version,
+timed with CUDA events beside its bound and a yardstick, and optionally
+against the kernels of another checkout of the repository, built from
+that tree's ``streamflow_tpu_torch/csrc`` and timed in turns (others,
+this, this, others in reverse) in the same process, as ``attn_bench``
+does for K3 and K4.
 
-    python -m streamflow_tpu_torch.tools.kernel_bench [--other DIR ...] [--reps N]
+    python -m streamflow_tpu_torch.tools.kernel_bench [--other DIR ...]
+        [--reps N] [--kernels k1,k2,b5,k8]
+
+``--kernels`` picks the sections (default all) and compiles only their
+sources, in every tree: ``--kernels k8`` builds ``dw_banded.cu`` alone
+and takes seconds of the card after the build.
 
 K1's calls are those of one 440x1024 clip (12, one per refinement
 iteration, on the 3 frame pairs at 55x128, C=256, 4 levels, radius 4) and
@@ -27,9 +32,21 @@ Its yardstick is the library composite: the same stages as bf16 PyTorch
 ops (``F.linear``, ``F.gelu``, ``F.layer_norm``), the hidden activation
 through device memory; the port never calls it. B5's calls are the train
 step's (GMA and the four GSA blocks at 432x960); its yardstick is SDPA's
-backward. One JSON object per case on stdout, then per-clip and per-step
-sums; exits non-zero when a kernel disagrees with its plain version.
-Needs a GPU.
+backward.
+
+K8's calls are the six SK blocks' dw stacks, ks (1, 15) and the gru's
+(1, 7), on (B, H/8, W/8, C): 12 per block per 440x1024 clip (3x55x128,
+the flow head 1x55x128x384) and 24 per 432x960 step (3x54x120). Beside
+K8: K7 (the kxk conv alone) at the same shape, and the default layout's
+cuDNN depthwise conv of the same tensor, copies included, as
+``chip_smoke.py`` times it. Its bound is bytes: x, the weights and biases
+read once, the output written once. Another checkout whose K8 still takes
+the padded C-major operand (before NHWC) is timed as its wrapper runs it,
+pad and permute copies included, and its kernel alone apart.
+
+One JSON object per case on stdout, then per-clip and per-step sums;
+exits non-zero when a kernel disagrees with its plain version. Needs a
+GPU.
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.corr import pool_pyramid
 from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+from streamflow_tpu_torch.ops.kernels import dw_banded as K8
 from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
 from streamflow_tpu_torch.ops.kernels import flash_attention as K3
 from streamflow_tpu_torch.tools.attn_bench import (HBM, PEAK_BF16, T, timed,
@@ -57,6 +75,11 @@ from streamflow_tpu_torch.tools.attn_bench import (HBM, PEAK_BF16, T, timed,
 # convc2, convf2, conv, gru, flow head
 SK = [(324, 256, 3), (256, 192, 3), (128, 64, 3), (256, 126, 3),
       (640, 128, 3), (384, 6, 1)]
+# the SK blocks' dw conv sizes (the k of their dw stack (1, k))
+DW_K = (15, 15, 15, 15, 7, 15)
+# kernel_bench sections and the csrc sources each needs
+SECTIONS = {"k1": ("corr_lookup",), "k2": ("ffn_pair",),
+            "b5": ("flash_attn_bwd",), "k8": ("dw_banded",)}
 # which SK layouts run each K2 form
 LAYOUTS = {"ffn_pair_k1": ("default",), "dwres_pw_ffn_pair": ("default",),
            "ffn_pair": ("pair",), "pw_ffn_pair": ("pair",),
@@ -197,6 +220,27 @@ def ffn_flops(form, rows, c, ch, co):
     return 2 * rows * (c * ch + ch * co + (c * c if pw else 0))
 
 
+def chain_cases(hp, wp, train):
+    """(nb, h, w, c, ks, calls per clip or step) of K8: each SK block's dw
+    stack once per refinement iteration (twice per step, for remat)."""
+    refine = 24 if train else 12
+    return [(pairs, hp // 8, wp // 8, c, (1, k), refine)
+            for (c, _, pairs), k in zip(SK, DW_K)]
+
+
+def chain_bytes(nb, h, w, c, ks, itemsize=2):
+    """Bytes a K8 call must move: x, the weights and the biases read once,
+    the output written once."""
+    return itemsize * (2 * nb * h * w * c + sum(c * k * k + c for k in ks))
+
+
+def nhwc_chain(root):
+    """Whether the K8 launcher of the checkout at ``root`` reads x as NHWC
+    (else the padded C-major operand of the first version)."""
+    wrapper = root / "streamflow_tpu_torch/ops/kernels/dw_banded.py"
+    return "_operand(x, weights[-1]" not in wrapper.read_text()
+
+
 def bwd_cases(hp, wp):
     """(label, bh shape, n, m, d, calls per train step) of B5."""
     h8, w8 = hp // 8, wp // 8
@@ -216,7 +260,15 @@ def main() -> int:
                          "beside this tree's (repeatable; named by its "
                          "directory)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default=",".join(SECTIONS),
+                    help="comma-separated sections to run, of "
+                         + ", ".join(SECTIONS))
     args = ap.parse_args()
+    run_sec = args.kernels.split(",")
+    if not set(run_sec) <= set(SECTIONS):
+        raise SystemExit(f"kernel_bench: --kernels takes {list(SECTIONS)}")
+    only = None if set(run_sec) == set(SECTIONS) else sorted(
+        {s for k in run_sec for s in SECTIONS[k]})
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -225,15 +277,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     # per library: (ctypes library, whether its K2 reads weight rows padded
-    # to 16 bytes, as this tree's wrapper hands them)
-    libs = {"this": (_build.library(), True)}
+    # to 16 bytes, as this tree's wrapper hands them, whether its K8 reads
+    # NHWC)
+    libs = {"this": (_build.library() if only is None else _build.build(
+        _build._CSRC, _build._BUILD, only), True, True)}
     for other in args.other:
         root = other.resolve()
         wrapper = root / "streamflow_tpu_torch/ops/kernels/ffn_pair.py"
         libs[root.name] = (
             _build.build(root / "streamflow_tpu_torch" / "csrc",
-                         root / "build" / "kernel_bench"),
-            "_tma_rows" in wrapper.read_text())
+                         root / "build" / "kernel_bench", only),
+            "_tma_rows" in wrapper.read_text(), nhwc_chain(root))
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda,
                       "others": [str(o) for o in args.other]}), flush=True)
@@ -248,10 +302,12 @@ def main() -> int:
     ok = True
     sums = {}
 
-    def record(key, row, calls, flops, nbytes, run, outs, want, yardstick,
+    def record(key, row, calls, flops, nbytes, run, outs, want, asides,
                clear=None):
         """``run(name)`` launches the kernel of library ``name`` into
-        ``outs``; ``clear()`` zeroes them before a checked call."""
+        ``outs``; ``clear()`` zeroes them before a checked call;
+        ``asides`` maps a name to a call timed beside the kernel (its
+        yardstick, another kernel at the same shape)."""
         nonlocal ok
         for name in libs:
             if clear:
@@ -274,16 +330,15 @@ def main() -> int:
         for name, ts in times.items():
             row[f"ms_{name}"] = ts
             row[f"tflops_{name}"] = flops / min(ts) / 1e9
-        if yardstick is not None:
-            row["yardstick_ms"] = timed(yardstick, args.reps)
+        for name, fn in asides.items():
+            row[f"{name}_ms"] = timed(fn, args.reps)
         print(json.dumps(row), flush=True)
         for k in key:
             s = sums.setdefault(k, {})
             for name, ts in times.items():
                 s[name] = s.get(name, 0.0) + calls * min(ts)
-            for name in ("bound", "yardstick"):
-                if f"{name}_ms" in row:
-                    s[name] = s.get(name, 0.0) + calls * row[f"{name}_ms"]
+            for name in ("bound", *asides):
+                s[name] = s.get(name, 0.0) + calls * row[f"{name}_ms"]
 
     def ffn(path, form, rows, c, ch, co, calls):
         a = ffn_inputs(form, rows, c, ch, co, rnd)
@@ -307,7 +362,7 @@ def main() -> int:
                calls, ffn_flops(form, rows, c, ch, co),
                2 * (sum(t.numel() for t in a.values()) + out.numel()),
                run, [out], [ffn_plain(form, a)],
-               lambda: ffn_composite(form, a))
+               {"yardstick": lambda: ffn_composite(form, a)})
 
     def bwd(label, bh_shape, n, m, d, calls):
         q = rnd(*bh_shape, n, d, scale=d ** -0.5)
@@ -336,8 +391,8 @@ def main() -> int:
                calls, 10 * bh * n * m * d,
                2 * (3 * q.numel() + 3 * k.numel()) + 8 * bh * n,
                run, outs, want,
-               lambda: torch.autograd.grad(ref, (qs, ks, vs), do,
-                                           retain_graph=True), clear)
+               {"yardstick": lambda: torch.autograd.grad(
+                   ref, (qs, ks, vs), do, retain_graph=True)}, clear)
         del ref
 
     def corr(path, traffic, pairs, h, w, c, levels, radius, calls):
@@ -363,18 +418,75 @@ def main() -> int:
                 "calls": calls},
                calls, corr_flops(coords, shapes, c, radius),
                corr_bytes(pairs, h, w, c, levels, radius), run, [out],
-               [K1.corr_lookup_plain(f1, lv, coords, radius)], None)
+               [K1.corr_lookup_plain(f1, lv, coords, radius)], {})
+
+    def chain(path, nb, h, w, c, ks, calls):
+        k = ks[-1]
+        x = rnd(nb, h, w, c)
+        ws = (rnd(c, 1, 1, 1, scale=0.3), rnd(c, 1, k, k, scale=1 / k))
+        bs = (rnd(c, scale=0.1), rnd(c, scale=0.1))
+        out, out7 = torch.empty_like(x), torch.empty_like(x)
+
+        def launch(lib, xin, o):
+            _build.check(lib.sf_sk_chain_banded(
+                p(xin), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(o), nb, h,
+                w, c, 1, k, 1, stream), "sk_chain_banded")
+
+        def cmajor():
+            # the first version's operand and output, as its wrapper made
+            # them: x zero-padded and C-major, (C, B, W, H) out
+            r = k // 2
+            lhs = x.new_zeros((c, nb, w + 2 * r, h + 2 * r))
+            lhs[:, :, r:r + w, r:r + h] = x.permute(3, 0, 2, 1)
+            return lhs, x.new_empty((c, nb, w, h))
+
+        def run(name):
+            lib, _, nhwc = libs[name]
+            if nhwc:
+                launch(lib, x, out)
+            else:
+                lhs, o = cmajor()
+                launch(lib, lhs, o)
+                out.copy_(o.permute(1, 3, 2, 0))
+
+        def conv():
+            # the default layout's conv of the same tensor, copies
+            # included (chip_smoke.py's cuDNN yardstick of K5 and K8)
+            y = x.permute(0, 3, 1, 2)
+            y = y.contiguous() if k > 7 else y
+            y = F.conv2d(y, ws[1], None, 1, k // 2, 1, c)
+            return y.permute(0, 2, 3, 1).contiguous()
+        asides = {"k7": lambda: _build.check(libs["this"][0].sf_dw_banded_mxu_t(
+            p(x), p(ws[1]), p(bs[1]), p(out7), nb, h, w, c, k, 1, stream),
+            "dw_banded_mxu_t"), "cudnn": conv}
+        for name, (lib, _, nhwc) in libs.items():
+            if not nhwc:   # the first version's kernel without its copies
+                lhs, o = cmajor()
+                asides[f"{name}_kernel_only"] = (
+                    lambda lib=lib, lhs=lhs, o=o: launch(lib, lhs, o))
+        record([("sk_chain_banded", path, "banded_chain")],
+               {"kernel": "sk_chain_banded", "path": path,
+                "case": f"{nb}x{h}x{w}x{c} ks {ks}", "calls": calls},
+               calls, 2 * k * k * x.numel() + 3 * x.numel(),
+               chain_bytes(nb, h, w, c, ks), run, [out],
+               [K8.sk_chain_banded_plain(x, ws, bs, ks)], asides)
 
     for path, (hp, wp, train) in (("clip", (440, 1024, False)),
                                   ("step", (432, 960, True))):
-        for case in corr_cases(hp, wp, train):
-            corr(path, *case)
-        for case in ffn_cases(hp, wp, train):
-            ffn(path, *case)
+        if "k1" in run_sec:
+            for case in corr_cases(hp, wp, train):
+                corr(path, *case)
+        if "k2" in run_sec:
+            for case in ffn_cases(hp, wp, train):
+                ffn(path, *case)
+        if "k8" in run_sec:
+            for case in chain_cases(hp, wp, train):
+                chain(path, *case)
         torch.cuda.empty_cache()
-    for case in bwd_cases(432, 960):
-        bwd(*case)
-        torch.cuda.empty_cache()
+    if "b5" in run_sec:
+        for case in bwd_cases(432, 960):
+            bwd(*case)
+            torch.cuda.empty_cache()
     for (kernel, path, layout), s in sums.items():
         # layout: K2's SK layout, K1's traffic, "all" for B5
         print(json.dumps({"sum": kernel, "per": path, "layout": layout, **{

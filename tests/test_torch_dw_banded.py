@@ -4,7 +4,9 @@ interpret mode (_dw_banded_mxu_fwd, _dw_banded_mxu_t_fwd,
 _sk_chain_banded_fwd, as tests/test_dw_chain.py runs them), and against
 the XLA composites (dw_banded_xla) where the TPU kernel refuses a width;
 each wrapper's gradient against jax.vjp of the JAX custom_vjp (its
-interpret forward monkeypatched in, as tests/test_dw_chain.py does). CPU,
+interpret forward monkeypatched in, as tests/test_dw_chain.py does); what
+K8's wrapper hands its launcher (x's own storage, an NHWC output, no
+copy); kernel_bench's K8 table and bound. CPU,
 seeded numpy inputs; weights made in the JAX layout (k, k, C) and handed
 to the port in PyTorch's depthwise layout (C, 1, k, k). The k=1 biases are
 nonzero, so a halo of gelu(b) instead of 0 fails.
@@ -19,6 +21,7 @@ straddle a rounding boundary; gradients 1e-4 of each leaf's largest
 element (f32 sums in another order)."""
 
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +31,9 @@ import torch
 
 from streamflow_tpu.ops.pallas import _banded_dw_kernel as K
 from streamflow_tpu_torch.ops.kernels import LAUNCHES
+from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import dw_banded as P
+from streamflow_tpu_torch.tools import kernel_bench as KB
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -112,6 +117,20 @@ def test_k7_plain_at_an_unaligned_width_matches_dw_banded_xla():
                                       ((1, 10, 12, 64), (1, 1, 5))])
 def test_k8_plain_matches_the_pallas_kernel(shape, ks):
     x, ws, bs = _inputs(3, shape, ks)
+    want = K._sk_chain_banded_fwd(_jax(x), tuple(map(_jax, ws)),
+                                  tuple(map(_jax, bs)), ks, interpret=True)
+    np.testing.assert_allclose(_port_chain(x, ws, bs, ks).numpy(),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("shape,ks", [((2, 7, 9, 36), (1, 1, 3)),
+                                      ((1, 5, 6, 35), (9,)),
+                                      ((3, 11, 13, 40), (1, 1, 15)),
+                                      ((1, 55, 17, 16), (11,))])
+def test_k8_plain_at_n1_0_and_2_and_ragged_shapes(shape, ks):
+    """No k=1 stage and two of them, C that is no multiple of 8 (36) or
+    odd (35), H and W that fit no tile, images smaller than the halo."""
+    x, ws, bs = _inputs(11, shape, ks)
     want = K._sk_chain_banded_fwd(_jax(x), tuple(map(_jax, ws)),
                                   tuple(map(_jax, bs)), ks, interpret=True)
     np.testing.assert_allclose(_port_chain(x, ws, bs, ks).numpy(),
@@ -267,3 +286,86 @@ def test_cpu_wrappers_count_no_launch():
         _port_chain(x, ws, bs, (1, 3), fn=P.sk_chain_banded),
         _port_chain(x, ws, bs, (1, 3)), rtol=0, atol=0)
     assert LAUNCHES == before
+
+
+class _Card(torch.Tensor):
+    """A CPU tensor that passes for one on the card (is_cuda), so that a
+    wrapper takes its kernel path."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _Watched(_Card):
+    """A _Card that logs the torch functions called on it (or on what is
+    made from it)."""
+    seen = []
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        cls.seen.append(getattr(func, "__name__", str(func)))
+        return super().__torch_function__(func, types, args, kwargs or {})
+
+
+@pytest.mark.parametrize("ks", [(15,), (1, 15), (1, 1, 7)])
+def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
+                                                            ks):
+    """_run_chain passes x's own storage and a fresh (B, H, W, C) output
+    to sf_sk_chain_banded and returns that output: no pad, permute or
+    contiguous copy of either."""
+    launched = []
+
+    class Lib:
+        def sf_sk_chain_banded(self, *args):
+            launched.append(args)
+            return 0
+    monkeypatch.setattr(_build, "library", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 7)
+    x, ws, bs = _inputs(12, (2, 5, 6, 24), ks)
+    xt = _torch(x).as_subclass(_Watched)
+    wt = tuple(_torch_w(w).as_subclass(_Card) for w in ws)
+    bt = tuple(_torch(b).as_subclass(_Card) for b in bs)
+    _Watched.seen = []
+    out = P._run_chain(xt, wt, bt, ks)
+    seen = set(_Watched.seen)
+    assert not seen & {"pad", "permute", "contiguous", "new_zeros", "copy_",
+                       "clone", "transpose", "__setitem__", "reshape",
+                       "view", "to"}, seen
+    (args,) = launched
+    assert args[0] == xt.data_ptr() and args[5] == out.data_ptr()
+    assert out.shape == xt.shape and out.stride() == xt.stride()
+    assert args[6:12] == (2, 5, 6, 24, len(ks) - 1, ks[-1])
+    assert args[3] == wt[-1].data_ptr() and args[4] == bt[-1].data_ptr()
+    assert args[12] == 0 and args[13] == 7
+    if len(ks) == 1:
+        assert args[1] is None and args[2] is None
+
+
+def test_kernel_bench_k8_cases_and_bound():
+    """K8's calls in kernel_bench: the six SK blocks' dw stacks, 12 calls
+    each per 440x1024 clip (72) on 3x55x128 (the flow head 1x55x128x384),
+    24 each per 432x960 step (144) on 3x54x120; ks (1, 15), the gru's
+    (1, 7). Its bound is bytes: 0.5266 ms per clip, 0.9698 per step;
+    convc1 0.0082 ms and the gru 0.0162 a call at the clip shape."""
+    clip, step = KB.chain_cases(440, 1024, False), KB.chain_cases(432, 960,
+                                                                  True)
+    want = [(3, 324, (1, 15)), (3, 256, (1, 15)), (3, 128, (1, 15)),
+            (3, 256, (1, 15)), (3, 640, (1, 7)), (1, 384, (1, 15))]
+    assert [(c[0], c[3], c[4]) for c in clip] == want
+    assert [(c[0], c[3], c[4]) for c in step] == want
+    assert {c[1:3] + c[5:] for c in clip} == {(55, 128, 12)}
+    assert {c[1:3] + c[5:] for c in step} == {(54, 120, 24)}
+    assert sum(c[-1] for c in clip) == 72 and sum(c[-1] for c in step) == 144
+    # x and the output, the (C, 1, 1, 1) and (C, 1, 15, 15) weights, two
+    # biases, bf16
+    assert KB.chain_bytes(3, 55, 128, 324, (1, 15)) == 2 * (
+        2 * 3 * 55 * 128 * 324 + 324 * (1 + 225) + 2 * 324)
+
+    def per(cases):
+        return round(1e3 * sum(c[-1] * KB.chain_bytes(*c[:-1])
+                               for c in cases) / KB.HBM, 4)
+    assert (per(clip), per(step)) == (0.5266, 0.9698)
+    assert [round(1e3 * KB.chain_bytes(*c[:-1]) / KB.HBM, 4)
+            for c in (clip[0], clip[4])] == [0.0082, 0.0162]
+    assert KB.nhwc_chain(Path(__file__).resolve().parents[1])
