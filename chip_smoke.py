@@ -187,6 +187,28 @@ GUARD_H, GUARD_W, GUARD_ITERS = 128, 256, 2
 # leaf of 1% of the gradient norm moves it by 1e-2 x that leaf's error)
 GRAD_TOL, PERTURB_SLACK, GRAD_GLOBAL_TOL = 1e-3, 4.0, 1e-5
 
+# K8 beyond the main path's calls (phase 3, checked only; nb, h, w, c, ks):
+# every odd k, no k=1 stage and two, widths that take each copy width of
+# its bf16 body (C % 8 == 0: 16-byte copies; 324 and 36: 8-byte; 34:
+# 4-byte; 35: 2-byte), H and W that fit no 32 x 32 tile, B = 1 and 3,
+# images smaller than the halo
+CHAIN_EDGES = [(3, 55, 128, 64, (1, k)) for k in (3, 5, 7, 9, 11, 13)] + [
+    (3, 55, 128, 324, (15,)), (1, 55, 128, 384, (1, 1, 15)),
+    (3, 54, 120, 640, (1, 1, 7)), (2, 54, 120, 36, (1, 15)),
+    (1, 55, 128, 35, (1, 1, 9)), (1, 9, 40, 34, (1, 3)),
+    (3, 7, 9, 40, (1, 15)), (1, 3, 5, 16, (11,)), (2, 1, 1, 24, (1, 5))]
+
+
+def chain_inputs(rnd, nb, h, w, c, ks, dt):
+    """Seeded inputs of a K8 call: x, the stages' weights and biases (the
+    k=1 biases large enough that a halo of gelu(b) instead of 0 shows)."""
+    x = rnd(nb, h, w, c, dt=dt)
+    ws = tuple(rnd(c, 1, k, k, scale=0.3 if k == 1 else 1 / k, dt=dt)
+               for k in ks)
+    bs = tuple(rnd(c, scale=0.5 if k == 1 else 0.1, dt=dt) for k in ks)
+    return x, ws, bs
+
+
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of FLOPs / peak rate of its io type and bytes / memory rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -436,6 +458,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
                                      k // 2, 1, c), None)
         return make
 
+    def chain_case(nb, h, w, c, ks):
+        """K8 at an edge of its tiles or arguments (checked only)."""
+        def make(dt):
+            x, ws, bs = chain_inputs(rnd, nb, h, w, c, ks, dt)
+            return (lambda: K6.sk_chain_banded(x, ws, bs, ks),
+                    lambda: K6.sk_chain_banded_plain(x, ws, bs, ks), 0,
+                    (x, *ws, *bs), None, None)
+        return make
+
     def flash_case(bh_shape, n, m, d):
         def make(dt):
             q = rnd(*bh_shape, n, d, scale=d ** -0.5, dt=dt)
@@ -565,6 +596,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
                               f"tail ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
                               ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 0,
                               every))
+    if not train:
+        for nb, h, w, c, ks in CHAIN_EDGES:
+            cases.append(("sk_chain_banded", f"edge {nb}x{h}x{w}x{c} ks {ks}",
+                          chain_case(nb, h, w, c, ks), 0, every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
                   flash_case((3, 1), n, n, 128), refine, every))
@@ -755,6 +790,7 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
                            ("ffn_pair", "ffn_pair"),
                            ("flash_fwd", "flash_fwd"),
                            ("dw_chain", "dw_chain"),
+                           ("sk_chain", "sk_chain_banded"),
                            ("dw_banded", "dw_banded"),
                            ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
                            ("lga_kernel", "lga_kernel"), ("conv", "conv"),

@@ -16,7 +16,14 @@ per-channel banded matmul:
   stack for ks = (1,)*n1 + (k,), k=1 stages, zero halo, the banded conv,
   bias, residual and gelu in one kernel, NHWC in and out as K7 (JAX's pad
   and transposes around its kernel are a TPU lane-layout choice): the
-  wrapper hands the launcher x itself and ``torch.empty_like(x)``.
+  wrapper hands the launcher x itself and ``torch.empty_like(x)``. Its
+  bf16 body has its own design (``csrc/dw_banded.cu``, ``chain::``): a
+  block per (image, 32 x 32 outputs, 8 channels) copies the haloed NHWC
+  box into shared memory by cp.async, 16-byte pixel runs (8-byte at
+  convc1's C = 324, whose 648-byte rows take no 16-byte copy), applies
+  the k=1 stages once per box pixel while writing the per-channel planes
+  of the banded product, and stores whole pixel runs; its f32 body is
+  K7's with the stages fused.
 
 x is (B, H, W, C); weights are PyTorch's depthwise (C, 1, k, k) (the SK
 block's ``nn.Conv2d`` parameters as they are), biases (C,). The kernels
