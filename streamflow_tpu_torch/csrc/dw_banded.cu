@@ -414,16 +414,6 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
-int run(const Args& a, int dtype, cudaStream_t s) {
-  if (a.nb == 0 || a.h == 0 || a.wd == 0 || a.c == 0) return 0;
-  if (a.k < 3 || a.k > KMAX || !(a.k & 1) || a.n1 < 0)
-    return (int)cudaErrorInvalidValue;
-  if constexpr (MODE != kChain)  // K8's bf16 body is chain::sk_chain_kernel
-    if (dtype == kBF16) return launch<__nv_bfloat16, MODE>(a, s);
-  return launch<float, MODE>(a, s);
-}
-
 // ------------------------------------------------------ K8's bf16 body
 namespace chain {
 
@@ -764,25 +754,32 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace chain
-
-// K8: bf16 on its own body, f32 on the shared one
-int run_chain(const Args& a, int dtype, cudaStream_t s) {
-  if (dtype != kBF16) return run<kChain>(a, dtype, s);
-  if (a.nb == 0 || a.h == 0 || a.wd == 0 || a.c == 0) return 0;
-  if (a.k < 3 || a.k > KMAX || !(a.k & 1) || a.n1 < 0)
-    return (int)cudaErrorInvalidValue;
-  // channels per copy: the widest run that the pixel stride (2C bytes)
-  // and both tensors' addresses allow
+// channels per copy: the widest run that the pixel stride (2C bytes) and
+// both tensors' addresses allow
+int run(const Args& a, cudaStream_t s) {
   int v = 8;
   while (v > 1 && (a.c % v || ((uintptr_t)a.x | (uintptr_t)a.out) % (2 * v)))
     v /= 2;
   switch (v) {
-    case 8: return chain::launch<8>(a, s);
-    case 4: return chain::launch<4>(a, s);
-    case 2: return chain::launch<2>(a, s);
-    default: return chain::launch<1>(a, s);
+    case 8: return launch<8>(a, s);
+    case 4: return launch<4>(a, s);
+    case 2: return launch<2>(a, s);
+    default: return launch<1>(a, s);
   }
+}
+
+}  // namespace chain
+
+template <int MODE>
+int run(const Args& a, int dtype, cudaStream_t s) {
+  if (a.nb == 0 || a.h == 0 || a.wd == 0 || a.c == 0) return 0;
+  if (a.k < 3 || a.k > KMAX || !(a.k & 1) || a.n1 < 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != kBF16) return launch<float, MODE>(a, s);
+  if constexpr (MODE == kChain)
+    return chain::run(a, s);  // K8's own bf16 body
+  else
+    return launch<__nv_bfloat16, MODE>(a, s);
 }
 
 }  // namespace
@@ -812,5 +809,5 @@ extern "C" int sf_sk_chain_banded(const void* x, const void* k1w,
                                   int wd, int c, int n1, int k, int dtype,
                                   void* stream) {
   Args a{x, w, b, k1w, k1b, out, nb, h, wd, c, k, n1};
-  return run_chain(a, dtype, (cudaStream_t)stream);
+  return run<kChain>(a, dtype, (cudaStream_t)stream);
 }
