@@ -2,16 +2,15 @@
 // (Toeplitz) product on the tensor cores (B10).
 //
 // Replaces the three Pallas kernels of
-// streamflow_tpu/ops/pallas/_banded_dw_kernel.py:
-//   K6 _dw_banded_mxu_fwd   (pallas_call :122): C-major padded operand
-//      lhs (C, B*Wp, Hp) in, (C, B*W, H) out; the wrapper pads and
-//      transposes around it, as JAX does;
-//   K7 _dw_banded_mxu_t_fwd (pallas_call :223): NHWC in and out, the
-//      transposes and the zero halo done while the block loads;
-//   K8 _sk_chain_banded_fwd (pallas_call :343): NHWC in and out, as K7,
-//      with the SK block's k=1 stages, a zero halo after them, the bias,
-//      the residual and the final gelu fused (JAX pads and transposes
-//      outside its kernel, a TPU lane-layout choice, not the function).
+// streamflow_tpu/ops/pallas/_banded_dw_kernel.py, all NHWC in and out here,
+// the transposes and the zero halo done while the block loads (JAX pads
+// and transposes outside its K6 and K8 kernels into a C-major operand, a
+// TPU lane-layout choice, not the function):
+//   K6 _dw_banded_mxu_fwd   (pallas_call :122) and
+//   K7 _dw_banded_mxu_t_fwd (pallas_call :223): the conv + bias;
+//   K8 _sk_chain_banded_fwd (pallas_call :343): with the SK block's k=1
+//      stages, a zero halo after them, the bias, the residual and the
+//      final gelu fused.
 //
 // Math, per channel c and image b, X[wp][hp] the zero-padded input slab
 // (W along rows, H along columns, as the Pallas lhs) and w[c][ky][kx]
@@ -129,7 +128,7 @@ size_t smem_bytes() {
          (sizeof(T) == 2 ? 4 * CB * KMAX * TABW : 4 * CB * KMAX * KMAX);
 }
 
-enum Mode { kCMajor = 0, kNHWC = 1, kChain = 2 };
+enum Mode { kNHWC = 1, kChain = 2 };
 
 struct Args {
   const void *x, *w, *b, *k1w, *k1b;
@@ -258,7 +257,6 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
   void* wtab = smem_raw + sizeof(T) * CB * QSZ;       // pairs or columns
 
   const int H = a.h, W = a.wd, C = a.c, k = a.k, R = a.k / 2;
-  const int Hp = H + 2 * R, Wp = W + 2 * R;
   const int tiles_w = (W + RW - 1) / RW;
   const int ho0 = (blockIdx.x / tiles_w) * RH;
   const int wo0 = (blockIdx.x % tiles_w) * RW;
@@ -306,32 +304,27 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
       const int e = e0 + u * NT;
+      // channels fastest: NHWC's contiguous axis. (Written in this order,
+      // the source offset formed apart from the test, on purpose: a
+      // version with the offset inside the load's condition ran K7 1.2x to
+      // 1.4x slower on the H100.)
       int ch, i, j;
-      if (MODE != kCMajor) {  // channels fastest: NHWC's contiguous axis
-        ch = e % CB;
-        i = (e / CB) % QR;
-        j = e / (CB * QR);
-      } else {  // H fastest: the C-major operand's contiguous axis
-        j = e % QC;
-        i = (e / QC) % QR;
-        ch = e / (QC * QR);
-      }
+      ch = e % CB;
+      i = (e / CB) % QR;
+      j = e / (CB * QR);
       const int c = c0 + ch, wp = wo0 + i, hp = ho0 + j;
       const bool in_slab = e < ne && i < rows;
       bool ok = in_slab && c < C;
       size_t src;
-      if (MODE != kCMajor) {
+      {
         const int hh = hp - R, ww = wp - R;
         ok = ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
         src = (((size_t)bi * H + hh) * W + ww) * C + c;
-      } else {
-        ok = ok && wp < Wp && hp < Hp;
-        src = (((size_t)c * a.nb + bi) * Wp + wp) * Hp + hp;
       }
       v[u] = ok ? to_f(x[src]) : 0.f;
       dst[u] = in_slab ? ch * QSZ + i * LDQ + j : -1;
       cs[u] = c;
-      inner[u] = ok;  // NHWC: ok means inside the image
+      inner[u] = ok;  // inside the image
     }
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
@@ -355,8 +348,7 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
   }
   __syncthreads();
 
-  // epilogue and store: K6 writes (C, B*W, H), H fastest; K7 and K8
-  // NHWC, channels fastest
+  // epilogue and store, NHWC, channels fastest
   const T* bias = (const T*)a.b;
   T* out = (T*)a.out;
   for (int e0 = tid; e0 < CB * RW * RH; e0 += NB * NT) {
@@ -366,23 +358,13 @@ __global__ void __launch_bounds__(NT, Tile<T>::MINB)
 #pragma unroll
     for (int u = 0; u < NB; ++u) {
       const int e = e0 + u * NT;
-      int cl, wl, hl;
-      if (MODE != kCMajor) {
-        cl = e % CB;
-        wl = (e / CB) % RW;
-        hl = e / (CB * RW);
-      } else {
-        hl = e % RH;
-        wl = (e / RH) % RW;
-        cl = e / (RH * RW);
-      }
+      const int cl = e % CB, wl = (e / CB) % RW, hl = e / (CB * RW);
       const int c = c0 + cl, wo = wo0 + wl, ho = ho0 + hl;
       const bool ok = c < C && wo < W && ho < H;
       cs[u] = ok ? c : -1;
       acc[u] = ok ? reinterpret_cast<const float*>(slabs + cl * QSZ)
                         [wl * SLD + hl] : 0.f;
-      oi[u] = MODE != kCMajor ? (((size_t)bi * H + ho) * W + wo) * C + c
-                              : (((size_t)c * a.nb + bi) * W + wo) * H + ho;
+      oi[u] = (((size_t)bi * H + ho) * W + wo) * C + c;
       // K8's residual is A unrounded: recomputed from x at the centre tap
       r0[u] = MODE == kChain && ok ? to_f(x[oi[u]]) : 0.f;
     }
@@ -784,13 +766,12 @@ int run(const Args& a, int dtype, cudaStream_t s) {
 
 }  // namespace
 
-// K6. lhs (c, nb*(wd + k - 1), h + k - 1), the zero-padded C-major operand;
-// w (c, 1, k, k); b (c); out (c, nb*wd, h). k odd in [3, 15].
-extern "C" int sf_dw_banded_mxu(const void* lhs, const void* w, const void* b,
+// K6. x, out (nb, h, wd, c) NHWC; w (c, 1, k, k); b (c). k odd in [3, 15].
+extern "C" int sf_dw_banded_mxu(const void* x, const void* w, const void* b,
                                 void* out, int nb, int h, int wd, int c, int k,
                                 int dtype, void* stream) {
-  Args a{lhs, w, b, nullptr, nullptr, out, nb, h, wd, c, k, 0};
-  return run<kCMajor>(a, dtype, (cudaStream_t)stream);
+  Args a{x, w, b, nullptr, nullptr, out, nb, h, wd, c, k, 0};
+  return run<kNHWC>(a, dtype, (cudaStream_t)stream);
 }
 
 // K7. x, out (nb, h, wd, c) NHWC; w (c, 1, k, k); b (c).

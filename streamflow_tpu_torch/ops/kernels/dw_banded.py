@@ -5,13 +5,14 @@ Replace the Pallas kernels of ``streamflow_tpu/ops/pallas/
 _banded_dw_kernel.py``, which run the SK block's depthwise k x k conv as a
 per-channel banded matmul:
 
-- K6 ``dw_banded_mxu`` (``_dw_banded_mxu_fwd``, pallas_call :122): the
-  wrapper pads x and transposes it to the C-major operand (C, B*Wp, Hp),
-  as JAX does outside its kernel, and transposes the (C, B*W, H) result
-  back;
-- K7 ``dw_banded_mxu_t`` (``_dw_banded_mxu_t_fwd``, :223): NHWC in and out,
-  the transposes and the zero halo inside the kernel; any C (the TPU
-  kernel's C % 128 == 0 is a lane rule of the TPU);
+- K6 ``dw_banded_mxu`` (``_dw_banded_mxu_fwd``, pallas_call :122) and K7
+  ``dw_banded_mxu_t`` (``_dw_banded_mxu_t_fwd``, :223): the kxk conv +
+  bias, NHWC in and out, the transposes and the zero halo inside the
+  kernel, any C (the TPU kernel's C % 128 == 0 is a lane rule of the TPU).
+  JAX pads x and transposes it to a C-major operand (C, B*Wp, Hp) outside
+  its K6 kernel, a TPU lane-layout choice, not the function: the wrapper
+  hands the launcher x itself and ``torch.empty_like(x)``, as K7's and
+  K8's do;
 - K8 ``sk_chain_banded`` (``_sk_chain_banded_fwd``, :343): the whole SK dw
   stack for ks = (1,)*n1 + (k,), k=1 stages, zero halo, the banded conv,
   bias, residual and gelu in one kernel, NHWC in and out as K7 (JAX's pad
@@ -151,13 +152,14 @@ def sk_chain_banded(x, weights, biases, ks):
 def _run_mxu(x, w, b):
     if not x.is_cuda:
         return dw_banded_mxu_plain(x, w, b)
-    lhs, out = _operand(x, w, b)
+    _check(x, w, b)
+    out = torch.empty_like(x)
     _build.check(_build.library().sf_dw_banded_mxu(
-        _build.ptr(lhs), _build.ptr(w), _build.ptr(b), _build.ptr(out),
+        _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out),
         *x.shape, w.shape[-1], _build.dtype_code(x.dtype),
         _build.stream_of(x)), "dw_banded_mxu")
     LAUNCHES["dw_banded_mxu"] += 1
-    return _from_cmajor(out)
+    return out
 
 
 def _run_mxu_t(x, w, b):
@@ -219,18 +221,3 @@ def _check(x, w, b):
     if tuple(b.shape) != (c,):
         raise ValueError(f"b is {tuple(b.shape)}, expected {(c,)}")
 
-
-def _operand(x, w, b):
-    """K6's operand: x zero-padded by k // 2 and C-major, (C, B, Wp, Hp)
-    contiguous; and its (C, B, W, H) output."""
-    _check(x, w, b)
-    nb, h, wd, c = x.shape
-    r = w.shape[-1] // 2
-    lhs = x.new_zeros((c, nb, wd + 2 * r, h + 2 * r))
-    lhs[:, :, r:r + wd, r:r + h] = x.permute(3, 0, 2, 1)
-    return lhs, x.new_empty((c, nb, wd, h))
-
-
-def _from_cmajor(out):
-    """(C, B, W, H) -> (B, H, W, C), contiguous."""
-    return out.permute(1, 3, 2, 0).contiguous()
