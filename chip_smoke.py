@@ -12,7 +12,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      pw_ffn_pair), K5 dw_chain (dw_impl='pallas', with the cuDNN depthwise
      conv of the default layout timed beside it), K6 dw_banded_mxu and K7
      dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
-     yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5);
+     yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5),
+     and K5, K6 and K8 also at the edges of their bf16 engine (every odd
+     k, each copy width, ragged H and W, B = 1 and 3, images smaller
+     than the halo: CHAIN_EDGES);
      K1 under three traffics (chip_smoke's +-30 px jitter, a smooth flow
      field, coordinates uniform over the frame; tools/kernel_bench.py
      makes the last two), each timed, and checked at the branches of its
@@ -44,12 +47,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      a torch.profiler breakdown of one step;
   8. training guard: one step's loss and gradients at 128x256 through the
      kernel path on the card against the plain path on the CPU;
-  9-24. the other SK layouts (StreamFlowConfig.dw_impl), at the same sizes
+  9-26. the other SK layouts (StreamFlowConfig.dw_impl), at the same sizes
      and depths: phases 4, 5, 7 and 8 again for 'pallas' (9-12: K2
      ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
-     place of K5) and 'banded_chain' (17-20: K8), phases 4 and 5 for
-     'banded_mxu_t' (21-22: K7) and 'banded' (23-24: the banded composite,
-     no dw kernel).
+     place of K5), 'banded_chain' (17-20: K8) and 'banded_mxu_t' (21-24:
+     K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
+     kernel).
 The line before the kernels line gives ms/clip for the six layouts. The
 line before the last is a JSON object with one entry per kernel and path
 ("inference": phases 3-4, per clip; "train_step": phases 6-7, per step;
@@ -173,8 +176,8 @@ LAYOUTS = {"auto": ("", EXPECTED_LAUNCHES, EXPECTED_TRAIN_LAUNCHES),
            "banded_mxu_t": pair_layout("_dw_banded_mxu_t", "dw_banded_mxu_t"),
            "banded": pair_layout("_dw_banded")}
 # the layouts whose train step and training guard run (phases 7-8, 11-12,
-# 15-16, 19-20); the others run their forward and accuracy guards
-TRAINED = ("auto", "pallas", "banded_mxu", "banded_chain")
+# 15-16, 19-20, 23-24); the other runs its forward and accuracy guards
+TRAINED = ("auto", "pallas", "banded_mxu", "banded_chain", "banded_mxu_t")
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -187,11 +190,12 @@ GUARD_H, GUARD_W, GUARD_ITERS = 128, 256, 2
 # leaf of 1% of the gradient norm moves it by 1e-2 x that leaf's error)
 GRAD_TOL, PERTURB_SLACK, GRAD_GLOBAL_TOL = 1e-3, 4.0, 1e-5
 
-# K8 beyond the main path's calls (phase 3, checked only; nb, h, w, c, ks):
+# K5, K6 and K8 beyond the main path's calls (phase 3, checked only; nb,
+# h, w, c, ks; K6 takes the kxk stage ks[-1] alone, K5 the even widths):
 # every odd k, no k=1 stage and two, widths that take each copy width of
-# its bf16 body (C % 8 == 0: 16-byte copies; 324 and 36: 8-byte; 34:
-# 4-byte; 35: 2-byte), H and W that fit no 32 x 32 tile, B = 1 and 3,
-# images smaller than the halo
+# their bf16 engine (csrc/sk_chain.cuh; C % 8 == 0: 16-byte copies; 324
+# and 36: 8-byte; 34: 4-byte; 35: 2-byte), H and W that fit no 32 x 32
+# tile, B = 1 and 3, images smaller than the halo
 CHAIN_EDGES = [(3, 55, 128, 64, (1, k)) for k in (3, 5, 7, 9, 11, 13)] + [
     (3, 55, 128, 324, (15,)), (1, 55, 128, 384, (1, 1, 15)),
     (3, 54, 120, 640, (1, 1, 7)), (2, 54, 120, 36, (1, 15)),
@@ -200,8 +204,9 @@ CHAIN_EDGES = [(3, 55, 128, 64, (1, k)) for k in (3, 5, 7, 9, 11, 13)] + [
 
 
 def chain_inputs(rnd, nb, h, w, c, ks, dt):
-    """Seeded inputs of a K8 call: x, the stages' weights and biases (the
-    k=1 biases large enough that a halo of gelu(b) instead of 0 shows)."""
+    """Seeded inputs of a K5, K6 or K8 call: x, the stages' weights and
+    biases (the k=1 biases large enough that a halo of gelu(b) instead of
+    0 shows)."""
     x = rnd(nb, h, w, c, dt=dt)
     ws = tuple(rnd(c, 1, k, k, scale=0.3 if k == 1 else 1 / k, dt=dt)
                for k in ks)
@@ -458,12 +463,18 @@ def kernel_checks(dev, summaries, hp, wp, train):
                                      k // 2, 1, c), None)
         return make
 
-    def chain_case(nb, h, w, c, ks):
-        """K8 at an edge of its tiles or arguments (checked only)."""
+    def edge_case(kind, nb, h, w, c, ks):
+        """K5, K6 (the kxk stage ks[-1] alone) or K8 at an edge of its
+        tiles or arguments (checked only)."""
+        mod = K5 if kind == "dw_chain" else K6
+        run, plain = getattr(mod, kind), getattr(mod, kind + "_plain")
+        ks = ks[-1:] if kind == "dw_banded_mxu" else ks
+
         def make(dt):
             x, ws, bs = chain_inputs(rnd, nb, h, w, c, ks, dt)
-            return (lambda: K6.sk_chain_banded(x, ws, bs, ks),
-                    lambda: K6.sk_chain_banded_plain(x, ws, bs, ks), 0,
+            args = (x, ws[0], bs[0]) if kind == "dw_banded_mxu" else (
+                x, ws, bs, ks)
+            return (lambda: run(*args), lambda: plain(*args), 0,
                     (x, *ws, *bs), None, None)
         return make
 
@@ -598,8 +609,12 @@ def kernel_checks(dev, summaries, hp, wp, train):
                               every))
     if not train:
         for nb, h, w, c, ks in CHAIN_EDGES:
-            cases.append(("sk_chain_banded", f"edge {nb}x{h}x{w}x{c} ks {ks}",
-                          chain_case(nb, h, w, c, ks), 0, every))
+            for kind in ("sk_chain_banded", "dw_chain", "dw_banded_mxu"):
+                if kind == "dw_chain" and c % 2:
+                    continue   # K5 reads channel pairs
+                kks = ks[-1:] if kind == "dw_banded_mxu" else ks
+                cases.append((kind, f"edge {nb}x{h}x{w}x{c} ks {kks}",
+                              edge_case(kind, nb, h, w, c, ks), 0, every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
                   flash_case((3, 1), n, n, 128), refine, every))
@@ -790,7 +805,8 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
                            ("ffn_pair", "ffn_pair"),
                            ("flash_fwd", "flash_fwd"),
                            ("dw_chain", "dw_chain"),
-                           ("sk_chain", "sk_chain_banded"),
+                           # the bf16 engine of K5, K6 and K8
+                           ("sk_chain", "sk_chain"),
                            ("dw_banded", "dw_banded"),
                            ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
                            ("lga_kernel", "lga_kernel"), ("conv", "conv"),

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -175,19 +176,33 @@ def require(t, name: str, dtype=None, ndim=None) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
 
 
+def _entry_name(ln: str, src: str) -> str:
+    """A ptxas entry function's mangled name, shortened: the source's
+    stem, then the name past its anonymous namespace, whose hashed
+    identifier would fill the line (template arguments, e.g. K5-K8's
+    policy and copy width, stay visible)."""
+    fn = ln.split("'")[1] if "'" in ln else ln
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", fn)
+    if m:
+        fn = fn[m.end(1) + int(m.group(1)):]
+    return f"{src}:{fn}"
+
+
 def ptxas_summary() -> str:
     """Registers, shared memory and spills per kernel, from the last
     build's ``nvcc -Xptxas -v`` output."""
     log = _BUILD / "ptxas.log"
     if not log.exists():
         return "ptxas: no log (library was already built)"
-    lines, fn = [], None
+    lines, fn, src = [], None, ""
     for ln in log.read_text().splitlines():
-        if "Compiling entry function" in ln:
-            fn = ln.split("'")[1] if "'" in ln else ln
+        if ln.startswith("== "):
+            src = ln[3:].split(".")[0]
+        elif "Compiling entry function" in ln:
+            fn = _entry_name(ln, src)
         elif "Used" in ln and "registers" in ln and fn:
-            lines.append(f"{fn[:60]}: {ln.split('info    :')[-1].strip()}")
+            lines.append(f"{fn[:72]}: {ln.split('info    :')[-1].strip()}")
         elif "spill" in ln and ("bytes spill stores" in ln) and fn:
             stores = ln.split("bytes stack frame,")[-1].strip()
-            lines.append(f"{fn[:60]}: {stores}")
+            lines.append(f"{fn[:72]}: {stores}")
     return "ptxas:\n  " + "\n  ".join(lines)

@@ -9,16 +9,18 @@
 // rounded once to the io type, where the Pallas kernel rounds. The halo of
 // A is zero (not g(0)): padding applies after the k=1 stages.
 //
-// Bound on the H100: by chip_smoke.bound_ms (bf16 peak 989 TFLOP/s against
-// one read of x and one write of out) the bytes bound it, 8.2 us for the
-// 15x15 stage of (3, 55, 128, 324) in bf16. But a direct depthwise conv
-// cannot use the tensor cores, so its real floor is the CUDA cores' f32 FMA
-// rate: 2 k^2 B H W C FLOP / 67 TFLOP/s = 46 us for that call. The banded
-// tensor-core form of the same conv is B10's work.
+// bf16 runs on the tensor cores: the engine of sk_chain.cuh under its kK5
+// policy (a block per (image, 32 x 32 outputs, 8 channels), the haloed
+// NHWC box by cp.async, the k=1 stages once per box pixel into the ldmatrix
+// planes of the banded product, mma.sync, the residual and gelu in the
+// epilogue). The products are bf16 x bf16, exact in f32; only the order of
+// the f32 sums differs from the f32 body below.
 //
-// Design: one block of 256 threads per (image, 8 x 32 output tile, group of
+// f32 runs on the CUDA cores, bound by their f32 FMA rate (2 k^2 B H W C
+// FLOP / 67 TFLOP/s = 46 us for the 15x15 stage of (3, 55, 128, 324)):
+// one block of 256 threads per (image, 8 x 32 output tile, group of
 // 32 channels). The block stages the haloed tile of A, (8 + 2r) x (32 + 2r)
-// positions x 32 channels, in shared memory in the io type, computing the
+// positions x 32 channels, in shared memory, computing the
 // k=1 stages while it loads x (eight loads in flight per thread: the build
 // is bound by the latency of its loads), and the group's k x k weights
 // beside it, read from PyTorch's (C, 1, k, k) layout.
@@ -29,11 +31,11 @@
 // global loads and stores are coalesced in NHWC; the two half-warps of a
 // warp take adjacent rows and the tile's row stride is an odd number of
 // positions, so their shared-memory reads fall in distinct banks. The
-// epilogue adds A's centre and the bias, applies the gelu and rounds once.
+// epilogue adds A's centre and the bias and applies the gelu.
 // Device memory sees one read of x (the halo re-read comes from L2) and
 // one write of out; A never leaves shared memory.
 
-#include "common.cuh"
+#include "sk_chain.cuh"
 
 using namespace sf;
 
@@ -47,51 +49,22 @@ constexpr int NP = 16;   // channel pairs per block (32 channels)
 static_assert(NT == NP * TH * (TW / RW), "one thread per pair and run");
 
 struct Args {
-  const void *x, *k1w, *k1b, *w, *b;
-  void* out;
+  const float *x, *k1w, *k1b, *w, *b;
+  float* out;
   int h, wd, c, n1;
 };
 
-template <typename T>
-struct Pair;
-template <>
-struct Pair<float> {
-  typedef float2 type;
-};
-template <>
-struct Pair<__nv_bfloat16> {
-  typedef __nv_bfloat162 type;
-};
-
-__device__ __forceinline__ float2 unpack(float2 v) { return v; }
-__device__ __forceinline__ float2 unpack(__nv_bfloat162 v) {
-  return __bfloat1622float2(v);
-}
-
-template <typename T>
-__device__ __forceinline__ typename Pair<T>::type pack(float a, float b);
-template <>
-__device__ __forceinline__ float2 pack<float>(float a, float b) {
-  return make_float2(a, b);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat162 pack<__nv_bfloat16>(float a,
-                                                               float b) {
-  return __floats2bfloat162_rn(a, b);
-}
-
-template <typename T>
-__device__ __forceinline__ float2 load2(const T* p) {
-  return unpack(*reinterpret_cast<const typename Pair<T>::type*>(p));
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // haloed tile width and its row stride in positions (odd: see above)
 __host__ __device__ constexpr int halo_w(int r) { return TW + 2 * r; }
 __host__ __device__ constexpr int stride_w(int r) { return halo_w(r) | 1; }
 
-template <typename T, int KS>
+template <int KS>
 __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
-  typedef typename Pair<T>::type P2;
+  typedef float2 P2;
   constexpr int R = KS / 2;
   constexpr int HH = TH + 2 * R, WH = halo_w(R), SW = stride_w(R);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -104,22 +77,21 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
   const int x0 = (blockIdx.x % tiles_x) * TW;
   const int c0 = blockIdx.y * 2 * NP;
   const size_t img = (size_t)blockIdx.z * H * W * C;
-  const T* x = (const T*)a.x + img;
-  const T *k1w = (const T*)a.k1w, *k1b = (const T*)a.k1b;
+  const float* x = a.x + img;
+  const float *k1w = a.k1w, *k1b = a.k1b;
   const int tid = threadIdx.x;
 
   // the group's weights from PyTorch's (C, 1, k, k) layout, a thread per
   // tap, so neighbouring threads read neighbouring taps of a channel
-  const T* wg = (const T*)a.w;
   for (int e = tid; e < KS * KS * NP; e += NT) {
     const int tap = e % (KS * KS), pr = e / (KS * KS), c = c0 + 2 * pr;
-    const T* wc = wg + (size_t)c * KS * KS + tap;
-    ws[tap * NP + pr] = c < C ? pack<T>(to_f(wc[0]), to_f(wc[KS * KS]))
-                              : pack<T>(0.f, 0.f);
+    const float* wc = a.w + (size_t)c * KS * KS + tap;
+    ws[tap * NP + pr] = c < C ? make_float2(wc[0], wc[KS * KS])
+                              : make_float2(0.f, 0.f);
   }
-  // A's haloed tile: the k=1 stages in f32, one rounding to the io type,
-  // zeros outside the image and past C. NT is a multiple of NP, so a
-  // thread keeps one channel pair; its loads go out NB at a time.
+  // A's haloed tile: the k=1 stages, zeros outside the image and past C.
+  // NT is a multiple of NP, so a thread keeps one channel pair; its loads
+  // go out NB at a time.
   constexpr int NE = HH * WH * NP, NB = 8;
   const int pa = tid % NP, ca = c0 + 2 * pa;
   for (int e0 = tid; e0 < NE; e0 += NB * NT) {
@@ -144,7 +116,7 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
         v[u].y = gelu(v[u].y * (1.f + wk.y) + bk.y);
       }
       if (e0 + u * NT < NE)
-        as[(hy * SW + hx) * NP + pa] = pack<T>(v[u].x, v[u].y);
+        as[(hy * SW + hx) * NP + pa] = v[u];
     }
   }
   __syncthreads();
@@ -162,14 +134,14 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
     float w0[KS], w1[KS];
 #pragma unroll
     for (int dx = 0; dx < KS; ++dx) {
-      float2 t = unpack(ws[(dy * KS + dx) * NP + p]);
+      const float2 t = ws[(dy * KS + dx) * NP + p];
       w0[dx] = t.x;
       w1[dx] = t.y;
     }
     const P2* row = as + ((oy + dy) * SW + ox) * NP + p;
 #pragma unroll
     for (int i = 0; i < RW + KS - 1; ++i) {
-      const float2 v = unpack(row[i * NP]);
+      const float2 v = row[i * NP];
 #pragma unroll
       for (int j = 0; j < RW; ++j) {
         const int dx = i - j;
@@ -181,45 +153,45 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
     }
   }
 
-  const float2 bias = load2((const T*)a.b + c);
-  T* out = (T*)a.out + img;
+  const float2 bias = load2(a.b + c);
+  float* out = a.out + img;
   const P2* ctr = as + ((oy + R) * SW + ox + R) * NP + p;
 #pragma unroll
   for (int j = 0; j < RW; ++j) {
     const int xx = x0 + ox + j;
     if (xx < W) {
-      const float2 v = unpack(ctr[j * NP]);
+      const float2 v = ctr[j * NP];
       *reinterpret_cast<P2*>(out + ((size_t)y * W + xx) * C + c) =
-          pack<T>(gelu(v.x + acc0[j] + bias.x), gelu(v.y + acc1[j] + bias.y));
+          make_float2(gelu(v.x + acc0[j] + bias.x),
+                      gelu(v.y + acc1[j] + bias.y));
     }
   }
 }
 
-template <typename T, int KS>
+template <int KS>
 int launch(const Args& a, int nb, cudaStream_t s) {
   constexpr int R = KS / 2;
-  const size_t smem = sizeof(typename Pair<T>::type) * NP *
+  const size_t smem = sizeof(float2) * NP *
                       ((size_t)(TH + 2 * R) * stride_w(R) + KS * KS);
   cudaError_t e = cudaFuncSetAttribute(
-      dw_chain_kernel<T, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dw_chain_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(((a.h + TH - 1) / TH) * ((a.wd + TW - 1) / TW),
             (a.c + 2 * NP - 1) / (2 * NP), nb);
-  dw_chain_kernel<T, KS><<<grid, NT, smem, s>>>(a);
+  dw_chain_kernel<KS><<<grid, NT, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_k(const Args& a, int nb, int k, cudaStream_t s) {
   switch (k) {
-    case 3: return launch<T, 3>(a, nb, s);
-    case 5: return launch<T, 5>(a, nb, s);
-    case 7: return launch<T, 7>(a, nb, s);
-    case 9: return launch<T, 9>(a, nb, s);
-    case 11: return launch<T, 11>(a, nb, s);
-    case 13: return launch<T, 13>(a, nb, s);
-    case 15: return launch<T, 15>(a, nb, s);
+    case 3: return launch<3>(a, nb, s);
+    case 5: return launch<5>(a, nb, s);
+    case 7: return launch<7>(a, nb, s);
+    case 9: return launch<9>(a, nb, s);
+    case 11: return launch<11>(a, nb, s);
+    case 13: return launch<13>(a, nb, s);
+    case 15: return launch<15>(a, nb, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -235,7 +207,10 @@ extern "C" int sf_dw_chain(const void* x, const void* k1w, const void* k1b,
   cudaStream_t s = (cudaStream_t)stream;
   if (nb == 0 || h == 0 || wd == 0 || c == 0) return 0;
   if (c & 1) return (int)cudaErrorInvalidValue;  // channel pairs
-  Args a{x, k1w, k1b, w, b, out, h, wd, c, n1};
-  if (dtype == kBF16) return launch_k<__nv_bfloat16>(a, nb, k, s);
-  return launch_k<float>(a, nb, k, s);
+  if (dtype == kBF16)  // the engine, sk_chain.cuh
+    return chain::run<chain::kK5>(
+        chain::Args{x, w, b, k1w, k1b, out, nb, h, wd, c, k, n1}, s);
+  Args a{(const float*)x, (const float*)k1w, (const float*)k1b,
+         (const float*)w, (const float*)b, (float*)out, h, wd, c, n1};
+  return launch_k(a, nb, k, s);
 }

@@ -12,19 +12,21 @@ per-channel banded matmul:
   JAX pads x and transposes it to a C-major operand (C, B*Wp, Hp) outside
   its K6 kernel, a TPU lane-layout choice, not the function: the wrapper
   hands the launcher x itself and ``torch.empty_like(x)``, as K7's and
-  K8's do;
+  K8's do. K6's bf16 body is K8's engine (below) with no k=1 stage and
+  K6's epilogue; K7's is the first design's, a slab per channel;
 - K8 ``sk_chain_banded`` (``_sk_chain_banded_fwd``, :343): the whole SK dw
   stack for ks = (1,)*n1 + (k,), k=1 stages, zero halo, the banded conv,
   bias, residual and gelu in one kernel, NHWC in and out as K7 (JAX's pad
   and transposes around its kernel are a TPU lane-layout choice): the
   wrapper hands the launcher x itself and ``torch.empty_like(x)``. Its
-  bf16 body has its own design (``csrc/dw_banded.cu``, ``chain::``): a
-  block per (image, 32 x 32 outputs, 8 channels) copies the haloed NHWC
-  box into shared memory by cp.async, 16-byte pixel runs (8-byte at
-  convc1's C = 324, whose 648-byte rows take no 16-byte copy), applies
-  the k=1 stages once per box pixel while writing the per-channel planes
-  of the banded product, and stores whole pixel runs; its f32 body is
-  K7's with the stages fused.
+  bf16 body is the engine of ``csrc/sk_chain.cuh``, shared with K6 and
+  K5 (``dw_chain``) under a policy each: a block per (image, 32 x 32
+  outputs, 8 channels) copies the haloed NHWC box into shared memory by
+  cp.async, 16-byte pixel runs (8-byte at convc1's C = 324, whose
+  648-byte rows take no 16-byte copy), applies the k=1 stages once per
+  box pixel while writing the per-channel planes of the banded product,
+  and stores whole pixel runs; its f32 body is K7's with the stages
+  fused (K6's f32 body is K7's).
 
 x is (B, H, W, C); weights are PyTorch's depthwise (C, 1, k, k) (the SK
 block's ``nn.Conv2d`` parameters as they are), biases (C,). The kernels

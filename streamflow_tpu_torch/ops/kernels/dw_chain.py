@@ -8,8 +8,14 @@ conv with SAME zero padding of A, products, sums and gelu in f32. Weights
 are in PyTorch's depthwise layout, (C, 1, k, k) per stage (the SK block's
 ``nn.Conv2d`` weights as they are); biases (C,).
 
-On the H100 the kernel is bound by the conv's f32 multiply-adds on the
-CUDA cores; A never leaves shared memory (see the source's header).
+bf16 runs on the tensor cores, in the engine that K6 and K8 share
+(``csrc/sk_chain.cuh``, its K5 policy): a block per (image, 32 x 32
+outputs, 8 channels) copies the haloed NHWC box into shared memory by
+cp.async, applies the k=1 stages once per box pixel while writing the
+per-channel planes of a banded product on mma.sync, and adds the rounded
+A, the bias and the gelu in its epilogue. f32 runs on the CUDA cores,
+bound by their f32 multiply-adds. A never leaves shared memory (see the
+sources' headers).
 
 The plain version follows the Pallas kernel's rounding points, not
 ``chain_xla``'s (which also rounds y = x w + b to the io dtype); in f32

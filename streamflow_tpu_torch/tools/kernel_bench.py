@@ -1,5 +1,6 @@
 """K1 (the correlation lookup), K2 (the fused FFN pair), B5 (the
-flash-attention backward) and K8 (the banded SK chain) on one GPU at the
+flash-attention backward) and the SK blocks' depthwise kernels K5 (the
+chain), K6 (the banded conv) and K8 (the banded chain) on one GPU at the
 main path's shapes: each bf16 call checked against its plain version,
 timed with CUDA events beside its bound and a yardstick, and optionally
 against the kernels of another checkout of the repository, built from
@@ -8,7 +9,7 @@ this, this, others in reverse) in the same process, as ``attn_bench``
 does for K3 and K4.
 
     python -m streamflow_tpu_torch.tools.kernel_bench [--other DIR ...]
-        [--reps N] [--kernels k1,k2,b5,k8]
+        [--reps N] [--kernels k1,k2,b5,k5,k6,k8]
 
 ``--kernels`` picks the sections (default all) and compiles only their
 sources, in every tree: ``--kernels k8`` builds ``dw_banded.cu`` alone
@@ -34,15 +35,17 @@ through device memory; the port never calls it. B5's calls are the train
 step's (GMA and the four GSA blocks at 432x960); its yardstick is SDPA's
 backward.
 
-K8's calls are the six SK blocks' dw stacks, ks (1, 15) and the gru's
-(1, 7), on (B, H/8, W/8, C): 12 per block per 440x1024 clip (3x55x128,
-the flow head 1x55x128x384) and 24 per 432x960 step (3x54x120). Beside
-K8: K7 (the kxk conv alone) at the same shape, and the default layout's
-cuDNN depthwise conv of the same tensor, copies included, as
-``chip_smoke.py`` times it. Its bound is bytes: x, the weights and biases
-read once, the output written once. Another checkout whose K8 still takes
-the padded C-major operand (before NHWC) is timed as its wrapper runs it,
-pad and permute copies included, and its kernel alone apart.
+K5's and K8's calls are the six SK blocks' dw stacks, ks (1, 15) and the
+gru's (1, 7), on (B, H/8, W/8, C): 12 per block per 440x1024 clip
+(3x55x128, the flow head 1x55x128x384) and 24 per 432x960 step
+(3x54x120); K6's are their kxk stages alone, ks (15,) and (7,). Beside
+each: K7 (the kxk conv alone) at the same shape, of this tree and of each
+other one, and the default layout's cuDNN depthwise conv of the same
+tensor, copies included, as ``chip_smoke.py`` times it. The bound is
+bytes: x, the weights and biases read once, the output written once.
+Another checkout whose K6 or K8 still takes the padded C-major operand
+(before NHWC) is timed as its wrapper runs it, pad and permute copies
+included, and its kernel alone apart.
 
 One JSON object per case on stdout, then per-clip and per-step sums;
 exits non-zero when a kernel disagrees with its plain version. Needs a
@@ -66,6 +69,7 @@ from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.corr import pool_pyramid
 from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
 from streamflow_tpu_torch.ops.kernels import dw_banded as K8
+from streamflow_tpu_torch.ops.kernels import dw_chain as K5
 from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
 from streamflow_tpu_torch.ops.kernels import flash_attention as K3
 from streamflow_tpu_torch.tools.attn_bench import (HBM, PEAK_BF16, T, timed,
@@ -79,7 +83,11 @@ SK = [(324, 256, 3), (256, 192, 3), (128, 64, 3), (256, 126, 3),
 DW_K = (15, 15, 15, 15, 7, 15)
 # kernel_bench sections and the csrc sources each needs
 SECTIONS = {"k1": ("corr_lookup",), "k2": ("ffn_pair",),
-            "b5": ("flash_attn_bwd",), "k8": ("dw_banded",)}
+            "b5": ("flash_attn_bwd",), "k5": ("dw_chain", "dw_banded"),
+            "k6": ("dw_banded",), "k8": ("dw_banded",)}
+# the dw sections: the kernel's name and the SK layout that runs it
+DW = {"k5": ("dw_chain", "pallas"), "k6": ("dw_banded_mxu", "banded_mxu"),
+      "k8": ("sk_chain_banded", "banded_chain")}
 # which SK layouts run each K2 form
 LAYOUTS = {"ffn_pair_k1": ("default",), "dwres_pw_ffn_pair": ("default",),
            "ffn_pair": ("pair",), "pw_ffn_pair": ("pair",),
@@ -220,25 +228,27 @@ def ffn_flops(form, rows, c, ch, co):
     return 2 * rows * (c * ch + ch * co + (c * c if pw else 0))
 
 
-def chain_cases(hp, wp, train):
-    """(nb, h, w, c, ks, calls per clip or step) of K8: each SK block's dw
-    stack once per refinement iteration (twice per step, for remat)."""
+def chain_cases(hp, wp, train, stack=True):
+    """(nb, h, w, c, ks, calls per clip or step) of K5 and K8: each SK
+    block's dw stack once per refinement iteration (twice per step, for
+    remat); of K6 (``stack=False``): its kxk stage alone, ks (k,)."""
     refine = 24 if train else 12
-    return [(pairs, hp // 8, wp // 8, c, (1, k), refine)
+    return [(pairs, hp // 8, wp // 8, c, (1, k) if stack else (k,), refine)
             for (c, _, pairs), k in zip(SK, DW_K)]
 
 
 def chain_bytes(nb, h, w, c, ks, itemsize=2):
-    """Bytes a K8 call must move: x, the weights and the biases read once,
-    the output written once."""
+    """Bytes a K5, K6 or K8 call must move: x, the weights and the biases
+    read once, the output written once."""
     return itemsize * (2 * nb * h * w * c + sum(c * k * k + c for k in ks))
 
 
-def nhwc_chain(root):
-    """Whether the K8 launcher of the checkout at ``root`` reads x as NHWC
-    (else the padded C-major operand of the first version)."""
+def nhwc_chain(root, kernel="k8"):
+    """Whether the K8 (or K6) launcher of the checkout at ``root`` reads x
+    as NHWC (else the padded C-major operand of the first version)."""
     wrapper = root / "streamflow_tpu_torch/ops/kernels/dw_banded.py"
-    return "_operand(x, weights[-1]" not in wrapper.read_text()
+    call = {"k6": "_operand(x, w, b)", "k8": "_operand(x, weights[-1]"}
+    return call[kernel] not in wrapper.read_text()
 
 
 def bwd_cases(hp, wp):
@@ -277,17 +287,18 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     # per library: (ctypes library, whether its K2 reads weight rows padded
-    # to 16 bytes, as this tree's wrapper hands them, whether its K8 reads
-    # NHWC)
+    # to 16 bytes, as this tree's wrapper hands them, which of K6 and K8
+    # read NHWC)
     libs = {"this": (_build.library() if only is None else _build.build(
-        _build._CSRC, _build._BUILD, only), True, True)}
+        _build._CSRC, _build._BUILD, only), True, {"k5", "k6", "k8"})}
     for other in args.other:
         root = other.resolve()
         wrapper = root / "streamflow_tpu_torch/ops/kernels/ffn_pair.py"
         libs[root.name] = (
             _build.build(root / "streamflow_tpu_torch" / "csrc",
                          root / "build" / "kernel_bench", only),
-            "_tma_rows" in wrapper.read_text(), nhwc_chain(root))
+            "_tma_rows" in wrapper.read_text(),
+            {"k5"} | {k for k in ("k6", "k8") if nhwc_chain(root, k)})
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda,
                       "others": [str(o) for o in args.other]}), flush=True)
@@ -348,7 +359,7 @@ def main() -> int:
         out = torch.empty(rows, co, dtype=torch.bfloat16, device=dev)
 
         def run(name):
-            lib, pad = libs[name]
+            lib, pad, _ = libs[name]
             w = {**a, **padded} if pad else a
             _build.check(lib.sf_ffn_pair(
                 p(w["x"]), p(w.get("yres")), p(w.get("db")),
@@ -420,17 +431,25 @@ def main() -> int:
                corr_bytes(pairs, h, w, c, levels, radius), run, [out],
                [K1.corr_lookup_plain(f1, lv, coords, radius)], {})
 
-    def chain(path, nb, h, w, c, ks, calls):
-        k = ks[-1]
+    def dw(sec, path, nb, h, w, c, ks, calls):
+        """K5, K6 or K8 (``sec``) at one SK block's shape; ks (1, k), K6's
+        (k,)."""
+        k, name = ks[-1], DW[sec][0]
         x = rnd(nb, h, w, c)
         ws = (rnd(c, 1, 1, 1, scale=0.3), rnd(c, 1, k, k, scale=1 / k))
         bs = (rnd(c, scale=0.1), rnd(c, scale=0.1))
+        ws, bs = ws[-len(ks):], bs[-len(ks):]
         out, out7 = torch.empty_like(x), torch.empty_like(x)
 
         def launch(lib, xin, o):
-            _build.check(lib.sf_sk_chain_banded(
-                p(xin), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(o), nb, h,
-                w, c, 1, k, 1, stream), "sk_chain_banded")
+            if sec == "k6":
+                code = lib.sf_dw_banded_mxu(p(xin), p(ws[0]), p(bs[0]), p(o),
+                                            nb, h, w, c, k, 1, stream)
+            else:   # sf_dw_chain and sf_sk_chain_banded take one form
+                code = getattr(lib, "sf_" + name)(
+                    p(xin), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(o), nb,
+                    h, w, c, 1, k, 1, stream)
+            _build.check(code, name)
 
         def cmajor():
             # the first version's operand and output, as its wrapper made
@@ -440,9 +459,9 @@ def main() -> int:
             lhs[:, :, r:r + w, r:r + h] = x.permute(3, 0, 2, 1)
             return lhs, x.new_empty((c, nb, w, h))
 
-        def run(name):
-            lib, _, nhwc = libs[name]
-            if nhwc:
+        def run(lib_name):
+            lib, _, nhwc = libs[lib_name]
+            if sec in nhwc:
                 launch(lib, x, out)
             else:
                 lhs, o = cmajor()
@@ -454,22 +473,31 @@ def main() -> int:
             # included (chip_smoke.py's cuDNN yardstick of K5 and K8)
             y = x.permute(0, 3, 1, 2)
             y = y.contiguous() if k > 7 else y
-            y = F.conv2d(y, ws[1], None, 1, k // 2, 1, c)
+            y = F.conv2d(y, ws[-1], None, 1, k // 2, 1, c)
             return y.permute(0, 2, 3, 1).contiguous()
-        asides = {"k7": lambda: _build.check(libs["this"][0].sf_dw_banded_mxu_t(
-            p(x), p(ws[1]), p(bs[1]), p(out7), nb, h, w, c, k, 1, stream),
-            "dw_banded_mxu_t"), "cudnn": conv}
-        for name, (lib, _, nhwc) in libs.items():
-            if not nhwc:   # the first version's kernel without its copies
+        def k7(lib):
+            return lambda: _build.check(lib.sf_dw_banded_mxu_t(
+                p(x), p(ws[-1]), p(bs[-1]), p(out7), nb, h, w, c, k, 1,
+                stream), "dw_banded_mxu_t")
+        asides = {"k7": k7(libs["this"][0]), "cudnn": conv}
+        for lib_name, (lib, _, nhwc) in libs.items():
+            if lib_name != "this":   # each tree's K7
+                asides[f"{lib_name}_k7"] = k7(lib)
+            if sec not in nhwc:   # the first version's kernel, no copies
                 lhs, o = cmajor()
-                asides[f"{name}_kernel_only"] = (
+                asides[f"{lib_name}_kernel_only"] = (
                     lambda lib=lib, lhs=lhs, o=o: launch(lib, lhs, o))
-        record([("sk_chain_banded", path, "banded_chain")],
-               {"kernel": "sk_chain_banded", "path": path,
+        if sec == "k6":
+            want = K8.dw_banded_mxu_plain(x, ws[0], bs[0])
+        else:
+            plain = K5.dw_chain_plain if sec == "k5" else (
+                K8.sk_chain_banded_plain)
+            want = plain(x, ws, bs, ks)
+        record([(name, path, DW[sec][1])],
+               {"kernel": name, "path": path,
                 "case": f"{nb}x{h}x{w}x{c} ks {ks}", "calls": calls},
-               calls, 2 * k * k * x.numel() + 3 * x.numel(),
-               chain_bytes(nb, h, w, c, ks), run, [out],
-               [K8.sk_chain_banded_plain(x, ws, bs, ks)], asides)
+               calls, 2 * k * k * x.numel() + 3 * (len(ks) - 1) * x.numel(),
+               chain_bytes(nb, h, w, c, ks), run, [out], [want], asides)
 
     for path, (hp, wp, train) in (("clip", (440, 1024, False)),
                                   ("step", (432, 960, True))):
@@ -479,9 +507,10 @@ def main() -> int:
         if "k2" in run_sec:
             for case in ffn_cases(hp, wp, train):
                 ffn(path, *case)
-        if "k8" in run_sec:
-            for case in chain_cases(hp, wp, train):
-                chain(path, *case)
+        for sec in DW:
+            if sec in run_sec:
+                for case in chain_cases(hp, wp, train, sec != "k6"):
+                    dw(sec, path, *case)
         torch.cuda.empty_cache()
     if "b5" in run_sec:
         for case in bwd_cases(432, 960):

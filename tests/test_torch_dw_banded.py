@@ -5,8 +5,8 @@ _sk_chain_banded_fwd, as tests/test_dw_chain.py runs them), and against
 the XLA composites (dw_banded_xla) where the TPU kernel refuses a width;
 each wrapper's gradient against jax.vjp of the JAX custom_vjp (its
 interpret forward monkeypatched in, as tests/test_dw_chain.py does); what
-K8's wrapper hands its launcher (x's own storage, an NHWC output, no
-copy); kernel_bench's K8 table and bound. CPU,
+K5's, K6's and K8's wrappers hand their launchers (x's own storage, an
+NHWC output, no copy); kernel_bench's K5, K6 and K8 tables and bounds. CPU,
 seeded numpy inputs; weights made in the JAX layout (k, k, C) and handed
 to the port in PyTorch's depthwise layout (C, 1, k, k). The k=1 biases are
 nonzero, so a halo of gelu(b) instead of 0 fails.
@@ -300,18 +300,25 @@ class _Watched(_Card):
         return super().__torch_function__(func, types, args, kwargs or {})
 
 
-@pytest.mark.parametrize("ks", [(15,), (1, 15), (1, 1, 7)])
+@pytest.mark.parametrize("kernel,ks", [
+    pytest.param("k8", (15,), id="ks0"), pytest.param("k8", (1, 15), id="ks1"),
+    pytest.param("k8", (1, 1, 7), id="ks2"),
+    pytest.param("k6", (15,), id="k6-15"), pytest.param("k6", (7,), id="k6-7"),
+    pytest.param("k5", (1, 15), id="k5-1-15"),
+    pytest.param("k5", (1, 1, 7), id="k5-1-1-7")])
 def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
-                                                            ks):
-    """_run_chain passes x's own storage and a fresh (B, H, W, C) output
-    to sf_sk_chain_banded and returns that output: no pad, permute or
-    contiguous copy of either."""
+                                                            kernel, ks):
+    """K8's _run_chain, K6's _run_mxu and K5's _run (dw_chain) pass x's own
+    storage and a fresh (B, H, W, C) output to their launchers
+    (sf_sk_chain_banded, sf_dw_banded_mxu, sf_dw_chain) and return that
+    output: no pad, permute or contiguous copy of either."""
+    from streamflow_tpu_torch.ops.kernels import dw_chain as K5
+
     launched = []
 
     class Lib:
-        def sf_sk_chain_banded(self, *args):
-            launched.append(args)
-            return 0
+        def __getattr__(self, name):
+            return lambda *args: launched.append((name, args)) or 0
     monkeypatch.setattr(_build, "library", Lib)
     monkeypatch.setattr(_build, "stream_of", lambda t: 7)
     x, ws, bs = _inputs(12, (2, 5, 6, 24), ks)
@@ -319,14 +326,24 @@ def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
     wt = tuple(_torch_w(w).as_subclass(_Card) for w in ws)
     bt = tuple(_torch(b).as_subclass(_Card) for b in bs)
     _Watched.seen = []
-    out = P._run_chain(xt, wt, bt, ks)
+    if kernel == "k6":
+        out = P._run_mxu(xt, wt[0], bt[0])
+    else:
+        out = (P._run_chain if kernel == "k8" else K5._run)(xt, wt, bt, ks)
     seen = set(_Watched.seen)
     assert not seen & {"pad", "permute", "contiguous", "new_zeros", "copy_",
                        "clone", "transpose", "__setitem__", "reshape",
                        "view", "to"}, seen
-    (args,) = launched
-    assert args[0] == xt.data_ptr() and args[5] == out.data_ptr()
+    ((name, args),) = launched
     assert out.shape == xt.shape and out.stride() == xt.stride()
+    if kernel == "k6":
+        assert name == "sf_dw_banded_mxu"
+        assert args[0] == xt.data_ptr() and args[3] == out.data_ptr()
+        assert args[1] == wt[0].data_ptr() and args[2] == bt[0].data_ptr()
+        assert args[4:] == (2, 5, 6, 24, ks[-1], 0, 7)
+        return
+    assert name == {"k8": "sf_sk_chain_banded", "k5": "sf_dw_chain"}[kernel]
+    assert args[0] == xt.data_ptr() and args[5] == out.data_ptr()
     assert args[6:12] == (2, 5, 6, 24, len(ks) - 1, ks[-1])
     assert args[3] == wt[-1].data_ptr() and args[4] == bt[-1].data_ptr()
     assert args[12] == 0 and args[13] == 7
@@ -334,12 +351,15 @@ def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
         assert args[1] is None and args[2] is None
 
 
-def test_kernel_bench_k8_cases_and_bound():
-    """K8's calls in kernel_bench: the six SK blocks' dw stacks, 12 calls
-    each per 440x1024 clip (72) on 3x55x128 (the flow head 1x55x128x384),
-    24 each per 432x960 step (144) on 3x54x120; ks (1, 15), the gru's
-    (1, 7). Its bound is bytes: 0.5266 ms per clip, 0.9698 per step;
-    convc1 0.0082 ms and the gru 0.0162 a call at the clip shape."""
+def test_kernel_bench_k8_cases_and_bound(tmp_path):
+    """K8's and K5's calls in kernel_bench: the six SK blocks' dw stacks,
+    12 calls each per 440x1024 clip (72) on 3x55x128 (the flow head
+    1x55x128x384), 24 each per 432x960 step (144) on 3x54x120; ks (1, 15),
+    the gru's (1, 7). Their bound is bytes: 0.5266 ms per clip, 0.9698 per
+    step; convc1 0.0082 ms and the gru 0.0162 a call at the clip shape.
+    K6's calls are the same stacks' kxk stages alone, ks (15,) and (7,):
+    0.5265 ms per clip, 0.9697 per step. A checkout whose K6 or K8 wrapper
+    still builds the C-major operand is told apart."""
     clip, step = KB.chain_cases(440, 1024, False), KB.chain_cases(432, 960,
                                                                   True)
     want = [(3, 324, (1, 15)), (3, 256, (1, 15)), (3, 128, (1, 15)),
@@ -360,4 +380,25 @@ def test_kernel_bench_k8_cases_and_bound():
     assert (per(clip), per(step)) == (0.5266, 0.9698)
     assert [round(1e3 * KB.chain_bytes(*c[:-1]) / KB.HBM, 4)
             for c in (clip[0], clip[4])] == [0.0082, 0.0162]
-    assert KB.nhwc_chain(Path(__file__).resolve().parents[1])
+    root = Path(__file__).resolve().parents[1]
+    assert KB.nhwc_chain(root) and KB.nhwc_chain(root, "k6")
+    mxu_clip = KB.chain_cases(440, 1024, False, stack=False)
+    mxu_step = KB.chain_cases(432, 960, True, stack=False)
+    assert [c[:4] + c[5:] for c in mxu_clip] == [c[:4] + c[5:] for c in clip]
+    assert [c[:4] + c[5:] for c in mxu_step] == [c[:4] + c[5:] for c in step]
+    assert [c[4] for c in mxu_clip] == [(15,)] * 4 + [(7,), (15,)]
+    assert KB.chain_bytes(3, 55, 128, 324, (15,)) == 2 * (
+        2 * 3 * 55 * 128 * 324 + 324 * 225 + 324)
+    assert (per(mxu_clip), per(mxu_step)) == (0.5265, 0.9697)
+    assert {s: KB.DW[s][0] for s in ("k5", "k6", "k8")} == {
+        "k5": "dw_chain", "k6": "dw_banded_mxu", "k8": "sk_chain_banded"}
+    assert set(KB.SECTIONS["k5"]) == {"dw_chain", "dw_banded"}
+    assert KB.SECTIONS["k6"] == KB.SECTIONS["k8"] == ("dw_banded",)
+    # the first versions' wrappers: K6's _run_mxu and K8's _run_chain
+    # padded x into the C-major operand
+    old = tmp_path / "streamflow_tpu_torch/ops/kernels/dw_banded.py"
+    old.parent.mkdir(parents=True)
+    old.write_text("    lhs, out = _operand(x, w, b)\n")
+    assert not KB.nhwc_chain(tmp_path, "k6") and KB.nhwc_chain(tmp_path)
+    old.write_text("    lhs, out = _operand(x, weights[-1], biases[-1])\n")
+    assert KB.nhwc_chain(tmp_path, "k6") and not KB.nhwc_chain(tmp_path)
