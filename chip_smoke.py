@@ -464,11 +464,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
         return make
 
     def edge_case(kind, nb, h, w, c, ks):
-        """K5, K6 (the kxk stage ks[-1] alone) or K8 at an edge of its
-        tiles or arguments (checked only)."""
+        """K5, K6 (ks = (k,)) or K8 at an edge of its tiles or arguments
+        (checked only)."""
         mod = K5 if kind == "dw_chain" else K6
         run, plain = getattr(mod, kind), getattr(mod, kind + "_plain")
-        ks = ks[-1:] if kind == "dw_banded_mxu" else ks
 
         def make(dt):
             x, ws, bs = chain_inputs(rnd, nb, h, w, c, ks, dt)
@@ -614,7 +613,7 @@ def kernel_checks(dev, summaries, hp, wp, train):
                     continue   # K5 reads channel pairs
                 kks = ks[-1:] if kind == "dw_banded_mxu" else ks
                 cases.append((kind, f"edge {nb}x{h}x{w}x{c} ks {kks}",
-                              edge_case(kind, nb, h, w, c, ks), 0, every))
+                              edge_case(kind, nb, h, w, c, kks), 0, every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
                   flash_case((3, 1), n, n, 128), refine, every))

@@ -64,12 +64,11 @@ __host__ __device__ constexpr int stride_w(int r) { return halo_w(r) | 1; }
 
 template <int KS>
 __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
-  typedef float2 P2;
   constexpr int R = KS / 2;
   constexpr int HH = TH + 2 * R, WH = halo_w(R), SW = stride_w(R);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  P2* as = reinterpret_cast<P2*>(smem_raw);  // A: HH x SW positions x NP
-  P2* ws = as + HH * SW * NP;                // weights: KS*KS taps x NP
+  float2* as = reinterpret_cast<float2*>(smem_raw);  // A: HH x SW x NP
+  float2* ws = as + HH * SW * NP;  // weights: KS*KS taps x NP
 
   const int H = a.h, W = a.wd, C = a.c;
   const int tiles_x = (W + TW - 1) / TW;
@@ -138,7 +137,7 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
       w0[dx] = t.x;
       w1[dx] = t.y;
     }
-    const P2* row = as + ((oy + dy) * SW + ox) * NP + p;
+    const float2* row = as + ((oy + dy) * SW + ox) * NP + p;
 #pragma unroll
     for (int i = 0; i < RW + KS - 1; ++i) {
       const float2 v = row[i * NP];
@@ -155,13 +154,13 @@ __global__ void __launch_bounds__(NT, 2) dw_chain_kernel(Args a) {
 
   const float2 bias = load2(a.b + c);
   float* out = a.out + img;
-  const P2* ctr = as + ((oy + R) * SW + ox + R) * NP + p;
+  const float2* ctr = as + ((oy + R) * SW + ox + R) * NP + p;
 #pragma unroll
   for (int j = 0; j < RW; ++j) {
     const int xx = x0 + ox + j;
     if (xx < W) {
       const float2 v = ctr[j * NP];
-      *reinterpret_cast<P2*>(out + ((size_t)y * W + xx) * C + c) =
+      *reinterpret_cast<float2*>(out + ((size_t)y * W + xx) * C + c) =
           make_float2(gelu(v.x + acc0[j] + bias.x),
                       gelu(v.y + acc1[j] + bias.y));
     }

@@ -53,6 +53,8 @@ own ops, as in JAX.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -151,30 +153,22 @@ def sk_chain_banded(x, weights, biases, ks):
                               x, *weights, *biases)
 
 
-def _run_mxu(x, w, b):
+def _run_conv(name, x, w, b):
+    """K6 or K7 (``name``): one function, one launcher interface."""
     if not x.is_cuda:
         return dw_banded_mxu_plain(x, w, b)
     _check(x, w, b)
     out = torch.empty_like(x)
-    _build.check(_build.library().sf_dw_banded_mxu(
+    _build.check(getattr(_build.library(), "sf_" + name)(
         _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out),
         *x.shape, w.shape[-1], _build.dtype_code(x.dtype),
-        _build.stream_of(x)), "dw_banded_mxu")
-    LAUNCHES["dw_banded_mxu"] += 1
+        _build.stream_of(x)), name)
+    LAUNCHES[name] += 1
     return out
 
 
-def _run_mxu_t(x, w, b):
-    if not x.is_cuda:
-        return dw_banded_mxu_t_plain(x, w, b)
-    _check(x, w, b)
-    out = torch.empty_like(x)
-    _build.check(_build.library().sf_dw_banded_mxu_t(
-        _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out),
-        *x.shape, w.shape[-1], _build.dtype_code(x.dtype),
-        _build.stream_of(x)), "dw_banded_mxu_t")
-    LAUNCHES["dw_banded_mxu_t"] += 1
-    return out
+_run_mxu = functools.partial(_run_conv, "dw_banded_mxu")
+_run_mxu_t = functools.partial(_run_conv, "dw_banded_mxu_t")
 
 
 def _run_chain(x, weights, biases, ks):
