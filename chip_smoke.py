@@ -52,16 +52,37 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
      place of K5), 'banded_chain' (17-20: K8) and 'banded_mxu_t' (21-24:
      K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
-     kernel).
-The line before the kernels line gives ms/clip for the six layouts. The
-line before the last is a JSON object with one entry per kernel and path
-("inference": phases 3-4, per clip; "train_step": phases 6-7, per step;
-"inference_dw_<layout>" and "train_step_dw_<layout>": the same for each
-other layout, phases 3, 6 and that layout's forward and train step):
-"launches" is the path's count, "ms", "plain_ms", "bound_ms" and
-"library_ms" are summed over the same calls at the path's shapes (K1's
-under the jitter traffic; its "ms_by_traffic" gives all three). The
-last line is {"ok": true, "device": {...}}.
+     kernel);
+  27. the graphed forward (evaluation.GraphedForward: one CUDA graph per
+     input shape) of phase 4's clip in 'auto' and 'banded_chain': the
+     replay's flows against the eager forward's; the kernels of one
+     profiled replay, by name, against EXPECTED_LAUNCHES (the Python
+     launch counters count at capture, not at replay); ms/clip eager and
+     graphed, each path's device time, idle share and peak memory; for
+     'auto' also a KITTI bucket (375x1242 padded in 'kitti' mode to
+     376x1248), the first bucket replayed again after it, a flow_init
+     bucket against its eager call, and two replays on other clips that
+     leave the first result unchanged;
+  28. the serving harness: the validators' per-window steps (plain,
+     warm-started and tiled windows; evaluation.py) on in-memory clips,
+     three 436x1024 Sintel windows (one a tail window) and a 375x1242
+     KITTI window in 432x960 tiles, graphed and eager: flows and metrics
+     agree; the graphed side's launch counts (its warm-ups and captures)
+     checked exactly;
+  29. high resolution, the twin of tools/test_memory.py: 1080x1920 and
+     1440x2560, T=4, 12 iterations, bf16, eager and graphed, as phase 27
+     (finite flows, graph against eager, times, peak memory).
+The line before the kernels line gives ms/clip for the six layouts and
+the graphed 'auto'. The line before the last is a JSON object with one
+entry per kernel and path ("inference": phases 3-4, per clip;
+"train_step": phases 6-7, per step; "inference_dw_<layout>" and
+"train_step_dw_<layout>": the same for each other layout, phases 3, 6
+and that layout's forward and train step; "serving": phase 28's
+launches, with phase 3's numbers per 440x1024 clip): "launches" is the
+path's count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed
+over the same calls at the path's shapes (K1's under the jitter
+traffic; its "ms_by_traffic" gives all three). The last line is {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -109,13 +130,6 @@ BF16_ULPS, BF16_FLOOR = 2, 2.0 ** -9
 # fault adds its own O(1) error on top.
 F32_GUARD_TOL = 1e-2
 BF16_GUARD_RATIO = 1.5
-
-# Random weights make a feedback loop through the flow input of the motion
-# encoder: at the fan-in scale the flows grow ~2.7x per iteration, to
-# ~1e8 px after 12, where K1's windows all fall out of range. The flow
-# head's output layer is scaled down so that the 12-iteration flows stay
-# in the range of real footage (tens of px, a few hundred at most).
-FLOW_HEAD_SCALE = 2e-3
 
 KERNELS = {
     "corr_lookup": ("streamflow_tpu_torch/csrc/corr_lookup.cu",
@@ -264,26 +278,11 @@ def nbytes(*ts) -> int:
 
 
 def init_weights(model, seed: int) -> None:
-    """Fan-in-scaled random weights (like the JAX package's oracle tests):
-    every >= 2-D parameter r / sqrt(fan_in), LayerNorm weights 1 + 0.1 r,
-    other vectors 0.05 r; then the flow head's output layer times
-    FLOW_HEAD_SCALE. GMA's gamma and the temporal layer's zero-init
-    weights become live, so K3's GMA output is not multiplied by zero."""
-    import torch
+    """Fan-in-scaled random weights from ``seed``, the flow head's output
+    layer scaled down (streamflow_tpu_torch/tools/common.py)."""
+    from streamflow_tpu_torch.tools.common import init_weights as init
 
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            r = torch.randn(p.shape, generator=g)
-            if p.ndim >= 2:
-                p.copy_(r / math.sqrt(p[0].numel()))
-            elif "norm" in name and name.endswith("weight"):
-                p.copy_(1.0 + 0.1 * r)
-            else:
-                p.copy_(0.05 * r)
-        out = model.update_block.flow_head.ffn2[2]
-        out.weight.mul_(FLOW_HEAD_SCALE)
-        out.bias.mul_(FLOW_HEAD_SCALE)
+    init(model, seed)
 
 
 def bf16_ulp(x):
@@ -713,15 +712,17 @@ def kernel_checks(dev, summaries, hp, wp, train):
 
 
 # ---------------------------------------------------------------- phase 4/5
-def make_clip(dev):
+def make_clip(dev, h=H, w=W, mode="sintel", seed=SEED):
+    """A seeded B x T x h x w clip of uint8-range values, padded in
+    ``mode``, on ``dev``."""
     import torch
 
     from streamflow_tpu_torch.ops.padding import InputPadder
 
-    g = torch.Generator().manual_seed(SEED)
-    imgs = torch.randint(0, 256, (B, T, H, W, 3), generator=g).float()
-    padder = InputPadder((H, W, 3), mode="sintel")
-    imgs = padder.pad(imgs.reshape(B * T, H, W, 3))
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.randint(0, 256, (B, T, h, w, 3), generator=g).float()
+    padder = InputPadder((h, w, 3), mode=mode)
+    imgs = padder.pad(imgs.reshape(B * T, h, w, 3))
     return imgs.reshape(B, T, *padder.padded_shape, 3).to(dev)
 
 
@@ -776,15 +777,12 @@ def full_forward(dev, dw_impl):
 
 
 def profile_device(fn, wall_ms: float, name: str) -> dict:
-    """Device time of one call of ``fn`` by kernel group; the idle share
+    """Device time of one call of ``fn`` by kernel group (profiled after a
+    traced warm-up call, tools/common.py::profiled); the idle share
     compares the summed device time with the unprofiled wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from streamflow_tpu_torch.tools.common import device_events, profiled
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -792,14 +790,11 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
         fh.write(smi() + "\n" + table)
     total = 0.0
     by = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = ev.cuda_time_total
-        if ev.device_type.name != "CUDA" or t <= 0:
+    for key, _, t in device_events(prof):
+        if t <= 0:
             continue
         total += t
-        key = ev.key.lower()
+        key = key.lower()
         for pat, group in (("corr_lookup", "corr_lookup"),
                            ("ffn_pair", "ffn_pair"),
                            ("flash_fwd", "flash_fwd"),
@@ -856,17 +851,12 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
             flows[dtype, "cpu"] = cpu_model(imgs, test_mode=True).float()
         if dtype == "float32" and "f32" not in refs:
             refs["f32"] = (flows[dtype, "cpu"], dw_impl)
+    from streamflow_tpu_torch.tools.common import rel_epe
+
     ref, ref_layout = refs["f32"]
     mag = ref.norm(dim=-1)
-
-    def rel_epe(x):
-        epe = (x - ref).norm(dim=-1)
-        per_px = (epe / mag.clamp(min=1.0)).flatten()[::7].double()
-        return (float(epe.max()) / max(1.0, float(mag.max())),
-                float(torch.quantile(per_px, 0.99)))
-
-    f32 = rel_epe(flows["float32", "card"])
-    bf16, bf16_plain = (rel_epe(flows["bfloat16", where])
+    f32 = rel_epe(flows["float32", "card"], ref)
+    bf16, bf16_plain = (rel_epe(flows["bfloat16", where], ref)
                         for where in ("card", "cpu"))
     log(f"accuracy guard dw_impl={dw_impl!r} iters=1 against the f32 plain "
         f"path (of dw_impl={ref_layout!r}; |flow_ref| px "
@@ -1205,6 +1195,275 @@ def training_guard(dev, dw_impl) -> None:
     assert bf[2] <= BF16_GUARD_RATIO * bfp[2], (bf[2], bfp[2])
 
 
+# ---------------------------------------------------------------- phase 27
+# the serving phases' other shapes: a KITTI frame (padded in 'kitti' mode
+# to 376x1248, or in 'kitti432' to 432x1248 for the tiled validator's
+# 432x960 patches) and phase 29's high resolutions (multiples of 8)
+KITTI_H, KITTI_W = 375, 1242
+HIGH_RES = ((1080, 1920), (1440, 2560))
+
+
+def node_kernel(name: str):
+    """The port kernel (a key of KERNELS) of a CUDA kernel's name as the
+    profiler gives it, mangled or not; None for PyTorch's and its
+    libraries' kernels. The engine's kernel sk_chain_kernel<P, V> is K8,
+    K5 or K6 by its policy P (csrc/sk_chain.cuh); dw_banded_kernel is K7
+    in bf16 (the graphed forwards are bf16)."""
+    import re
+
+    m = re.search(r"sk_chain_kernel(?:<|ILi)(\d)", name)
+    if m:
+        return ("sk_chain_banded", "dw_chain", "dw_banded_mxu")[
+            int(m.group(1))]
+    for pat, k in (("corr_lookup", "corr_lookup"), ("ffn_pair", "ffn_pair"),
+                   ("flash_fwd", "flash_attention"),
+                   ("lga_kernel", "lga_attention"),
+                   ("dw_chain_kernel", "dw_chain"),
+                   ("dw_banded_kernel", "dw_banded_mxu_t")):
+        if pat in name:
+            return k
+    return None
+
+
+def replay_kernel_counts(fn):
+    """Kernels run by one profiled call of ``fn`` (a graph replay), by port
+    kernel ({kernel: count}, the nonzero ones), and the count of all
+    other kernels."""
+    from streamflow_tpu_torch.tools.common import device_events, profiled
+
+    counts, other = {}, 0
+    for name, count, _ in device_events(profiled(fn)):
+        k = node_kernel(name)
+        if k is None:
+            other += count
+        else:
+            counts[k] = counts.get(k, 0) + count
+    return counts, other
+
+
+def eager_then_graph(model, imgs, label):
+    """The clip ``imgs`` through ``model`` eagerly (one call, then REPS
+    timed), then through a GraphedForward of it (its first call warms up
+    and captures, then REPS timed replays); each path profiled once
+    (device time, idle share; OUT_DIR/profile_{eager,graph}_<label>.txt)
+    and its peak memory (the graph's over its capture and replays).
+    Returns (the GraphedForward, its flows, the eager flows, ms/clip
+    graph)."""
+    import torch
+
+    from streamflow_tpu_torch.evaluation import GraphedForward
+    from streamflow_tpu_torch.tools.common import host_ms
+
+    def eager():
+        return model(imgs, test_mode=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = eager()
+    ms_e = host_ms(eager, REPS, imgs.device)
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd = GraphedForward(model, model.cfg.iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = fwd(imgs)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ms_g = host_ms(lambda: fwd(imgs), REPS, imgs.device)
+    peak_g = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof_e = profile_device(eager, ms_e[0], f"eager_{label}")
+    prof_g = profile_device(lambda: fwd(imgs), ms_g[0], f"graph_{label}")
+    log(f"serving {label} dw_impl={model.cfg.dw_impl!r} "
+        f"{tuple(imgs.shape)}: ms/clip eager {ms_e[0]:.3f} (mean of {REPS}, "
+        f"min {ms_e[1]:.3f}), graph {ms_g[0]:.3f} (min {ms_g[1]:.3f}); "
+        f"device ms eager {prof_e['total_ms']:.3f}, graph "
+        f"{prof_g['total_ms']:.3f}; idle share eager {prof_e['idle']:.4f}, "
+        f"graph {prof_g['idle']:.4f}; max_memory_allocated eager "
+        f"{peak_e:.3f} GiB, graph {peak_g:.3f} GiB; first graphed call (2 "
+        f"warm-ups + capture) {capture_s:.2f} s")
+    return fwd, got, want, ms_g[0]
+
+
+def check_nodes(fwd, imgs, dw_impl) -> None:
+    """One replay of ``fwd``'s bucket of ``imgs`` runs each port kernel as
+    many times as the eager forward launches it (LAYOUTS)."""
+    got, other = replay_kernel_counts(lambda: fwd(imgs))
+    want = {k: v for k, v in LAYOUTS[dw_impl][1].items() if v}
+    log(f"graph dw_impl={dw_impl!r} kernel nodes in one replay "
+        f"{json.dumps(got)} expected {json.dumps(want)} (and {other} "
+        f"kernels of PyTorch and its libraries)")
+    assert got == want, "the graph's kernels differ from the eager launches"
+
+
+def graph_phase(dev) -> float:
+    """The test-mode forward as GraphedForward captures it, 'auto' and
+    'banded_chain' at 440x1024: replays against the eager forward, kernel
+    nodes against EXPECTED_LAUNCHES, times; for 'auto' also a KITTI bucket,
+    a flow_init bucket and two replays that must not alias. Returns the
+    'auto' graph's ms/clip."""
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+
+    imgs = make_clip(dev)
+    ms = None
+    for dw_impl in ("auto", "banded_chain"):
+        model = create_model("streamflow", cfg=StreamFlowConfig(
+            T=T, iters=ITERS, mixed_precision=True, dw_impl=dw_impl),
+            device=dev)
+        init_weights(model, SEED)
+        fwd, got, want, ms_g = eager_then_graph(model, imgs,
+                                                f"{dw_impl}_440x1024")
+        tag = f"graph dw_impl={dw_impl!r}"
+        check_close(f"{tag} 440x1024 flows vs eager", got, want,
+                    torch.bfloat16)
+        check_nodes(fwd, imgs, dw_impl)
+        if dw_impl != "auto":
+            continue
+        ms = ms_g
+        kitti = make_clip(dev, KITTI_H, KITTI_W, "kitti", SEED + 3)
+        assert kitti.shape[2:4] == (376, 1248), kitti.shape
+        check_close(f"{tag} KITTI bucket {tuple(kitti.shape)} vs eager",
+                    fwd(kitti), model(kitti, test_mode=True), torch.bfloat16)
+        again = fwd(imgs)
+        assert torch.equal(again, got), "the first bucket changed"
+        g = torch.Generator(device=dev).manual_seed(SEED + 4)
+        init = 2.0 * torch.randn(B, T - 1, imgs.shape[2] // 8,
+                                 imgs.shape[3] // 8, 2, generator=g,
+                                 device=dev)
+        (gf, gl), (ef, el) = fwd(imgs, init), model(imgs, flow_init=init,
+                                                     test_mode=True)
+        check_close(f"{tag} flow_init bucket flows vs eager", gf, ef,
+                    torch.bfloat16)
+        check_close(f"{tag} flow_init bucket low-res flows vs eager", gl, el,
+                    torch.bfloat16)
+        other = make_clip(dev, seed=SEED + 5)
+        first = fwd(imgs)
+        kept = first.clone()
+        second = fwd(other)
+        assert torch.equal(first, kept) and torch.equal(first, got), (
+            "a replay changed an earlier call's output")
+        assert not torch.equal(first, second)
+        log(f"{tag}: {len(fwd.buckets)} buckets (440x1024, 376x1248, "
+            f"440x1024 with flow_init); the first bucket replays the same "
+            f"flows after the others; an earlier output is unchanged by a "
+            f"later replay")
+        assert len(fwd.buckets) == 3, list(fwd.buckets)
+    return ms
+
+
+# ---------------------------------------------------------------- phase 28
+def serving_phase(dev) -> dict:
+    """The validators' per-window steps (evaluation.window_flows,
+    warm_window_flows, tiled_window_flows, pair_epes, kitti_pair_metrics)
+    on in-memory clips: three 436x1024 Sintel windows (the last a tail
+    window with two pairs marked -1), the same three warm-started, and
+    one 375x1242 KITTI window tiled in 432x960 patches; through a
+    GraphedForward ('auto'), then through the eager forward. Flows and
+    metrics must agree. Returns the launch counts of the graphed side
+    (its warm-ups and captures: replays make no wrapper call)."""
+    import numpy as np
+    import torch
+
+    from streamflow_tpu_torch import evaluation as ev
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    model = create_model("streamflow", cfg=StreamFlowConfig(
+        T=T, iters=ITERS, mixed_precision=True), device=dev)
+    init_weights(model, SEED)
+    rng = np.random.default_rng(SEED + 6)
+
+    def window(h, w, ids):
+        return {"images": rng.integers(0, 256, (T, h, w, 3)).astype(
+                    np.float32),
+                "flows": 4.0 * rng.standard_normal((T - 1, h, w, 2)).astype(
+                    np.float32),
+                "valids": (rng.random((T - 1, h, w)) < 0.7).astype(
+                    np.float32),
+                "frame_ids": np.asarray(ids, np.int32)}
+
+    sintel = [window(H, W, ids) for ids in
+              ((0, 1, 2, 3), (3, 4, 5, 6), (-1, -1, 6, 7))]
+    kitti = window(KITTI_H, KITTI_W, (8, 9, 10, 11))
+
+    def run(fwd):
+        flows = [ev.window_flows(fwd, s["images"], dev) for s in sintel]
+        warm, warm_flows = None, []
+        for s in sintel:
+            f, warm = ev.warm_window_flows(fwd, s["images"], dev, warm)
+            warm_flows.append(f)
+        tiled = ev.tiled_window_flows(fwd, kitti["images"], dev)
+        return flows, warm_flows, tiled
+
+    fwd = ev.GraphedForward(model, ITERS)
+    reset_launches()
+    graphed = run(fwd)
+    counts = dict(LAUNCHES)
+    eager = run(lambda x, flow_init=None: model(
+        x, flow_init=flow_init, test_mode=True))
+    names = [f"sintel window {i}" for i in range(3)]
+    names += [f"warm window {i}" for i in range(3)] + ["tiled KITTI window"]
+    for name, got, want in zip(names, [*graphed[0], *graphed[1], graphed[2]],
+                               [*eager[0], *eager[1], eager[2]]):
+        check_close(f"serving {name} flows, graph vs eager",
+                    torch.from_numpy(got), torch.from_numpy(want),
+                    torch.bfloat16)
+
+    def metrics(run_out):
+        flows, warm_flows, tiled = run_out
+        epe = np.concatenate([e for f, s in zip(flows, sintel)
+                              for e in ev.pair_epes(f, s, T)])
+        warm = np.concatenate([e for f, s in zip(warm_flows, sintel)
+                               for e in ev.pair_epes(f, s, T)])
+        k_epe, k_out = ev.kitti_pair_metrics(tiled, kitti, T)
+        return {"epe": float(epe.mean()), "1px": float((epe < 1).mean()),
+                "pairs_px": int(epe.size), "warm_epe": float(warm.mean()),
+                "kitti_tile_epe": float(k_epe),
+                "kitti_tile_f1": float(100 * k_out.mean())}
+
+    got, want = metrics(graphed), metrics(eager)
+    log(f"serving harness metrics, graph {json.dumps(got)}; eager "
+        f"{json.dumps(want)}; buckets {[b[0] for b in fwd.buckets]}")
+    assert got["pairs_px"] == 7 * H * W, got   # 3 + 3 + 1 pairs counted
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-4 * abs(v), (k, got[k], v)
+    # three buckets (440x1024, the same with flow_init, the 432x960 tile),
+    # each two warm-ups and one capture
+    assert len(fwd.buckets) == 3, list(fwd.buckets)
+    expected = {k: 9 * v for k, v in EXPECTED_LAUNCHES.items()}
+    log(f"serving launches (warm-ups and captures) {json.dumps(counts)} "
+        f"expected {json.dumps(expected)}")
+    assert counts == expected, "launch counts differ"
+    return counts
+
+
+# ---------------------------------------------------------------- phase 29
+def high_res_phase(dev) -> None:
+    """The twin of tools/test_memory.py: 1080x1920 and 1440x2560 clips,
+    T=4, 12 iterations, bf16, 'auto', eager then graphed (times, device
+    time, idle share, peak memory); finite flows, graph equal to eager."""
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+
+    model = create_model("streamflow", cfg=StreamFlowConfig(
+        T=T, iters=ITERS, mixed_precision=True), device=dev)
+    init_weights(model, SEED)
+    for h, w in HIGH_RES:
+        imgs = make_clip(dev, h, w)
+        fwd, got, want, _ = eager_then_graph(model, imgs, f"{h}x{w}")
+        assert got.shape == (B, T - 1, h, w, 2), got.shape
+        assert bool(torch.isfinite(got).all()), "non-finite flows"
+        check_close(f"graph {h}x{w} flows vs eager", got, want,
+                    torch.bfloat16)
+        del fwd, got, want
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -1281,10 +1540,15 @@ def main() -> None:
                 n, "train step" + tag, train_step_phase, dev, dw)
             phase(n + 1, "training guard" + tag, training_guard, dev, dw)
             n += 2
-    log(f"phases 3-{n - 1}: {time.perf_counter() - t_start:.1f} s after the "
+    ms_graph = phase(27, "graphed forward", graph_phase, dev)
+    counts["serving"] = phase(28, "serving harness", serving_phase, dev)
+    summary["serving"] = summary["inference"]
+    phase(29, "high resolution", high_res_phase, dev)
+    log(f"phases 3-29: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
-        + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()}))
+        + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})
+        + f"; 'auto' graphed {ms_graph:.3f}")
 
     assert "jax" not in sys.modules, "the port must not import jax"
     kernels = []
