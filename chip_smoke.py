@@ -62,7 +62,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      'auto' also a KITTI bucket (375x1242 padded in 'kitti' mode to
      376x1248), the first bucket replayed again after it, a flow_init
      bucket against its eager call, and two replays on other clips that
-     leave the first result unchanged;
+     leave the first result unchanged; and, in a process of its own, a
+     forward that cannot be captured makes GraphedForward raise;
   28. the serving harness: the validators' per-window steps (plain,
      warm-started and tiled windows; evaluation.py) on in-memory clips,
      three 436x1024 Sintel windows (one a tail window) and a 375x1242
@@ -1350,7 +1351,43 @@ def graph_phase(dev) -> float:
             f"flows after the others; an earlier output is unchanged by a "
             f"later replay")
         assert len(fwd.buckets) == 3, list(fwd.buckets)
+    capture_failure_raises()
     return ms
+
+
+# a forward that reads a value back to the host, which no graph can hold
+CAPTURE_FAILS = """
+import sys
+import torch
+from streamflow_tpu_torch.evaluation import GraphedForward
+
+class HostRead(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(1, device="cuda"))
+
+    def forward(self, images, iters=None, flow_init=None, test_mode=True):
+        return images * self.w * float(images.sum())
+
+try:
+    GraphedForward(HostRead(), 1)(torch.ones(1, 4, 8, 8, 3, device="cuda"))
+except RuntimeError as e:
+    assert "capture of bucket" in str(e), e
+    print(str(e).splitlines()[0][:300])
+else:
+    sys.exit("GraphedForward did not raise")
+"""
+
+
+def capture_failure_raises() -> None:
+    """GraphedForward raises, naming the bucket, when a forward cannot be
+    captured (run in a process of its own: a failed capture may leave its
+    CUDA context unusable)."""
+    res = subprocess.run([sys.executable, "-c", CAPTURE_FAILS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr[-3000:]
+    log(f"graph: a forward that reads a value back to the host fails to "
+        f"capture and GraphedForward raises: {res.stdout.strip()}")
 
 
 # ---------------------------------------------------------------- phase 28
