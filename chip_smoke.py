@@ -12,10 +12,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      pw_ffn_pair), K5 dw_chain (dw_impl='pallas', with the cuDNN depthwise
      conv of the default layout timed beside it), K6 dw_banded_mxu and K7
      dw_banded_mxu_t (with cuDNN's bf16 depthwise conv as their library
-     yardstick) and K8 sk_chain_banded (cuDNN's conv beside it, as K5),
-     and K5, K6 and K8 also at the edges of their bf16 engine (every odd
-     k, each copy width, ragged H and W, B = 1 and 3, images smaller
-     than the halo: CHAIN_EDGES);
+     yardstick; K7 also equal to K6 bit for bit) and K8 sk_chain_banded
+     (cuDNN's conv beside it, as K5),
+     and K5, K6, K7 and K8 also at the edges of their bf16 tiles (every
+     odd k, each copy width, ragged H and W, B = 1 and 3, images smaller
+     than the halo, K7's strips of several tiles and bands: CHAIN_EDGES);
      K1 under three traffics (chip_smoke's +-30 px jitter, a smooth flow
      field, coordinates uniform over the frame; tools/kernel_bench.py
      makes the last two), each timed, and checked at the branches of its
@@ -54,8 +55,10 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
      kernel);
   27. the graphed forward (evaluation.GraphedForward: one CUDA graph per
-     input shape) of phase 4's clip in 'auto' and 'banded_chain': the
-     replay's flows against the eager forward's; the kernels of one
+     input shape) of phase 4's clip in 'auto', 'banded_chain' and
+     'banded_mxu_t' (K7's persistent kernel under replay): the replay's
+     flows against the eager forward's ('banded_mxu_t' bit for bit); the
+     kernels of one
      profiled replay, by name, against EXPECTED_LAUNCHES (the Python
      launch counters count at capture, not at replay); ms/clip eager and
      graphed, each path's device time, idle share and peak memory; for
@@ -148,7 +151,7 @@ KERNELS = {
                  "streamflow_tpu/ops/pallas/_dw_conv_kernel.py:170"),
     "dw_banded_mxu": ("streamflow_tpu_torch/csrc/dw_banded.cu",
                       "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:122"),
-    "dw_banded_mxu_t": ("streamflow_tpu_torch/csrc/dw_banded.cu",
+    "dw_banded_mxu_t": ("streamflow_tpu_torch/csrc/dw_banded_t.cu",
                         "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:223"),
     "sk_chain_banded": ("streamflow_tpu_torch/csrc/dw_banded.cu",
                         "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:343"),
@@ -205,17 +208,23 @@ GUARD_H, GUARD_W, GUARD_ITERS = 128, 256, 2
 # leaf of 1% of the gradient norm moves it by 1e-2 x that leaf's error)
 GRAD_TOL, PERTURB_SLACK, GRAD_GLOBAL_TOL = 1e-3, 4.0, 1e-5
 
-# K5, K6 and K8 beyond the main path's calls (phase 3, checked only; nb,
-# h, w, c, ks; K6 takes the kxk stage ks[-1] alone, K5 the even widths):
+# K5-K8 beyond the main path's calls (phase 3, checked only; nb, h, w, c,
+# ks; K6 and K7 take the kxk stage ks[-1] alone, K5 the even widths):
 # every odd k, no k=1 stage and two, widths that take each copy width of
-# their bf16 engine (csrc/sk_chain.cuh; C % 8 == 0: 16-byte copies; 324
-# and 36: 8-byte; 34: 4-byte; 35: 2-byte), H and W that fit no 32 x 32
-# tile, B = 1 and 3, images smaller than the halo
+# the bf16 bodies (csrc/sk_chain.cuh; C % 8 == 0: 16-byte copies, K7's
+# TMA; 324 and 36: 8-byte; 34: 4-byte; 35: 2-byte), H and W that fit no
+# 32 x 32 tile, B = 1 and 3, images smaller than the halo, a grid smaller
+# than the card; for K7's strips (csrc/dw_banded_t.cu: 16 channels, 56
+# rows, runs of 16-column tiles), a row of tiles that ends in a part of
+# one (200 columns), a strip of thirteen tiles that carries its halo to
+# the last, a part one (3x54x200x640), and three bands (130 rows)
 CHAIN_EDGES = [(3, 55, 128, 64, (1, k)) for k in (3, 5, 7, 9, 11, 13)] + [
     (3, 55, 128, 324, (15,)), (1, 55, 128, 384, (1, 1, 15)),
     (3, 54, 120, 640, (1, 1, 7)), (2, 54, 120, 36, (1, 15)),
     (1, 55, 128, 35, (1, 1, 9)), (1, 9, 40, 34, (1, 3)),
-    (3, 7, 9, 40, (1, 15)), (1, 3, 5, 16, (11,)), (2, 1, 1, 24, (1, 5))]
+    (3, 7, 9, 40, (1, 15)), (1, 3, 5, 16, (11,)), (2, 1, 1, 24, (1, 5)),
+    (1, 55, 200, 64, (15,)), (3, 54, 200, 640, (7,)),
+    (1, 130, 70, 40, (1, 11))]
 
 
 def chain_inputs(rnd, nb, h, w, c, ks, dt):
@@ -464,14 +473,14 @@ def kernel_checks(dev, summaries, hp, wp, train):
         return make
 
     def edge_case(kind, nb, h, w, c, ks):
-        """K5, K6 (ks = (k,)) or K8 at an edge of its tiles or arguments
-        (checked only)."""
+        """K5, K6 or K7 (ks = (k,)) or K8 at an edge of its tiles or
+        arguments (checked only)."""
         mod = K5 if kind == "dw_chain" else K6
         run, plain = getattr(mod, kind), getattr(mod, kind + "_plain")
 
         def make(dt):
             x, ws, bs = chain_inputs(rnd, nb, h, w, c, ks, dt)
-            args = (x, ws[0], bs[0]) if kind == "dw_banded_mxu" else (
+            args = (x, ws[0], bs[0]) if kind.startswith("dw_banded") else (
                 x, ws, bs, ks)
             return (lambda: run(*args), lambda: plain(*args), 0,
                     (x, *ws, *bs), None, None)
@@ -608,10 +617,11 @@ def kernel_checks(dev, summaries, hp, wp, train):
                               every))
     if not train:
         for nb, h, w, c, ks in CHAIN_EDGES:
-            for kind in ("sk_chain_banded", "dw_chain", "dw_banded_mxu"):
+            for kind in ("sk_chain_banded", "dw_chain", "dw_banded_mxu",
+                         "dw_banded_mxu_t"):
                 if kind == "dw_chain" and c % 2:
                     continue   # K5 reads channel pairs
-                kks = ks[-1:] if kind == "dw_banded_mxu" else ks
+                kks = ks[-1:] if kind.startswith("dw_banded") else ks
                 cases.append((kind, f"edge {nb}x{h}x{w}x{c} ks {kks}",
                               edge_case(kind, nb, h, w, c, kks), 0, every))
     n = h8 * w8
@@ -710,6 +720,17 @@ def kernel_checks(dev, summaries, hp, wp, train):
                     + extra)
             del got, want
         torch.cuda.empty_cache()
+    # K7 and K6 compute one function, their bf16 sums on the tensor cores
+    # in one order (csrc/dw_banded_t.cu, csrc/sk_chain.cuh): bit for bit
+    # at the path's shapes (one band of 56 rows), so that 'banded_mxu_t'
+    # and 'banded_mxu' give the same forward
+    for c, _, pairs, k in sk:
+        x, ws, bs = chain_inputs(rnd, pairs, h8, w8, c, (k,), torch.bfloat16)
+        a7 = K6.dw_banded_mxu_t(x, ws[0], bs[0])
+        a6 = K6.dw_banded_mxu(x, ws[0], bs[0])
+        assert torch.equal(a7, a6), f"K7 differs from K6 at {tuple(x.shape)}"
+    log(f"check dw_banded_mxu_t equals dw_banded_mxu bit for bit (bf16) at "
+        f"the six SK blocks' {path} shapes")
 
 
 # ---------------------------------------------------------------- phase 4/5
@@ -1208,8 +1229,10 @@ def node_kernel(name: str):
     """The port kernel (a key of KERNELS) of a CUDA kernel's name as the
     profiler gives it, mangled or not; None for PyTorch's and its
     libraries' kernels. The engine's kernel sk_chain_kernel<P, V> is K8,
-    K5 or K6 by its policy P (csrc/sk_chain.cuh); dw_banded_kernel is K7
-    in bf16 (the graphed forwards are bf16)."""
+    K5 or K6 by its policy P (csrc/sk_chain.cuh); dw_banded_t_kernel is
+    K7 (csrc/dw_banded_t.cu). dw_banded_kernel is the f32 body of K6-K8
+    (csrc/dw_banded.cu), which the bf16 forwards never run; it is counted
+    as K7, whose f32 launch it is among others."""
     import re
 
     m = re.search(r"sk_chain_kernel(?:<|ILi)(\d)", name)
@@ -1220,20 +1243,37 @@ def node_kernel(name: str):
                    ("flash_fwd", "flash_attention"),
                    ("lga_kernel", "lga_attention"),
                    ("dw_chain_kernel", "dw_chain"),
+                   ("dw_banded_t_kernel", "dw_banded_mxu_t"),
                    ("dw_banded_kernel", "dw_banded_mxu_t")):
         if pat in name:
             return k
     return None
 
 
+# throwaway kernels that open a counted call's profile window: its first
+# kernels can go unrecorded even after a traced warm-up (on an H100 one
+# 'auto' replay once lost its first ~50, 4 of them port kernels)
+PROFILE_PAD = 256
+
+
 def replay_kernel_counts(fn):
     """Kernels run by one profiled call of ``fn`` (a graph replay), by port
     kernel ({kernel: count}, the nonzero ones), and the count of all
-    other kernels."""
+    other kernels (PROFILE_PAD tiny PyTorch kernels run first in the same
+    window, so that any it misses at its start are theirs)."""
+    import torch
+
     from streamflow_tpu_torch.tools.common import device_events, profiled
 
+    pad = torch.zeros(1, device="cuda")
+
+    def padded():
+        for _ in range(PROFILE_PAD):
+            pad.add_(1)
+        fn()
+
     counts, other = {}, 0
-    for name, count, _ in device_events(profiled(fn)):
+    for name, count, _ in device_events(profiled(padded)):
         k = node_kernel(name)
         if k is None:
             other += count
@@ -1292,16 +1332,19 @@ def check_nodes(fwd, imgs, dw_impl) -> None:
     want = {k: v for k, v in LAYOUTS[dw_impl][1].items() if v}
     log(f"graph dw_impl={dw_impl!r} kernel nodes in one replay "
         f"{json.dumps(got)} expected {json.dumps(want)} (and {other} "
-        f"kernels of PyTorch and its libraries)")
+        f"kernels of PyTorch and its libraries, {PROFILE_PAD} of them the "
+        f"window's opening pad)")
     assert got == want, "the graph's kernels differ from the eager launches"
 
 
 def graph_phase(dev) -> float:
-    """The test-mode forward as GraphedForward captures it, 'auto' and
-    'banded_chain' at 440x1024: replays against the eager forward, kernel
-    nodes against EXPECTED_LAUNCHES, times; for 'auto' also a KITTI bucket,
-    a flow_init bucket and two replays that must not alias. Returns the
-    'auto' graph's ms/clip."""
+    """The test-mode forward as GraphedForward captures it, 'auto',
+    'banded_chain' and 'banded_mxu_t' at 440x1024: replays against the
+    eager forward ('banded_mxu_t', whose K7 walks its strips in a fixed
+    order with nothing in device memory to reset, bit for bit), kernel
+    nodes against EXPECTED_LAUNCHES (one replay runs K7 72 times), times;
+    for 'auto' also a KITTI bucket, a flow_init bucket and two replays that
+    must not alias. Returns the 'auto' graph's ms/clip."""
     import torch
 
     from streamflow_tpu_torch.config import StreamFlowConfig
@@ -1309,7 +1352,7 @@ def graph_phase(dev) -> float:
 
     imgs = make_clip(dev)
     ms = None
-    for dw_impl in ("auto", "banded_chain"):
+    for dw_impl in ("auto", "banded_chain", "banded_mxu_t"):
         model = create_model("streamflow", cfg=StreamFlowConfig(
             T=T, iters=ITERS, mixed_precision=True, dw_impl=dw_impl),
             device=dev)
@@ -1319,6 +1362,11 @@ def graph_phase(dev) -> float:
         tag = f"graph dw_impl={dw_impl!r}"
         check_close(f"{tag} 440x1024 flows vs eager", got, want,
                     torch.bfloat16)
+        if dw_impl == "banded_mxu_t":
+            assert torch.equal(got, want), "the graph's flows differ"
+            again = fwd(imgs)
+            assert torch.equal(again, got), "a second replay differs"
+            log(f"{tag}: two replays give the eager flows bit for bit")
         check_nodes(fwd, imgs, dw_impl)
         if dw_impl != "auto":
             continue

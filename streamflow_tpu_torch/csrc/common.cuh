@@ -79,6 +79,40 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// stmatrix x4 (sm_90): four 8x8 b16 matrices to shared memory, the inverse
+// of ldmatrix_x4: thread (g, t) gives row g, columns 2t, 2t + 1 of matrix
+// i in r[i], lanes 8i..8i+7 the addresses of matrix i's rows
+__device__ __forceinline__ void stmatrix_x4(void* p, const uint32_t (&r)[4]) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+          addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// stmatrix x4 / x2 .trans: as stmatrix_x4, each matrix stored transposed
+// (the lanes' addresses are the rows of the transpose: row i holds
+// column i of the fragment)
+__device__ __forceinline__ void stmatrix_x4_trans(void* p,
+                                                  const uint32_t (&r)[4]) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1,%2,%3,%4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+__device__ __forceinline__ void stmatrix_x2_trans(void* p, uint32_t r0,
+                                                  uint32_t r1) {
+  uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1,%2};\n" ::"r"(
+          addr),
+      "r"(r0), "r"(r1)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -102,6 +136,16 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+// BYTES (4 or 8) of which the first `src_bytes` (BYTES or 0) come from src,
+// the rest zeros: src_bytes 0 writes zeros and reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(BYTES), "r"(src_bytes)
+               : "memory");
 }
 
 // ------------------------------------------------------- mbarriers (sm_90)
@@ -127,6 +171,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_addr(bar)),
                "r"(bytes)
+               : "memory");
+}
+// one arrival on bar once every cp.async this thread issued before it has
+// landed (the arrival is one of the count given to mbar_init)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
                : "memory");
 }
 // spin until the phase of the given parity has completed
@@ -164,6 +215,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 4-D box (c0 the inner coordinate) of a tensor map into shared memory
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"((uint64_t)map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

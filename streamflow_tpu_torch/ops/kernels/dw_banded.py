@@ -1,5 +1,5 @@
-"""K6-K8, the banded depthwise convs (CUDA source ``csrc/dw_banded.cu``),
-and the ``'banded'`` layout's composite.
+"""K6-K8, the banded depthwise convs (CUDA sources ``csrc/dw_banded.cu``
+and ``csrc/dw_banded_t.cu``), and the ``'banded'`` layout's composite.
 
 Replace the Pallas kernels of ``streamflow_tpu/ops/pallas/
 _banded_dw_kernel.py``, which run the SK block's depthwise k x k conv as a
@@ -12,21 +12,32 @@ per-channel banded matmul:
   JAX pads x and transposes it to a C-major operand (C, B*Wp, Hp) outside
   its K6 kernel, a TPU lane-layout choice, not the function: the wrapper
   hands the launcher x itself and ``torch.empty_like(x)``, as K7's and
-  K8's do. K6's bf16 body is K8's engine (below) with no k=1 stage and
-  K6's epilogue; K7's is the first design's, a slab per channel;
+  K8's do;
 - K8 ``sk_chain_banded`` (``_sk_chain_banded_fwd``, :343): the whole SK dw
   stack for ks = (1,)*n1 + (k,), k=1 stages, zero halo, the banded conv,
   bias, residual and gelu in one kernel, NHWC in and out as K7 (JAX's pad
   and transposes around its kernel are a TPU lane-layout choice): the
-  wrapper hands the launcher x itself and ``torch.empty_like(x)``. Its
-  bf16 body is the engine of ``csrc/sk_chain.cuh``, shared with K6 and
-  K5 (``dw_chain``) under a policy each: a block per (image, 32 x 32
+  wrapper hands the launcher x itself and ``torch.empty_like(x)``.
+
+Which body is whose:
+
+- bf16 K7: its own kernel, ``csrc/dw_banded_t.cu``: persistent blocks, one
+  an SM, walk strips (image, 16 channels, 56 rows, a run of 16-column
+  tiles) along W, keeping each channel's planes in a ring so that a tile's
+  k - 1 halo columns carry over; each step's NHWC box comes by TMA (by
+  cp.async where the pixel pitch is not a multiple of 16 bytes), issued
+  two steps ahead, while 16 warps, one a channel, transpose, multiply
+  (mma.sync m16n8k16 in the engine's order: K6's sums bit for bit) and
+  store 32-byte pixel runs. ``t_plan`` mirrors its strip plan;
+- bf16 K6 and K8: the engine of ``csrc/sk_chain.cuh``, shared with K5
+  (``dw_chain``) under a policy each: a block per (image, 32 x 32
   outputs, 8 channels) copies the haloed NHWC box into shared memory by
   cp.async, 16-byte pixel runs (8-byte at convc1's C = 324, whose
-  648-byte rows take no 16-byte copy), applies the k=1 stages once per
+  648-byte rows take no 16-byte copy), applies K8's k=1 stages once per
   box pixel while writing the per-channel planes of the banded product,
-  and stores whole pixel runs; its f32 body is K7's with the stages
-  fused (K6's f32 body is K7's).
+  and stores whole pixel runs;
+- f32 K6, K7 and K8: the slab body of ``csrc/dw_banded.cu`` (CUDA-core
+  FMAs; K8's with the stages fused).
 
 x is (B, H, W, C); weights are PyTorch's depthwise (C, 1, k, k) (the SK
 block's ``nn.Conv2d`` parameters as they are), biases (C,). The kernels
@@ -62,6 +73,62 @@ from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 _KS = (3, 5, 7, 9, 11, 13, 15)   # conv sizes csrc/dw_banded.cu takes
+
+# csrc/dw_banded_t.cu's tiles (K7, bf16): channels a strip, output columns
+# a tile, output rows a strip, box rows loaded, columns of a strip's first
+# step, plane positions kept, box stages, consumer warps
+T_TILES = dict(CB=16, TW=16, HB=56, LH=72, HALO=16, RING=32, NS=2, NCW=16)
+_SMEM_MAX = 232448        # bytes of shared memory a block may use
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def t_smem_bytes() -> int:
+    """Shared memory of K7's bf16 block (csrc/dw_banded_t.cu's SMEM): the
+    box stages, the channels' plane rings and sums tiles (each 16 bytes
+    past a multiple of 128; a sums row 16 bytes past its TW columns), the
+    pair tables (18 entries for each of 15 kx) and the mbarriers."""
+    t = T_TILES
+    stage = t["TW"] * t["LH"] * 2 * t["CB"]
+    plane = t["RING"] * t["LH"] * 2 + 16
+    sums = t["HB"] * (2 * t["TW"] + 16) + 16
+    return (t["NS"] * stage + t["CB"] * (plane + sums + 15 * 18 * 4)
+            + t["NS"] * 8)
+
+
+def t_plan(nb: int, h: int, w: int, c: int, sms: int) -> dict:
+    """csrc/dw_banded_t.cu's plan(): K7's strips for an (nb, h, w, c) call
+    on ``sms`` SMs. A strip is (image, CB channels, HB rows, a run of
+    ``tps`` TW-column tiles); ``tps`` minimises the waves of strips over the
+    SMs times a strip's steps (a tile 4, its halo step 1), the longest run
+    on a tie; the grid is one block an SM, at most one a strip."""
+    t = T_TILES
+    tiles_w, ncg, nbands = _cdiv(w, t["TW"]), _cdiv(c, t["CB"]), _cdiv(
+        h, t["HB"])
+    base, best = nb * ncg * nbands, None
+    for tps in range(tiles_w, 0, -1):
+        nseg = _cdiv(tiles_w, tps)
+        cost = _cdiv(base * nseg, sms) * (4 * tps + 1)
+        if best is None or cost < best[0]:
+            best = (cost, tps, nseg)
+    _, tps, nseg = best
+    strips = base * nseg
+    return dict(tiles_w=tiles_w, ncg=ncg, nbands=nbands, tps=tps,
+                nseg=nseg, strips=strips, grid=min(strips, sms))
+
+
+def t_strip(plan: dict, s: int):
+    """Strip ``s`` of a plan as the kernel decodes it: (image, first
+    channel, first row, first tile, tiles)."""
+    t = T_TILES
+    s, seg = divmod(s, plan["nseg"])
+    s, band = divmod(s, plan["nbands"])
+    b, cg = divmod(s, plan["ncg"])
+    t0 = seg * plan["tps"]
+    return (b, cg * t["CB"], band * t["HB"], t0,
+            min(plan["tps"], plan["tiles_w"] - t0))
 
 
 def _conv_f32(a, w):

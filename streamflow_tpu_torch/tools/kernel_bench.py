@@ -1,7 +1,7 @@
 """K1 (the correlation lookup), K2 (the fused FFN pair), B5 (the
 flash-attention backward) and the SK blocks' depthwise kernels K5 (the
-chain), K6 (the banded conv) and K8 (the banded chain) on one GPU at the
-main path's shapes: each bf16 call checked against its plain version,
+chain), K6 and K7 (the banded conv) and K8 (the banded chain) on one GPU
+at the main path's shapes: each bf16 call checked against its plain version,
 timed with CUDA events beside its bound and a yardstick, and optionally
 against the kernels of another checkout of the repository, built from
 that tree's ``streamflow_tpu_torch/csrc`` and timed in turns (others,
@@ -9,11 +9,14 @@ this, this, others in reverse) in the same process, as ``attn_bench``
 does for K3 and K4.
 
     python -m streamflow_tpu_torch.tools.kernel_bench [--other DIR ...]
-        [--reps N] [--kernels k1,k2,b5,k5,k6,k8]
+        [--reps N] [--kernels k1,k2,b5,k5,k6,k7,k8]
 
 ``--kernels`` picks the sections (default all) and compiles only their
 sources, in every tree: ``--kernels k8`` builds ``dw_banded.cu`` alone
-and takes seconds of the card after the build.
+and takes seconds of the card after the build; ``--kernels k7`` builds
+``dw_banded.cu`` and ``dw_banded_t.cu`` (another tree's K7 is whatever
+its ``sf_dw_banded_mxu_t`` launches: in a checkout from before
+``dw_banded_t.cu``, the first design's slab body in ``dw_banded.cu``).
 
 K1's calls are those of one 440x1024 clip (12, one per refinement
 iteration, on the 3 frame pairs at 55x128, C=256, 4 levels, radius 4) and
@@ -38,11 +41,14 @@ backward.
 K5's and K8's calls are the six SK blocks' dw stacks, ks (1, 15) and the
 gru's (1, 7), on (B, H/8, W/8, C): 12 per block per 440x1024 clip
 (3x55x128, the flow head 1x55x128x384) and 24 per 432x960 step
-(3x54x120); K6's are their kxk stages alone, ks (15,) and (7,). Beside
-each: K7 (the kxk conv alone) at the same shape, of this tree and of each
-other one, and the default layout's cuDNN depthwise conv of the same
-tensor, copies included, as ``chip_smoke.py`` times it. The bound is
-bytes: x, the weights and biases read once, the output written once.
+(3x54x120); K6's and K7's are their kxk stages alone, ks (15,) and (7,).
+Beside K5, K6 and K8: the default layout's cuDNN depthwise conv of the
+same tensor, copies included, as ``chip_smoke.py`` times it beside K5 and
+K8. Beside K7: the engine's K6 of this tree (the same function behind the
+same launcher interface) and K7's library call as ``chip_smoke.py`` times
+it, cuDNN's bf16 depthwise conv + bias on the channels-last view, one
+call. The bound is bytes: x, the weights and biases read once, the output
+written once.
 Another checkout whose K6 or K8 still takes the padded C-major operand
 (before NHWC) is timed as its wrapper runs it, pad and permute copies
 included, and its kernel alone apart.
@@ -84,9 +90,11 @@ DW_K = (15, 15, 15, 15, 7, 15)
 # kernel_bench sections and the csrc sources each needs
 SECTIONS = {"k1": ("corr_lookup",), "k2": ("ffn_pair",),
             "b5": ("flash_attn_bwd",), "k5": ("dw_chain", "dw_banded"),
-            "k6": ("dw_banded",), "k8": ("dw_banded",)}
+            "k6": ("dw_banded",), "k7": ("dw_banded", "dw_banded_t"),
+            "k8": ("dw_banded",)}
 # the dw sections: the kernel's name and the SK layout that runs it
 DW = {"k5": ("dw_chain", "pallas"), "k6": ("dw_banded_mxu", "banded_mxu"),
+      "k7": ("dw_banded_mxu_t", "banded_mxu_t"),
       "k8": ("sk_chain_banded", "banded_chain")}
 # which SK layouts run each K2 form
 LAYOUTS = {"ffn_pair_k1": ("default",), "dwres_pw_ffn_pair": ("default",),
@@ -231,14 +239,15 @@ def ffn_flops(form, rows, c, ch, co):
 def chain_cases(hp, wp, train, stack=True):
     """(nb, h, w, c, ks, calls per clip or step) of K5 and K8: each SK
     block's dw stack once per refinement iteration (twice per step, for
-    remat); of K6 (``stack=False``): its kxk stage alone, ks (k,)."""
+    remat); of K6 and K7 (``stack=False``): its kxk stage alone, ks
+    (k,)."""
     refine = 24 if train else 12
     return [(pairs, hp // 8, wp // 8, c, (1, k) if stack else (k,), refine)
             for (c, _, pairs), k in zip(SK, DW_K)]
 
 
 def chain_bytes(nb, h, w, c, ks, itemsize=2):
-    """Bytes a K5, K6 or K8 call must move: x, the weights and the biases
+    """Bytes a K5-K8 call must move: x, the weights and the biases
     read once, the output written once."""
     return itemsize * (2 * nb * h * w * c + sum(c * k * k + c for k in ks))
 
@@ -290,7 +299,7 @@ def main() -> int:
     # to 16 bytes, as this tree's wrapper hands them, which of K6 and K8
     # read NHWC)
     libs = {"this": (_build.library() if only is None else _build.build(
-        _build._CSRC, _build._BUILD, only), True, {"k5", "k6", "k8"})}
+        _build._CSRC, _build._BUILD, only), True, {"k5", "k6", "k7", "k8"})}
     for other in args.other:
         root = other.resolve()
         wrapper = root / "streamflow_tpu_torch/ops/kernels/ffn_pair.py"
@@ -298,7 +307,8 @@ def main() -> int:
             _build.build(root / "streamflow_tpu_torch" / "csrc",
                          root / "build" / "kernel_bench", only),
             "_tma_rows" in wrapper.read_text(),
-            {"k5"} | {k for k in ("k6", "k8") if nhwc_chain(root, k)})
+            {"k5", "k7"} | {k for k in ("k6", "k8")
+                            if nhwc_chain(root, k)})
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "cuda": torch.version.cuda,
                       "others": [str(o) for o in args.other]}), flush=True)
@@ -432,19 +442,20 @@ def main() -> int:
                [K1.corr_lookup_plain(f1, lv, coords, radius)], {})
 
     def dw(sec, path, nb, h, w, c, ks, calls):
-        """K5, K6 or K8 (``sec``) at one SK block's shape; ks (1, k), K6's
-        (k,)."""
+        """K5, K6, K7 or K8 (``sec``) at one SK block's shape; ks (1, k),
+        K6's and K7's (k,)."""
         k, name = ks[-1], DW[sec][0]
         x = rnd(nb, h, w, c)
         ws = (rnd(c, 1, 1, 1, scale=0.3), rnd(c, 1, k, k, scale=1 / k))
         bs = (rnd(c, scale=0.1), rnd(c, scale=0.1))
         ws, bs = ws[-len(ks):], bs[-len(ks):]
-        out, out7 = torch.empty_like(x), torch.empty_like(x)
+        out, out6 = torch.empty_like(x), torch.empty_like(x)
 
         def launch(lib, xin, o):
-            if sec == "k6":
-                code = lib.sf_dw_banded_mxu(p(xin), p(ws[0]), p(bs[0]), p(o),
-                                            nb, h, w, c, k, 1, stream)
+            if sec in ("k6", "k7"):
+                code = getattr(lib, "sf_" + name)(
+                    p(xin), p(ws[0]), p(bs[0]), p(o), nb, h, w, c, k, 1,
+                    stream)
             else:   # sf_dw_chain and sf_sk_chain_banded take one form
                 code = getattr(lib, "sf_" + name)(
                     p(xin), p(ws[0]), p(bs[0]), p(ws[1]), p(bs[1]), p(o), nb,
@@ -475,19 +486,22 @@ def main() -> int:
             y = y.contiguous() if k > 7 else y
             y = F.conv2d(y, ws[-1], None, 1, k // 2, 1, c)
             return y.permute(0, 2, 3, 1).contiguous()
-        def k7(lib):
-            return lambda: _build.check(lib.sf_dw_banded_mxu_t(
-                p(x), p(ws[-1]), p(bs[-1]), p(out7), nb, h, w, c, k, 1,
-                stream), "dw_banded_mxu_t")
-        asides = {"k7": k7(libs["this"][0]), "cudnn": conv}
+        if sec == "k7":
+            # the engine's K6 of this tree, and K7's library call
+            asides = {"k6": lambda: _build.check(
+                libs["this"][0].sf_dw_banded_mxu(
+                    p(x), p(ws[0]), p(bs[0]), p(out6), nb, h, w, c, k, 1,
+                    stream), "dw_banded_mxu"),
+                "library": lambda: F.conv2d(x.permute(0, 3, 1, 2), ws[0],
+                                            bs[0], 1, k // 2, 1, c)}
+        else:
+            asides = {"cudnn": conv}
         for lib_name, (lib, _, nhwc) in libs.items():
-            if lib_name != "this":   # each tree's K7
-                asides[f"{lib_name}_k7"] = k7(lib)
             if sec not in nhwc:   # the first version's kernel, no copies
                 lhs, o = cmajor()
                 asides[f"{lib_name}_kernel_only"] = (
                     lambda lib=lib, lhs=lhs, o=o: launch(lib, lhs, o))
-        if sec == "k6":
+        if sec in ("k6", "k7"):
             want = K8.dw_banded_mxu_plain(x, ws[0], bs[0])
         else:
             plain = K5.dw_chain_plain if sec == "k5" else (
@@ -509,7 +523,8 @@ def main() -> int:
                 ffn(path, *case)
         for sec in DW:
             if sec in run_sec:
-                for case in chain_cases(hp, wp, train, sec != "k6"):
+                for case in chain_cases(hp, wp, train,
+                                        sec not in ("k6", "k7")):
                     dw(sec, path, *case)
         torch.cuda.empty_cache()
     if "b5" in run_sec:

@@ -46,3 +46,17 @@ def test_launcher_arguments_match_signature(name):
     assert len(params) == len(declared), (name, params)
     for i, (decl, ctype) in enumerate(zip(params, declared)):
         assert _kind(decl) is ctype, f"{name} argument {i}: {decl!r}"
+
+
+def test_k7_launcher_is_built_from_its_own_source():
+    """K7's launcher lives in csrc/dw_banded_t.cu, which the build
+    compiles with the other sources; its f32 launch calls the slab body
+    that dw_banded.cu defines, and dw_banded.cu launches no bf16 slab
+    body any more."""
+    sources = [p.name for p in _build._sources(CSRC)]
+    assert "dw_banded_t.cu" in sources and "dw_banded.cu" in sources
+    src = (CSRC / "dw_banded_t.cu").read_text()
+    assert [n for n, _ in LAUNCHER.findall(src)] == ["sf_dw_banded_mxu_t"]
+    assert "dw_banded_f32(" in src
+    slab = (CSRC / "dw_banded.cu").read_text()
+    assert "int dw_banded_f32(" in slab and "__nv_bfloat16" not in slab

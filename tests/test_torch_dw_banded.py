@@ -5,8 +5,9 @@ _sk_chain_banded_fwd, as tests/test_dw_chain.py runs them), and against
 the XLA composites (dw_banded_xla) where the TPU kernel refuses a width;
 each wrapper's gradient against jax.vjp of the JAX custom_vjp (its
 interpret forward monkeypatched in, as tests/test_dw_chain.py does); what
-K5's, K6's and K8's wrappers hand their launchers (x's own storage, an
-NHWC output, no copy); kernel_bench's K5, K6 and K8 tables and bounds. CPU,
+K5's, K6's, K7's and K8's wrappers hand their launchers (x's own storage,
+an NHWC output, no copy); K7's strip plan (csrc/dw_banded_t.cu, mirrored
+by t_plan); kernel_bench's K5-K8 tables and bounds. CPU,
 seeded numpy inputs; weights made in the JAX layout (k, k, C) and handed
 to the port in PyTorch's depthwise layout (C, 1, k, k). The k=1 biases are
 nonzero, so a halo of gelu(b) instead of 0 fails.
@@ -304,14 +305,16 @@ class _Watched(_Card):
     pytest.param("k8", (15,), id="ks0"), pytest.param("k8", (1, 15), id="ks1"),
     pytest.param("k8", (1, 1, 7), id="ks2"),
     pytest.param("k6", (15,), id="k6-15"), pytest.param("k6", (7,), id="k6-7"),
+    pytest.param("k7", (15,), id="k7-15"), pytest.param("k7", (7,), id="k7-7"),
     pytest.param("k5", (1, 15), id="k5-1-15"),
     pytest.param("k5", (1, 1, 7), id="k5-1-1-7")])
 def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
                                                             kernel, ks):
-    """K8's _run_chain, K6's _run_mxu and K5's _run (dw_chain) pass x's own
-    storage and a fresh (B, H, W, C) output to their launchers
-    (sf_sk_chain_banded, sf_dw_banded_mxu, sf_dw_chain) and return that
-    output: no pad, permute or contiguous copy of either."""
+    """K8's _run_chain, K6's _run_mxu, K7's _run_mxu_t and K5's _run
+    (dw_chain) pass x's own storage and a fresh (B, H, W, C) output to
+    their launchers (sf_sk_chain_banded, sf_dw_banded_mxu,
+    sf_dw_banded_mxu_t, sf_dw_chain) and return that output: no pad,
+    permute or contiguous copy of either."""
     from streamflow_tpu_torch.ops.kernels import dw_chain as K5
 
     launched = []
@@ -326,8 +329,9 @@ def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
     wt = tuple(_torch_w(w).as_subclass(_Card) for w in ws)
     bt = tuple(_torch(b).as_subclass(_Card) for b in bs)
     _Watched.seen = []
-    if kernel == "k6":
-        out = P._run_mxu(xt, wt[0], bt[0])
+    if kernel in ("k6", "k7"):
+        out = (P._run_mxu if kernel == "k6" else P._run_mxu_t)(xt, wt[0],
+                                                              bt[0])
     else:
         out = (P._run_chain if kernel == "k8" else K5._run)(xt, wt, bt, ks)
     seen = set(_Watched.seen)
@@ -336,8 +340,9 @@ def test_k8_wrapper_hands_the_launcher_x_and_an_nhwc_output(monkeypatch,
                        "view", "to"}, seen
     ((name, args),) = launched
     assert out.shape == xt.shape and out.stride() == xt.stride()
-    if kernel == "k6":
-        assert name == "sf_dw_banded_mxu"
+    if kernel in ("k6", "k7"):
+        assert name == {"k6": "sf_dw_banded_mxu",
+                        "k7": "sf_dw_banded_mxu_t"}[kernel]
         assert args[0] == xt.data_ptr() and args[3] == out.data_ptr()
         assert args[1] == wt[0].data_ptr() and args[2] == bt[0].data_ptr()
         assert args[4:] == (2, 5, 6, 24, ks[-1], 0, 7)
@@ -402,3 +407,100 @@ def test_kernel_bench_k8_cases_and_bound(tmp_path):
     assert not KB.nhwc_chain(tmp_path, "k6") and KB.nhwc_chain(tmp_path)
     old.write_text("    lhs, out = _operand(x, weights[-1], biases[-1])\n")
     assert KB.nhwc_chain(tmp_path, "k6") and not KB.nhwc_chain(tmp_path)
+
+
+def test_kernel_bench_k7_cases_and_bound():
+    """K7's section of kernel_bench: the six SK blocks' kxk stages alone,
+    ks (15,) and the gru's (7,), 12 calls each per 440x1024 clip (72) on
+    3x55x128 (the flow head 1x55x128x384) and 24 each per 432x960 step
+    (144) on 3x54x120. Its bound is bytes: 0.5265 ms per clip, 0.9697 per
+    step; convc1 0.0082 ms and the gru 0.0162 a call at the clip shape. It
+    builds dw_banded.cu (K6, timed beside it, and the f32 body) and
+    dw_banded_t.cu (K7)."""
+    clip = KB.chain_cases(440, 1024, False, stack=False)
+    step = KB.chain_cases(432, 960, True, stack=False)
+    want = [(3, 324, (15,)), (3, 256, (15,)), (3, 128, (15,)),
+            (3, 256, (15,)), (3, 640, (7,)), (1, 384, (15,))]
+    assert [(c[0], c[3], c[4]) for c in clip] == want
+    assert [(c[0], c[3], c[4]) for c in step] == want
+    assert {c[1:3] + c[5:] for c in clip} == {(55, 128, 12)}
+    assert {c[1:3] + c[5:] for c in step} == {(54, 120, 24)}
+    assert sum(c[-1] for c in clip) == 72 and sum(c[-1] for c in step) == 144
+    # x and the output, the (C, 1, 15, 15) weights and the bias, bf16
+    assert KB.chain_bytes(3, 55, 128, 324, (15,)) == 2 * (
+        2 * 3 * 55 * 128 * 324 + 324 * 225 + 324)
+
+    def per(cases):
+        return round(1e3 * sum(c[-1] * KB.chain_bytes(*c[:-1])
+                               for c in cases) / KB.HBM, 4)
+    assert (per(clip), per(step)) == (0.5265, 0.9697)
+    assert [round(1e3 * KB.chain_bytes(*c[:-1]) / KB.HBM, 4)
+            for c in (clip[0], clip[4])] == [0.0082, 0.0162]
+    assert KB.DW["k7"] == ("dw_banded_mxu_t", "banded_mxu_t")
+    assert KB.SECTIONS["k7"] == ("dw_banded", "dw_banded_t")
+
+
+# K7's calls: the main path's (clip and step) and phase 3's edges
+_K7_CALLS = [(3, 55, 128, c) for c in (324, 256, 128, 640)] + [
+    (1, 55, 128, 384)] + [(3, 54, 120, c) for c in (324, 256, 128, 640)] + [
+    (1, 54, 120, 384), (3, 55, 128, 64), (3, 55, 128, 36),
+    (1, 55, 128, 35), (1, 9, 40, 34), (3, 7, 9, 40), (1, 3, 5, 16),
+    (2, 1, 1, 24), (1, 55, 200, 64), (3, 54, 200, 640), (1, 130, 70, 40)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("nb,h,w,c", _K7_CALLS)
+def test_k7_plan_covers_every_output_tile_once(nb, h, w, c, sms):
+    """t_plan's strips, dealt to its grid's blocks in turn as the kernel
+    deals them, cover every (image, 8 channels, 56 rows, 32 columns) tile
+    of the output exactly once and the whole output; the grid is at most
+    one block an SM; a strip's run of tiles fits the ring (its halo
+    carried from tile to tile)."""
+    t = P.T_TILES
+    plan = P.t_plan(nb, h, w, c, sms)
+    assert plan["grid"] == min(plan["strips"], sms) >= 1
+    seen = {}
+    for blk in range(plan["grid"]):
+        for s in range(blk, plan["strips"], plan["grid"]):
+            b, c0, ho0, t0, nt = P.t_strip(plan, s)
+            assert 1 <= nt <= plan["tps"]
+            for tile in range(t0, t0 + nt):
+                key = (b, c0, ho0, tile)
+                seen[key] = seen.get(key, 0) + 1
+    want = {(b, cg * t["CB"], band * t["HB"], tile) for b in range(nb)
+            for cg in range(plan["ncg"]) for band in range(plan["nbands"])
+            for tile in range(plan["tiles_w"])}
+    assert set(seen) == want and set(seen.values()) == {1}
+    assert plan["ncg"] * t["CB"] >= c > (plan["ncg"] - 1) * t["CB"]
+    assert plan["nbands"] * t["HB"] >= h > (plan["nbands"] - 1) * t["HB"]
+    assert plan["tiles_w"] * t["TW"] >= w > (plan["tiles_w"] - 1) * t["TW"]
+
+
+def test_k7_plan_keeps_the_halo_on_the_main_path():
+    """At the clip's shapes on the H100's 132 SMs, convc1 walks four of its
+    eight 16-column tiles a strip (126 strips, one wave), the gru all eight
+    (120 strips), convf2 and the flow head two (96 strips each)."""
+    plans = {c: P.t_plan(nb, 55, 128, c, 132)
+             for nb, c in ((3, 324), (3, 128), (3, 640), (1, 384))}
+    assert {c: (p["tps"], p["strips"]) for c, p in plans.items()} == {
+        324: (4, 126), 128: (2, 96), 640: (8, 120), 384: (2, 96)}
+
+
+def test_k7_tiles_and_shared_memory_match_the_source():
+    """T_TILES and t_smem_bytes mirror csrc/dw_banded_t.cu's constants; the
+    block's shared memory fits the H100's 227 KB; the box covers the band
+    at k = 15, the ring a tile and its halo, and a strip's 16 channels are
+    a 32-byte pixel run."""
+    import re
+
+    src = (Path(_build.__file__).resolve().parent / "csrc"
+           / "dw_banded_t.cu").read_text()
+    consts = {m[0]: int(m[1]) for m in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert {k: consts[k] for k in P.T_TILES} == P.T_TILES
+    # plan()'s cost, as t_plan weighs a strip: a tile 4, its halo step 1
+    assert "(strips + sms - 1) / sms * (4 * tps + 1)" in src
+    t = P.T_TILES
+    assert P.t_smem_bytes() == 208272 <= P._SMEM_MAX
+    assert t["HB"] + 14 <= t["LH"] and t["TW"] + 14 <= t["RING"]
+    assert 14 <= t["HALO"] <= t["TW"] and t["NCW"] == t["CB"] == 16
