@@ -75,14 +75,33 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      checked exactly;
   29. high resolution, the twin of tools/test_memory.py: 1080x1920 and
      1440x2560, T=4, 12 iterations, bf16, eager and graphed, as phase 27
-     (finite flows, graph against eager, times, peak memory).
+     (finite flows, graph against eager, times, peak memory);
+  30. the trainer (tools/train.py's loop, ``train``) at the sintel_kitti
+     preset as given (B=8, 432x960, T=4, 12 iterations, bf16 with f32
+     parameters, remat) on in-memory clips from the seed: 6 steps, a
+     checkpoint and a validation (phase 28's Sintel windows through the
+     run's one GraphedForward) at step 4; the loader's batches on the card
+     equal to its numpy batches bit for bit; launches per step and of the
+     validation checked exactly; finite loss and grad_norm; every
+     parameter moves; the last checkpoint restored into a fresh state
+     equal to the live one bit for bit, one more step from each giving the
+     same loss; after the weights change and are copied in place, the held
+     graph's replay equal to the eager forward; wall ms/step of the loop,
+     device ms of a profiled step, idle share, peak memory, the
+     checkpoint's save ms and size;
+  31. the stage forms, one step each at B=1: things (T=3, 400x720), kitti
+     (last pair only, 432x960) and bithings (T=3, the reversed clip folded
+     into the batch), launches (derived from the shape), finite loss,
+     every parameter moved; phase 8's training guard at T=3.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
 "train_step": phases 6-7, per step; "inference_dw_<layout>" and
 "train_step_dw_<layout>": the same for each other layout, phases 3, 6
 and that layout's forward and train step; "serving": phase 28's
-launches, with phase 3's numbers per 440x1024 clip): "launches" is the
+launches, with phase 3's numbers per 440x1024 clip; "trainer": phase
+30's launches, its steps' and its validation's, with phase 6's numbers per
+432x960 step): "launches" is the
 path's count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed
 over the same calls at the path's shapes (K1's under the jitter
 traffic; its "ms_by_traffic" gives all three). The last line is {"ok":
@@ -156,21 +175,47 @@ KERNELS = {
     "sk_chain_banded": ("streamflow_tpu_torch/csrc/dw_banded.cu",
                         "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:343"),
 }
-# launches of each kernel in one 12-iteration forward: K1 once per
-# iteration; K2 2 per SK block (6 blocks) per iteration + 8 Twins MLPs;
-# K3 12 GMA + 4 GSA; K4 2 LGA blocks in each of fnet and cnet
-EXPECTED_LAUNCHES = dict(dict.fromkeys(KERNELS, 0), corr_lookup=ITERS,
-                         ffn_pair=12 * ITERS + 8, flash_attention=ITERS + 4,
-                         lga_attention=4)
-# launches in one train step with remat: the refinement kernels run in the
-# forward and again in each step's recompute (K1 2x12, K2 2x144 + the 8 of
-# the encoders, K3 2x12 GMA + 4 GSA), K4 once; B5's two kernels (dq pass,
-# dk/dv pass) once per K3 forward that the loss reaches (12 GMA + 4 GSA)
-EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES,
-                               corr_lookup=2 * ITERS,
-                               ffn_pair=2 * 12 * ITERS + 8,
-                               flash_attention=2 * ITERS + 4,
-                               flash_attention_bwd=2 * (ITERS + 4))
+# the Twins GSA blocks run K3 above this many tokens an image
+# (layers/twins.py)
+GSA_FLASH_TOKENS = 16384
+
+
+def gsa_flash_blocks(t: int, h: int, w: int) -> int:
+    """GSA blocks that run K3 on a T=t clip of padded size h x w: fnet on t
+    frames and cnet on t - 1, each stacked along H, at stage 0 (1/4 of the
+    size) and stage 1 (1/8): all 4 at 440x1024 and 432x960 with T=4, the
+    two of stage 0 at 400x720 with T=3."""
+    return sum(tt * (h // s) * (w // s) > GSA_FLASH_TOKENS
+               for s in (4, 8) for tt in (t, t - 1))
+
+
+def forward_launches(iters: int = ITERS, t: int = T, h: int = 440,
+                     w: int = 1024) -> dict:
+    """Launches of each kernel in one forward: K1 once per iteration; K2 2
+    per SK block (6 blocks) per iteration + 8 Twins MLPs; K3 once per
+    iteration (GMA) + once per GSA block above GSA_FLASH_TOKENS; K4 2 LGA
+    blocks in each of fnet and cnet."""
+    return dict(dict.fromkeys(KERNELS, 0), corr_lookup=iters,
+                ffn_pair=12 * iters + 8,
+                flash_attention=iters + gsa_flash_blocks(t, h, w),
+                lga_attention=4)
+
+
+def train_launches(t: int = T, h: int = 432, w: int = 960) -> dict:
+    """Launches in one train step with remat: the refinement kernels run in
+    the forward and again in each step's recompute (K1 2x12, K2 2x144 + the
+    8 of the encoders, K3 2x12 GMA + the GSA calls), K4 once; B5's two
+    kernels (dq pass, dk/dv pass) once per K3 forward that the loss
+    reaches (12 GMA + the GSA calls). The batch size changes none."""
+    gsa = gsa_flash_blocks(t, h, w)
+    return dict(forward_launches(ITERS, t, h, w), corr_lookup=2 * ITERS,
+                ffn_pair=2 * 12 * ITERS + 8,
+                flash_attention=2 * ITERS + gsa,
+                flash_attention_bwd=2 * (ITERS + gsa))
+
+
+EXPECTED_LAUNCHES = forward_launches()
+EXPECTED_TRAIN_LAUNCHES = train_launches()
 
 
 def pair_layout(suffix, dw_kernel=None):
@@ -1076,21 +1121,21 @@ def backward_checks(dev, summaries) -> None:
 
 
 # ---------------------------------------------------------------- phase 7
-def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl):
-    """A TrainState holding a training model (SK layout ``dw_impl``) with
-    the seeded weights, and a seeded synthetic batch (uint8-range images,
-    N(0, 4^2) px flows)."""
+def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl, t=T):
+    """A TrainState holding a training model (SK layout ``dw_impl``, T=t)
+    with the seeded weights, and a seeded synthetic batch (uint8-range
+    images, N(0, 4^2) px flows)."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.tools.train_bench import synthetic_batch
     from streamflow_tpu_torch.training.state import TrainState
 
-    cfg = StreamFlowConfig(T=T, iters=iters, mixed_precision=mixed_precision,
+    cfg = StreamFlowConfig(T=t, iters=iters, mixed_precision=mixed_precision,
                            remat=True, dw_impl=dw_impl)
     model = create_model("streamflow", cfg=cfg, device=dev, train=True)
     init_weights(model, seed)
     state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
-    return state, synthetic_batch(B, T, h, w, seed, dev)
+    return state, synthetic_batch(B, t, h, w, seed, dev)
 
 
 def train_step_phase(dev, dw_impl) -> dict:
@@ -1139,8 +1184,8 @@ def train_step_phase(dev, dw_impl) -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
-def training_guard(dev, dw_impl) -> None:
-    """One step's loss and gradients at GUARD_H x GUARD_W, SK layout
+def training_guard(dev, dw_impl, t=T) -> None:
+    """One step's loss and gradients at GUARD_H x GUARD_W, T=t, SK layout
     ``dw_impl``: the kernel path
     on the card against the plain path on the CPU, f32 and bf16, each
     against the f32 plain path (same seeded weights and batch). The f32
@@ -1162,7 +1207,7 @@ def training_guard(dev, dw_impl) -> None:
             (True, "card", dev, 0.0)]
     for mp, path, where, eps in runs:
         state, batch = train_setup(where, GUARD_H, GUARD_W, GUARD_ITERS, mp,
-                                   SEED + 3, dw_impl)
+                                   SEED + 3, dw_impl, t)
         model = state.model
         if eps:
             g = torch.Generator().manual_seed(SEED + 4)
@@ -1195,7 +1240,7 @@ def training_guard(dev, dw_impl) -> None:
     def median(d):
         return sorted(d.values())[len(d) // 2]
 
-    log(f"training guard dw_impl={dw_impl!r} {GUARD_H}x{GUARD_W} iters "
+    log(f"training guard dw_impl={dw_impl!r} T={t} {GUARD_H}x{GUARD_W} iters "
         f"{GUARD_ITERS} against "
         f"the f32 plain path (loss {ref_loss:.6g}): f32 kernels loss rel "
         f"err {f32[0]:.3e} (bound {GRAD_TOL}), gradients rel L2 global "
@@ -1439,6 +1484,25 @@ def capture_failure_raises() -> None:
 
 
 # ---------------------------------------------------------------- phase 28
+def memory_window(rng, h, w, ids) -> dict:
+    """An eval window in memory, as the validators' datasets load one:
+    uint8-range images, N(0, 4^2) px flows, 70% of pixels valid."""
+    import numpy as np
+
+    return {"images": rng.integers(0, 256, (T, h, w, 3)).astype(np.float32),
+            "flows": 4.0 * rng.standard_normal((T - 1, h, w, 2)).astype(
+                np.float32),
+            "valids": (rng.random((T - 1, h, w)) < 0.7).astype(np.float32),
+            "frame_ids": np.asarray(ids, np.int32)}
+
+
+def sintel_windows(rng) -> list:
+    """Three 436x1024 Sintel windows, the last a tail window whose two
+    first pairs are marked -1 (counted by an earlier window)."""
+    return [memory_window(rng, H, W, ids) for ids in
+            ((0, 1, 2, 3), (3, 4, 5, 6), (-1, -1, 6, 7))]
+
+
 def serving_phase(dev) -> dict:
     """The validators' per-window steps (evaluation.window_flows,
     warm_window_flows, tiled_window_flows, pair_epes, kitti_pair_metrics)
@@ -1460,19 +1524,8 @@ def serving_phase(dev) -> dict:
         T=T, iters=ITERS, mixed_precision=True), device=dev)
     init_weights(model, SEED)
     rng = np.random.default_rng(SEED + 6)
-
-    def window(h, w, ids):
-        return {"images": rng.integers(0, 256, (T, h, w, 3)).astype(
-                    np.float32),
-                "flows": 4.0 * rng.standard_normal((T - 1, h, w, 2)).astype(
-                    np.float32),
-                "valids": (rng.random((T - 1, h, w)) < 0.7).astype(
-                    np.float32),
-                "frame_ids": np.asarray(ids, np.int32)}
-
-    sintel = [window(H, W, ids) for ids in
-              ((0, 1, 2, 3), (3, 4, 5, 6), (-1, -1, 6, 7))]
-    kitti = window(KITTI_H, KITTI_W, (8, 9, 10, 11))
+    sintel = sintel_windows(rng)
+    kitti = memory_window(rng, KITTI_H, KITTI_W, (8, 9, 10, 11))
 
     def run(fwd):
         flows = [ev.window_flows(fwd, s["images"], dev) for s in sintel]
@@ -1547,6 +1600,311 @@ def high_res_phase(dev) -> None:
                     torch.bfloat16)
         del fwd, got, want
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 30
+# the trainer's run: steps, and the step of its one mid-run checkpoint and
+# validation; metrics read every TRAINER_PRINT steps
+TRAINER_STEPS, TRAINER_PRINT, TRAINER_VAL = 6, 2, 4
+TRAINER_DIR = os.path.join(ROOT, "build", "chip_smoke_trainer")
+
+
+class MemoryClips:
+    """A training dataset in memory with the loader's interface (``len``,
+    ``load(index, rng)``): each clip drawn from the generator the loader
+    hands it at the preset's crop size, uint8-range images, N(0, 4^2) px
+    flows, 90% of pixels valid; with ``bidir`` the backward flows too (the
+    bithings keys). No files, no augmentor."""
+
+    def __init__(self, n, t, h, w, bidir=False):
+        self.n, self.t, self.h, self.w, self.bidir = n, t, h, w, bidir
+
+    def __len__(self):
+        return self.n
+
+    def load(self, index, rng):
+        import numpy as np
+
+        f, h, w = self.t - 1, self.h, self.w
+
+        def flows():
+            return 4.0 * rng.standard_normal((f, h, w, 2), np.float32)
+
+        def valids():
+            return (rng.random((f, h, w), np.float32) < 0.9).astype(
+                np.float32)
+
+        s = {"images": rng.integers(0, 256, (self.t, h, w, 3),
+                                    np.uint8).astype(np.float32),
+             "flows": flows(), "valids": valids()}
+        if self.bidir:
+            s["flows_bw"], s["valids_bw"] = flows(), valids()
+        return s
+
+
+def trainer_phase(dev) -> dict:
+    """The trainer's own loop (tools/train.py::train) at the sintel_kitti
+    preset as given (B=8, 432x960, T=4, 12 iterations, lr 1.75e-4, gamma
+    0.85, bf16 with f32 parameters and remat) on in-memory clips, for
+    TRAINER_STEPS steps, checkpointing and validating (phase 28's Sintel
+    windows, through the run's one GraphedForward) at step TRAINER_VAL.
+    Checks: the loader's batches on the card equal its numpy batches bit
+    for bit; launches per step; finite loss and grad_norm; every parameter
+    moved; the checkpoint restored into a fresh state equals the live one
+    bit for bit, and one more step from each gives the same loss; after
+    the weights change and are copied in place, the held graph's replay
+    equals the eval model's eager forward. Logs wall ms/step of the loop,
+    device ms of one profiled step, idle share, peak memory, the
+    checkpoint's save ms and size. Returns the run's launches."""
+    import itertools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from streamflow_tpu_torch import evaluation as ev
+    from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools import train as trainer
+    from streamflow_tpu_torch.training.checkpoint import CheckpointManager
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import make_train_step
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    args = trainer.parse_args([
+        "--preset", "sintel_kitti", "--validation", "sintel",
+        "--num_steps", str(TRAINER_STEPS), "--print_freq", str(TRAINER_PRINT),
+        "--val_freq", str(TRAINER_VAL), "--output", TRAINER_DIR])
+    h, w = args.image_size
+    b, t = args.batch_size, args.T
+    assert (b, t, h, w, args.iters, args.lr, args.gamma, args.stage) == (
+        8, 4, 432, 960, ITERS, 1.75e-4, 0.85, "sintel"), vars(args)
+    assert args.mixed_precision and args.device == "cuda"
+    dataset = MemoryClips(8 * b, t, h, w)
+
+    # the loader's first batches (the run's: same dataset, batch and seed)
+    # through the prefetch ring of 3 pinned buffers, the fourth refilling
+    # the first's
+    loader = DataLoader(dataset, b, num_workers=args.num_workers,
+                        seed=args.seed)
+    host = list(itertools.islice(loader.epoch(0), 4))
+    for i, got in enumerate(prefetch_to_device(iter(host), dev)):
+        for k, v in host[i].items():
+            assert got[k].device == dev and torch.equal(
+                got[k].cpu(), torch.from_numpy(v)), (i, k)
+    first = {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()}
+    log(f"trainer: the loader's first 4 batches ({b}x{t}x{h}x{w}) through "
+        f"prefetch_to_device equal its numpy batches bit for bit")
+
+    windows = sintel_windows(np.random.default_rng(SEED + 6))
+    val_counts = dict.fromkeys(KERNELS, 0)
+
+    def validate(fwd):
+        before = dict(LAUNCHES)
+        epes = np.concatenate([
+            e for s in windows
+            for e in ev.pair_epes(ev.window_flows(fwd, s["images"], dev), s,
+                                  t)])
+        for k in KERNELS:
+            val_counts[k] += LAUNCHES[k] - before[k]
+        return {"clean_epe": float(epes.mean()),
+                "clean_1px": float((epes < 1).mean()),
+                "clean_3px": float((epes < 3).mean()),
+                "clean_5px": float((epes < 5).mean())}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = trainer.train(args, dataset, validate)
+    run_s = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = train_launches(t, h, w)
+    assert per_step == EXPECTED_TRAIN_LAUNCHES
+    # the windows' bucket (padded to 440x1024): 2 warm-ups and the capture
+    want_val = {k: 3 * v for k, v in forward_launches(
+        args.val_iters, t, -(-H // 8) * 8, W).items()}
+    steps_counts = {k: counts[k] - val_counts[k] for k in KERNELS}
+    log(f"trainer launches: {TRAINER_STEPS} steps "
+        f"{json.dumps(steps_counts)} expected {TRAINER_STEPS} x "
+        f"{json.dumps(per_step)}; validation {json.dumps(val_counts)} "
+        f"expected {json.dumps(want_val)}")
+    assert steps_counts == {k: TRAINER_STEPS * v
+                            for k, v in per_step.items()}, "step launches"
+    assert val_counts == want_val, "validation launches"
+
+    state = run.state
+    assert state.step == TRAINER_STEPS and len(run.step_t) == TRAINER_STEPS
+    out = os.path.join(TRAINER_DIR, args.name)
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    train_rec = [r for r in records if "loss" in r]
+    assert [r["step"] for r in train_rec] == list(
+        range(TRAINER_PRINT, TRAINER_STEPS + 1, TRAINER_PRINT)), records
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in train_rec), train_rec
+    assert [r["step"] for r in records if "val" in r] == [TRAINER_VAL]
+    assert os.path.exists(os.path.join(out, "best.npz"))
+    assert math.isfinite(run.val["clean_epe"]), run.val
+
+    # every parameter moved from the seeded start
+    fresh = create_model("streamflow", cfg=state.model.cfg, device=dev,
+                         train=True)
+    init_weights(fresh, args.seed)
+    still = [n for (n, p), q in zip(state.model.named_parameters(),
+                                    fresh.parameters()) if torch.equal(p, q)]
+    assert not still, f"parameters that did not move: {still[:5]}"
+
+    # the last checkpoint (step TRAINER_STEPS, written by the final save)
+    # restored into a fresh state equals the live state bit for bit
+    mgr = CheckpointManager(os.path.join(out, "ckpts"))
+    assert mgr.all_steps() == [TRAINER_VAL, TRAINER_STEPS], mgr.all_steps()
+    restored = mgr.restore(TrainState.create(
+        fresh, args.lr, args.num_steps, args.wdecay, args.epsilon, args.clip))
+    for (n, p), q in zip(state.model.named_parameters(),
+                         restored.model.parameters()):
+        assert torch.equal(p, q), n
+    live_opt = state.optimizer.state_dict()["state"]
+    rest_opt = restored.optimizer.state_dict()["state"]
+    assert live_opt.keys() == rest_opt.keys()
+    for i, st in live_opt.items():
+        for k, v in st.items():
+            assert torch.equal(v, rest_opt[i][k]), (i, k)
+    saved = (restored.step, restored.lr, restored.scheduler.last_epoch)
+    assert saved == (state.step, state.lr, state.scheduler.last_epoch)
+    step = make_train_step(args.gamma, args.iters)
+    m_live, m_rest = step(state, first), step(restored, first)
+    l_live, l_rest = float(m_live["loss"]), float(m_rest["loss"])
+    rel = abs(l_rest - l_live) / abs(l_live)
+    log(f"trainer checkpoint: step {TRAINER_STEPS} restored into a fresh "
+        f"state equals the live one bit for bit ({len(live_opt)} parameters "
+        f"with their AdamW moments and step counts; step, lr, last_epoch "
+        f"{saved}); one more "
+        f"step: loss live {l_live!r} restored {l_rest!r}, rel diff "
+        f"{rel:.3e} (bound {GRAD_TOL}), grad_norm "
+        f"{float(m_live['grad_norm']):.6g} / "
+        f"{float(m_rest['grad_norm']):.6g}")
+    assert rel <= GRAD_TOL, (l_live, l_rest)
+
+    # the held graph reads the eval model's weights by address: after the
+    # weights change, copied in place, its replay is the eager forward
+    fwd = run.fwd
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    with torch.no_grad():
+        for p in restored.model.parameters():
+            p.add_(0.05 * p.abs().mean() * torch.randn(
+                p.shape, generator=g, device=dev))
+    img = windows[0]["images"]
+    stale = ev.window_flows(fwd, img, dev)
+    trainer.copy_weights(restored.model, fwd.model)
+    got = ev.window_flows(fwd, img, dev)
+    want = ev.window_flows(lambda x: fwd.model(x, iters=args.val_iters,
+                                               test_mode=True), img, dev)
+    err = check_close("trainer graph after the in-place copy vs eager",
+                      torch.from_numpy(got), torch.from_numpy(want),
+                      torch.bfloat16)
+    stale_err = float(np.abs(stale - want).max())
+    log(f"trainer graph: replay before the copy differs from the eager "
+        f"forward by {stale_err:.4g} px, after it by {err:.4g}")
+    assert stale_err > 10 * max(err, 1e-3), (stale_err, err)
+    del restored, fresh, m_rest
+
+    # times: the loop between the synchronizing prints of steps
+    # TRAINER_PRINT and TRAINER_STEPS, less the checkpoint and validation
+    n = TRAINER_STEPS - TRAINER_PRINT
+    loop_ms = 1e3 * (run.step_t[-1] - run.step_t[TRAINER_PRINT - 1]
+                     - run.save_s[0] - run.val_s[0]) / n
+    prof = profile_device(lambda: step(state, first), loop_ms, "trainer")
+    timing = CheckpointManager(os.path.join(TRAINER_DIR, "timing"))
+    t0 = time.perf_counter()
+    timing.save(state)
+    snap_ms = 1e3 * (time.perf_counter() - t0)
+    timing.wait_until_finished()
+    write_ms = 1e3 * (time.perf_counter() - t0) - snap_ms
+    size = os.path.getsize(timing.path(state.step))
+    log(f"trainer {b}x{t}x{h}x{w} iters {args.iters} bf16 + f32 params + "
+        f"remat, {TRAINER_STEPS} steps in {run_s:.1f} s: wall ms/step of the "
+        f"loop {loop_ms:.3f} (steps {TRAINER_PRINT + 1}-{TRAINER_STEPS}, "
+        f"checkpoint and validation taken out), device ms/step "
+        f"{prof['total_ms']:.3f}, idle share {prof['idle']:.4f}; "
+        f"max_memory_allocated {peak:.3f} GiB; checkpoint "
+        f"{size / 2 ** 20:.1f} MiB: in the loop {1e3 * run.save_s[0]:.1f} ms "
+        f"(host copy; write on a thread), final save (waited) "
+        f"{1e3 * run.save_s[-1]:.1f} ms, alone host copy {snap_ms:.1f} ms + "
+        f"write {write_ms:.1f} ms; validation (3 windows, capture of a "
+        f"{args.val_iters}-iteration graph) {run.val_s[0]:.2f} s; val "
+        f"{json.dumps(run.val)}")
+    del run, state, fwd
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 31
+def stage_forms_phase(dev) -> None:
+    """One step each, B=1, of the stage forms the trainer selects at its
+    presets' crops: things (T=3, 400x720), kitti (the sintel_kitti crop,
+    T=4, 432x960, last pair only) and bithings (T=3, 400x720, the
+    time-reversed clip folded into the batch); launches (derived from the
+    shape: at 400x720, T=3 only stage 0's GSA blocks run K3), finite loss,
+    every parameter moved. Then phase 8's training guard at T=3."""
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools import train as trainer
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import make_train_step
+
+    for preset, stage in (("things", "things"), ("sintel_kitti", "kitti"),
+                          ("bithings", "bithings")):
+        args = trainer.parse_args(["--preset", preset, "--stage", stage,
+                                   "--batch_size", "1"])
+        h, w = args.image_size
+        t = args.T
+        bidir = stage == "bithings"
+        cfg = StreamFlowConfig(T=t, iters=args.iters,
+                               mixed_precision=args.mixed_precision,
+                               remat=True)
+        model = create_model("streamflow", cfg=cfg, device=dev, train=True)
+        init_weights(model, SEED)
+        state = TrainState.create(model, args.lr, args.num_steps, args.wdecay,
+                                  args.epsilon, args.clip)
+        loader = DataLoader(MemoryClips(1, t, h, w, bidir), 1,
+                            num_workers=1, seed=args.seed)
+        batch = next(iter(prefetch_to_device(loader.epoch(0), dev)))
+        step = make_train_step(args.gamma, args.iters,
+                               kitti_last_pair_only=stage == "kitti",
+                               bidirectional=bidir)
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(LAUNCHES)
+        expected = train_launches(t, h, w)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        still = [n for (n, p), q in zip(model.named_parameters(), before)
+                 if torch.equal(p, q)]
+        log(f"stage {stage} (preset {preset}) B=1{'+1 reversed' * bidir} "
+            f"T={t} {h}x{w}: launches {json.dumps(counts)} expected "
+            f"{json.dumps(expected)}; loss {loss:.6g} grad_norm {norm:.6g} "
+            f"epe {float(m['epe']):.6g}"
+            + (f" epe_bw {float(m['epe_bw']):.6g}" if bidir else "")
+            + f"; {len(before) - len(still)} of {len(before)} parameters "
+            f"moved; first step {ms:.1f} ms")
+        assert counts == expected, "launch counts differ"
+        assert math.isfinite(loss) and math.isfinite(norm), (loss, norm)
+        assert not still, f"parameters that did not move: {still[:5]}"
+        del model, state, batch, m, before
+        torch.cuda.empty_cache()
+    training_guard(dev, "auto", t=3)
 
 
 def main() -> None:
@@ -1629,13 +1987,19 @@ def main() -> None:
     counts["serving"] = phase(28, "serving harness", serving_phase, dev)
     summary["serving"] = summary["inference"]
     phase(29, "high resolution", high_res_phase, dev)
-    log(f"phases 3-29: {time.perf_counter() - t_start:.1f} s after the "
+    counts["trainer"] = phase(30, "trainer", trainer_phase, dev)
+    summary["trainer"] = summary["train_step"]
+    phase(31, "stage forms", stage_forms_phase, dev)
+    log(f"phases 3-31: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})
         + f"; 'auto' graphed {ms_graph:.3f}")
 
     assert "jax" not in sys.modules, "the port must not import jax"
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("streamflow_tpu", "PIL", "cv2")]
+    assert not loaded, f"chip_smoke's path loaded {loaded[:5]}"
     kernels = []
     for path, path_counts in counts.items():
         for k, (src, rep) in KERNELS.items():

@@ -1,7 +1,8 @@
 """The port's data layer (its own copy of streamflow_tpu/data): file codecs,
-flow visualisation, augmentation and the multi-frame datasets, all NumPy on
-the host. The two-frame datasets and the loader come with the rest of
-training."""
+flow visualisation, augmentation, the multi-frame datasets and the batch
+loader, all NumPy on the host, and the loader's prefetch to the card
+(``loader.prefetch_to_device``). The two-frame datasets come with the
+two-frame models."""
 
 from streamflow_tpu_torch.data import frame_utils
 from streamflow_tpu_torch.data.flow_viz import flow_to_image

@@ -18,17 +18,24 @@ The port's own copy of streamflow_tpu/data/augmentor.py.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-try:
-    import cv2
 
+@functools.lru_cache(maxsize=None)
+def _cv2():
+    """cv2, imported at first use (a program that never augments, such as
+    one that feeds the loader clips from memory, need not have it), or
+    None where it is not installed."""
+    try:
+        import cv2
+    except ImportError:  # pragma: no cover
+        return None
     cv2.setNumThreads(0)
     cv2.ocl.setUseOpenCL(False)
-except ImportError:  # pragma: no cover
-    cv2 = None
+    return cv2
 
 
 # ----------------------------------------------------------------- color jitter
@@ -48,6 +55,7 @@ def _adjust_saturation(img: np.ndarray, f: float) -> np.ndarray:
 
 
 def _adjust_hue(img: np.ndarray, shift: float) -> np.ndarray:
+    cv2 = _cv2()
     if cv2 is None or shift == 0.0:
         return img.astype(np.float32)
     hsv = cv2.cvtColor(img.astype(np.uint8), cv2.COLOR_RGB2HSV)
@@ -145,6 +153,7 @@ class FlowAugmentor:
         sx, sy = max(sx, min_scale), max(sy, min_scale)
 
         if rng.random() < self.spatial_aug_prob:
+            cv2 = _cv2()
             imgs = [cv2.resize(im, None, fx=sx, fy=sy,
                                interpolation=cv2.INTER_LINEAR) for im in imgs]
             flows = [
@@ -233,6 +242,7 @@ class SparseFlowAugmentor:
         scale = max(2 ** rng.uniform(self.min_scale, self.max_scale), min_scale)
 
         if rng.random() < self.spatial_aug_prob:
+            cv2 = _cv2()
             imgs = [cv2.resize(im, None, fx=scale, fy=scale,
                                interpolation=cv2.INTER_LINEAR) for im in imgs]
             new = [self.resize_sparse_flow_map(fl, v, scale, scale)

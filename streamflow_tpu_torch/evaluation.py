@@ -9,8 +9,10 @@ JAX.
 
 Every forward goes through ``GraphedForward``: one CUDA graph per padded
 shape (every Sintel frame is 436x1024, every KITTI frame is padded to one
-of the fixed kitti buckets), replayed as one host call per window. The
-per-window steps (``window_flows``, ``tiled_window_flows``, ``pair_epes``,
+of the fixed kitti buckets), replayed as one host call per window. A
+validator takes a model, and builds its own ``GraphedForward``, or a
+``GraphedForward`` that the caller holds (the trainer keeps one for the
+whole run). The per-window steps (``window_flows``, ``tiled_window_flows``, ``pair_epes``,
 ``kitti_pair_metrics``) take any clip, from a dataset or from memory.
 
 The two-frame validators (``JittedForward2F``, ``validate_chairs``,
@@ -119,6 +121,17 @@ class GraphedForward:
         return _Bucket(graph, x, fi, out)
 
 
+def graphed(model, iters: int) -> GraphedForward:
+    """``model`` itself if it is a ``GraphedForward`` (of ``iters``
+    iterations), else a new ``GraphedForward`` of it."""
+    if not isinstance(model, GraphedForward):
+        return GraphedForward(model, iters)
+    if model.iters != iters:
+        raise ValueError(f"a GraphedForward of {model.iters} iterations "
+                         f"given for {iters}")
+    return model
+
+
 def _epe_map(flow, gt):
     return np.sqrt(((flow - gt) ** 2).sum(-1))
 
@@ -202,7 +215,7 @@ def validate_sintel(model, root="datasets/sintel", iters=15, nframes=4,
                     dstypes=("clean", "final"),
                     progress: bool = True) -> Dict[str, float]:
     """Reference validate_sintel_mf (evaluate_mf.py:469-503)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     results = {}
     for dstype in dstypes:
         ds = mf_datasets.SintelMultiframeEval(split="training", dstype=dstype,
@@ -235,7 +248,7 @@ def validate_sintel_warm(model, root="datasets/sintel", iters=15, nframes=4,
     forward-interpolated low-res flow of the previous window in the same
     scene (the submission-side warm start, evaluate_mf.py:288-322, applied
     to the training split, as the JAX package does)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     results = {}
     for dstype in dstypes:
         ds = mf_datasets.SintelMultiframeEval(split="training", dstype=dstype,
@@ -264,7 +277,7 @@ def validate_kitti(model, multi_root="datasets/multi-kitti", iters=15,
                    nframes=4) -> Dict[str, float]:
     """Reference validate_kitti_mf (evaluate_mf.py:107-142):
     F1-all = mean over valid px of (epe > 3 AND epe/mag > 0.05)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     ds = mf_datasets.KITTIMultiFrameEval(multi_root=multi_root,
                                          split="training", nframes=nframes)
     epe_list, out_list = [], []
@@ -285,7 +298,7 @@ def validate_spring(model, root="datasets/spring", iters=15, nframes=4,
     """Reference validate_spring_mf (evaluate_mf.py:51-102): NaN GT marks
     invalid pixels; 1px outlier rates split by speed band. EPE and 1px
     are taken over valid pixels only, as in the JAX package (PARITY.md)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     ds = mf_datasets.SpringVal(root=osp.join(root, "train"), nframes=nframes,
                                subsample_groundtruth=True)
     epes, e10, e10_40, e40 = [], [], [], []
@@ -330,7 +343,7 @@ def validate_things_mf(model, root="datasets/flyingthings3d", iters=15,
     """Multi-frame FlyingThings validation: T-frame windows over the TEST
     split, every pair's EPE counted once (stride-1 windows: each window's
     last pair, plus the leading pairs of each sequence's first window)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     results = {}
     for dstype in ["frames_cleanpass", "frames_finalpass"]:
         ds = mf_datasets.FlyingThings3DMultiFrame(
@@ -361,7 +374,7 @@ def validate_kitti_tiled(model, multi_root="datasets/multi-kitti", iters=15,
     """Tiled high-res KITTI validation: overlapping train-size patches with
     Gaussian blending (reference validate_kitti_mf_tile,
     evaluate_mf.py:985-1053)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     ds = mf_datasets.KITTIMultiFrameEval(multi_root=multi_root,
                                          split="training", nframes=nframes)
     epe_list, out_list = [], []
@@ -388,7 +401,7 @@ def mine_worst_cases(model, root="datasets/sintel", iters=15, nframes=4,
 
     from streamflow_tpu_torch.data.flow_viz import flow_to_image
 
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     for dstype in dstypes:
         ds = mf_datasets.SintelMultiframeEval(split="training", dstype=dstype,
                                               root=root, nframes=nframes)
@@ -427,7 +440,7 @@ def mine_worst_cases(model, root="datasets/sintel", iters=15, nframes=4,
 def validate_sintel_occlusion(model, root="datasets/sintel", iters=15,
                               nframes=4, dstype="final") -> Dict[str, float]:
     """Occluded / non-occluded EPE split (reference evaluate_mf.py:550-592)."""
-    fwd = GraphedForward(model, iters)
+    fwd = graphed(model, iters)
     ds = mf_datasets.SintelMultiframeEval(split="training", dstype=dstype,
                                           root=root, nframes=nframes,
                                           occ_map=True)

@@ -40,14 +40,19 @@ def onecycle_linear(max_lr: float, total_steps: int, pct_start: float = 0.05,
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    num_steps: int, weight_decay: float = 1e-5,
-                   epsilon: float = 1e-8
+                   epsilon: float = 1e-8, clip: float = 1.0,
+                   pct_start: float = 0.05
                    ) -> Tuple[torch.optim.AdamW,
                               torch.optim.lr_scheduler.LambdaLR]:
     """AdamW (betas 0.9, 0.999) under the OneCycle schedule over
-    ``num_steps + 100`` steps. Clipping is ``clip_by_global_norm``, applied
-    by the train step before ``optimizer.step()``."""
-    schedule = onecycle_linear(lr, num_steps + 100)
-    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=epsilon,
+    ``num_steps + 100`` steps, warming up over ``pct_start`` of them.
+    Clipping is ``clip_by_global_norm`` to ``clip``, applied by the train
+    step before ``optimizer.step()``; ``clip`` is kept in the parameter
+    group, beside AdamW's own settings (``optimizer.param_groups[0]
+    ["clip"]``), as optax keeps it in the chain."""
+    schedule = onecycle_linear(lr, num_steps + 100, pct_start)
+    opt = torch.optim.AdamW([{"params": list(params), "clip": clip}], lr=lr,
+                            betas=(0.9, 0.999), eps=epsilon,
                             weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: schedule(step) / lr)

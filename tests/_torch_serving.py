@@ -109,19 +109,20 @@ def spring_tree(root, seed=3):
     return str(root)
 
 
-def things_tree(root, seed=2):
-    """FlyingThings TEST split: one 5-frame sequence, clean and final,
-    .pfm flows into the future and the past."""
+def things_tree(root, seed=2, split="TEST"):
+    """FlyingThings ``split`` ('TEST', the validator's, or 'TRAIN', the
+    trainer's): one 5-frame sequence, clean and final, .pfm flows into the
+    future and the past."""
     from streamflow_tpu_torch.data import frame_utils
 
     rng = np.random.default_rng(seed)
     for dstype in ("frames_cleanpass", "frames_finalpass"):
-        idir = root / dstype / "TEST" / "A" / "0000" / "left"
+        idir = root / dstype / split / "A" / "0000" / "left"
         idir.mkdir(parents=True)
         for i in range(5):
             _png(idir / f"{i:04d}.png", rng)
     for sub in ("into_future", "into_past"):
-        d = root / "optical_flow" / "TEST" / "A" / "0000" / sub / "left"
+        d = root / "optical_flow" / split / "A" / "0000" / sub / "left"
         d.mkdir(parents=True)
         for i in range(5):
             frame_utils.write_pfm(str(d / f"{i:04d}.pfm"), np.concatenate(
