@@ -78,7 +78,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      (finite flows, graph against eager, times, peak memory);
   30. the trainer (tools/train.py's loop, ``train``) at the sintel_kitti
      preset as given (B=8, 432x960, T=4, 12 iterations, bf16 with f32
-     parameters, remat) on in-memory clips from the seed: 6 steps, a
+     parameters, remat) on in-memory clips from the seed, after every
+     kernel of its step and B5 against its plain version at B=8: 6 steps, a
      checkpoint and a validation (phase 28's Sintel windows through the
      run's one GraphedForward) at step 4; the loader's batches on the card
      equal to its numpy batches bit for bit; launches per step and of the
@@ -99,9 +100,10 @@ entry per kernel and path ("inference": phases 3-4, per clip;
 "train_step": phases 6-7, per step; "inference_dw_<layout>" and
 "train_step_dw_<layout>": the same for each other layout, phases 3, 6
 and that layout's forward and train step; "serving": phase 28's
-launches, with phase 3's numbers per 440x1024 clip; "trainer": phase
-30's launches, its steps' and its validation's, with phase 6's numbers per
-432x960 step): "launches" is the
+launches, with phase 3's numbers per 440x1024 clip; "trainer": the
+launches of phase 30's 6 steps, with phase 30's B=8 kernel numbers
+summed over the same 6 steps, and its validation's launches apart under
+"launches_validation"): "launches" is the
 path's count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed
 over the same calls at the path's shapes (K1's under the jitter
 traffic; its "ms_by_traffic" gives all three). The last line is {"ok":
@@ -398,13 +400,17 @@ def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
     return b
 
 
-def kernel_checks(dev, summaries, hp, wp, train):
-    """Every forward kernel against its plain version at the shapes of an
-    hp x wp clip (padded size, T frames, B=1), in f32 and bf16; per-kernel
-    bf16 numbers summed into ``summaries[layout]`` (per SK layout, the
-    keys of LAYOUTS) over the calls of one inference clip, or of one train
-    step (``train``: the refinement kernels run twice, forward and remat's
-    recompute, and K3 also returns its logsumexp)."""
+def kernel_checks(dev, summaries, hp, wp, train, batch=1):
+    """Every forward kernel against its plain version at the shapes of
+    ``batch`` hp x wp clips (padded size, T frames), in f32 and bf16;
+    per-kernel bf16 numbers summed into ``summaries[layout]`` (per SK
+    layout among the keys of LAYOUTS; cases of no layout in
+    ``summaries`` are left out) over the calls of one inference clip, or
+    of one train step (``train``: the refinement kernels run twice,
+    forward and remat's recompute, and K3 also returns its logsumexp).
+    The tails of the kernels' tiles (cases of no calls) and the K6/K7
+    identity are checked at batch=1 only: they do not depend on the
+    batch."""
     import torch
     import torch.nn.functional as F
 
@@ -563,7 +569,7 @@ def kernel_checks(dev, summaries, hp, wp, train):
 
     def corr_case():
         def make(dt):
-            bf, h, w, c, r = 3, h8, w8, 256, 4
+            bf, h, w, c, r = 3 * batch, h8, w8, 256, 4
             f1 = rnd(bf, h, w, c, dt=dt)
             levels = [lv.contiguous() for lv in
                       pool_pyramid(rnd(bf, h, w, c, dt=dt), 4)]
@@ -606,19 +612,22 @@ def kernel_checks(dev, summaries, hp, wp, train):
         coords[2, 20:] = KB.corr_coords("uniform", 1, h, w, g, dev)[0, 20:]
 
     # token grids at 1/8 and 1/4 of the padded clip; the refinement kernels
-    # (SK pairs, GMA, K1) run on B*(T-1) = 3 frame pairs, the flow head's
-    # pair on one grid with the pairs in its channels; the Twins encoders
-    # (fnet on T frames, cnet on T-1) at 1/4 (stage 0) and 1/8 (stage 1)
+    # (SK pairs, GMA, K1) run on batch*(T-1) frame pairs, the flow head's
+    # pair on batch grids with the pairs in their channels; the Twins
+    # encoders (fnet on T frames, cnet on T-1, stacked along H, of each
+    # clip) at 1/4 (stage 0) and 1/8 (stage 1)
     h8, w8 = hp // 8, wp // 8
     h4, w4 = 2 * h8, 2 * w8
-    path = "train step" if train else "clip"
+    path = ("train step" if train else "clip") + (
+        f" of B={batch}" if batch > 1 else "")
     refine = 2 * ITERS if train else ITERS
     # the six SK blocks (c_in, out_dim, images, dw k): convc1, convc2,
     # convf2, conv, gru, flow_head; cases tagged with the SK layouts whose
     # path runs them (LAYOUTS' keys: the default "auto" and the pair
     # layouts, each with its own dw kernel, none for "banded")
-    sk = [(324, 256, 3, 15), (256, 192, 3, 15), (128, 64, 3, 15),
-          (256, 126, 3, 15), (640, 128, 3, 7), (384, 6, 1, 15)]
+    sk = [(324, 256, 3 * batch, 15), (256, 192, 3 * batch, 15),
+          (128, 64, 3 * batch, 15), (256, 126, 3 * batch, 15),
+          (640, 128, 3 * batch, 7), (384, 6, batch, 15)]
     every, auto = tuple(LAYOUTS), ("auto",)
     pair = tuple(lt for lt in LAYOUTS if lt != "auto")
     dw_kernels = (("dw_chain", "pallas"), ("dw_banded_mxu", "banded_mxu"),
@@ -640,8 +649,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
         cases.append(("ffn_pair", f"pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("pw_ffn_pair", rows, c, ch, co), refine,
                       pair))
-    for c, rows in ((128, T * h4 * w4), (128, (T - 1) * h4 * w4),
-                    (256, T * h8 * w8), (256, (T - 1) * h8 * w8)):
+    for c, rows in ((128, batch * T * h4 * w4),
+                    (128, batch * (T - 1) * h4 * w4),
+                    (256, batch * T * h8 * w8),
+                    (256, batch * (T - 1) * h8 * w8)):
         cases.append(("ffn_pair", f"ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
                       ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, every))
     # K2's tails (64-row tiles): one row, one row past a tile, one row past
@@ -670,15 +681,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
                 cases.append((kind, f"edge {nb}x{h}x{w}x{c} ks {kks}",
                               edge_case(kind, nb, h, w, c, kks), 0, every))
     n = h8 * w8
-    cases.append(("flash_attention", f"gma bh3 n{n} m{n} d128",
-                  flash_case((3, 1), n, n, 128), refine, every))
+    cases.append(("flash_attention", f"gma bh{3 * batch} n{n} m{n} d128",
+                  flash_case((3 * batch, 1), n, n, 128), refine, every))
     # GSA: keys from a stride-sr conv of the frames stacked along H
     for stage, nh, sr, hh, ww in ((0, 4, 8, h4, w4), (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             n, m = t * hh * ww, (t * hh // sr) * (ww // sr)
             cases.append(("flash_attention",
-                          f"gsa{stage} {enc} h{nh} n{n} m{m} d32",
-                          flash_case((1, nh), n, m, 32), 1, every))
+                          f"gsa{stage} {enc} b{batch} h{nh} n{n} m{m} d32",
+                          flash_case((batch, nh), n, m, 32), 1, every))
     # tails of K3's tiles (128 query rows; 128 keys at d=128, 64 at d=32):
     # fewer keys than one tile, ragged query and key counts, one query row
     for bh_shape, n, m, d in (((1, 2), 300, 1000, 128), ((2, 1), 1, 1000, 128),
@@ -692,14 +703,15 @@ def kernel_checks(dev, summaries, hp, wp, train):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             hq, wq = -(-t * hh // 7) * 7, -(-ww // 7) * 7
             cases.append(("lga_attention",
-                          f"stage{stage} {enc} {hq}x{wq}x{3 * c} h{nh}",
-                          lga_case(hq, wq, c, nh), 1, every))
+                          f"stage{stage} {enc} {batch}x{hq}x{wq}x{3 * c} "
+                          f"h{nh}",
+                          lga_case(hq, wq, c, nh, b=batch), 1, every))
     # K4's tails: one-window grids and a stage-1 grid, two images each
     for hq, wq, c, nh in ((7, 7, 128, 4), (7, 7, 256, 8), (14, 21, 256, 8)):
         cases.append(("lga_attention", f"tail b2 {hq}x{wq}x{3 * c} h{nh}",
                       lga_case(hq, wq, c, nh, b=2), 0, every))
-    cases.append(("corr_lookup", f"3x{h8}x{w8}x256 4 levels r4", corr_case(),
-                  refine, every, "jitter30"))
+    cases.append(("corr_lookup", f"{3 * batch}x{h8}x{w8}x256 4 levels r4",
+                  corr_case(), refine, every, "jitter30"))
     # K1 under the other traffics (timed apart: the kernels line's ms is
     # the jitter30 case's), then checked only: the branches of its bf16
     # body (128-, 64- and 32-column planes, empty boxes, box rows of
@@ -707,8 +719,10 @@ def kernel_checks(dev, summaries, hp, wp, train):
     # or most of a 64-channel panel empty (96, 32), C = 128 and 512,
     # fewer levels, a smaller radius and a level of size zero
     for traffic in ("smooth", "uniform"):
-        cases.append(("corr_lookup", f"{traffic} 3x{h8}x{w8}x256 4 levels r4",
-                      corr_traffic_case(traffic, 3, h8, w8, 256, 4, 4),
+        cases.append(("corr_lookup",
+                      f"{traffic} {3 * batch}x{h8}x{w8}x256 4 levels r4",
+                      corr_traffic_case(traffic, 3 * batch, h8, w8, 256,
+                                        4, 4),
                       refine, every, traffic))
     for label, args in (
             ("mixed tiles 3x45x150x96 4 levels r4",
@@ -727,6 +741,9 @@ def kernel_checks(dev, summaries, hp, wp, train):
 
     for kernel, label, make, calls, layouts, *traffic in cases:
         traffic = traffic[0] if traffic else None
+        layouts = tuple(lt for lt in layouts if lt in summaries)
+        if not layouts or (batch > 1 and not calls):
+            continue
         for dt in (torch.float32, torch.bfloat16):
             run, plain, flops, inputs, library, aside = make(dt)
             got, want = run(), plain()
@@ -769,6 +786,8 @@ def kernel_checks(dev, summaries, hp, wp, train):
     # in one order (csrc/dw_banded_t.cu, csrc/sk_chain.cuh): bit for bit
     # at the path's shapes (one band of 56 rows), so that 'banded_mxu_t'
     # and 'banded_mxu' give the same forward
+    if batch > 1 or "banded_mxu_t" not in summaries:
+        return
     for c, _, pairs, k in sk:
         x, ws, bs = chain_inputs(rnd, pairs, h8, w8, c, (k,), torch.bfloat16)
         a7 = K6.dw_banded_mxu_t(x, ws[0], bs[0])
@@ -938,12 +957,13 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def backward_checks(dev, summaries) -> None:
+def backward_checks(dev, summaries, batch=1) -> None:
     """B5, with K3's output and lse, against their plain versions at the
-    training shapes (f32, bf16; bf16 timed beside its bound and SDPA's
-    backward, summed over one train step's calls into each of
-    ``summaries``), and each kernel wrapper's forward (f32, bf16) and
-    gradient (f32) against its plain version."""
+    training shapes of ``batch`` clips (f32, bf16; bf16 timed beside its
+    bound and SDPA's backward, summed over one train step's calls into
+    each of ``summaries``), and, at batch=1 only, B5's tails and each
+    kernel wrapper's forward (f32, bf16) and gradient (f32) against its
+    plain version: neither depends on the batch."""
     import torch
     import torch.nn.functional as F
 
@@ -961,22 +981,23 @@ def backward_checks(dev, summaries) -> None:
     def rnd(*shape, scale=1.0, dt=torch.float32):
         return (scale * torch.randn(*shape, generator=g, device=dev)).to(dt)
 
-    # GMA over 3 pairs of (432/8) x (960/8) tokens; the four GSA blocks
-    # (fnet on 4 frames, cnet on 3, stacked along H; keys from a stride-sr
-    # conv, stage 0 sr 8, stage 1 sr 4), each above the 16384-token switch;
-    # calls per train step
+    # GMA over 3 pairs a clip of (432/8) x (960/8) tokens; the four GSA
+    # blocks (fnet on 4 frames, cnet on 3, stacked along H; keys from a
+    # stride-sr conv, stage 0 sr 8, stage 1 sr 4), each above the
+    # 16384-token switch; calls per train step
     h8, w8 = TRAIN_H // 8, TRAIN_W // 8
-    cases = [("gma", (3, 1), h8 * w8, h8 * w8, 128, ITERS)]
+    cases = [("gma", (3 * batch, 1), h8 * w8, h8 * w8, 128, ITERS)]
     for stage, nh, sr, hh, ww in ((0, 4, 8, 2 * h8, 2 * w8),
                                   (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
-            cases.append((f"gsa{stage} {enc}", (1, nh), t * hh * ww,
+            cases.append((f"gsa{stage} {enc}", (batch, nh), t * hh * ww,
                           (t * hh // sr) * (ww // sr), 32, 1))
     # B5's tails (128 resident and 64 walked rows a block): one query row,
     # fewer keys than one tile, ragged query and key counts
-    for bh_shape, n, m, d in (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
-                              ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
-                              ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32)):
+    tails = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
+             ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
+             ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32))
+    for bh_shape, n, m, d in tails if batch == 1 else ():
         cases.append(("tail", bh_shape, n, m, d, 0))
     for label, bh_shape, n, m, d, calls in cases:
         label = f"{label} bh{math.prod(bh_shape)} n{n} m{m} d{d}"
@@ -1017,10 +1038,12 @@ def backward_checks(dev, summaries) -> None:
                     f"{ms:.4f} ms plain {pms:.4f} ms bound {b:.4f} ms "
                     f"({flops:.4g} FLOP, {io:.4g} B) library (SDPA "
                     f"backward) {lib_ms:.4f} ms; calls per train step "
-                    f"{calls}")
+                    f"of B={batch} {calls}")
                 del ref, qs, ks, vs
             del q, k, v, do, o, lse, o_p, lse_p, got, want
             torch.cuda.empty_cache()
+    if batch > 1:
+        return
 
     # each kernel wrapper (kernel forward, composite backward) at a training
     # shape: its forward against the plain version in bf16 (the train step's
@@ -1642,20 +1665,24 @@ class MemoryClips:
         return s
 
 
-def trainer_phase(dev) -> dict:
+def trainer_phase(dev) -> tuple:
     """The trainer's own loop (tools/train.py::train) at the sintel_kitti
     preset as given (B=8, 432x960, T=4, 12 iterations, lr 1.75e-4, gamma
     0.85, bf16 with f32 parameters and remat) on in-memory clips, for
     TRAINER_STEPS steps, checkpointing and validating (phase 28's Sintel
     windows, through the run's one GraphedForward) at step TRAINER_VAL.
-    Checks: the loader's batches on the card equal its numpy batches bit
-    for bit; launches per step; finite loss and grad_norm; every parameter
-    moved; the checkpoint restored into a fresh state equals the live one
-    bit for bit, and one more step from each gives the same loss; after
-    the weights change and are copied in place, the held graph's replay
-    equals the eval model's eager forward. Logs wall ms/step of the loop,
-    device ms of one profiled step, idle share, peak memory, the
-    checkpoint's save ms and size. Returns the run's launches."""
+    First every kernel of the step, and B5, against its plain version at
+    the preset's batch (phase 6's checks at B=8), timed per step. Checks:
+    the loader's batches on the card equal its numpy batches bit for bit;
+    launches per step; finite loss and grad_norm; every parameter moved;
+    the checkpoint restored into a fresh state equals the live one bit for
+    bit, and one more step from each gives the same loss; after the
+    weights change and are copied in place, the held graph's replay equals
+    the eval model's eager forward. Logs wall ms/step of the loop, device
+    ms of one profiled step, idle share, peak memory, the checkpoint's
+    save ms and size. Returns the launches of the run's steps, those of
+    its validation, and the kernels' numbers summed over the run's
+    steps."""
     import itertools
     import shutil
 
@@ -1681,6 +1708,21 @@ def trainer_phase(dev) -> dict:
     assert (b, t, h, w, args.iters, args.lr, args.gamma, args.stage) == (
         8, 4, 432, 960, ITERS, 1.75e-4, 0.85, "sintel"), vars(args)
     assert args.mixed_precision and args.device == "cuda"
+
+    # the step's kernels at the trainer's shapes, timed per step, then
+    # summed over the run's steps (the calls its launches count)
+    per_step_summary = {"auto": new_summary()}
+    kernel_checks(dev, per_step_summary, h, w, True, batch=b)
+    backward_checks(dev, list(per_step_summary.values()), batch=b)
+    steps_summary = per_step_summary["auto"]
+    for s in steps_summary.values():
+        for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "mem_ms"):
+            s[k] *= TRAINER_STEPS
+        if s["library_ms"] is not None:
+            s["library_ms"] *= TRAINER_STEPS
+        for k in s.get("ms_by_traffic", {}):
+            s["ms_by_traffic"][k] *= TRAINER_STEPS
+
     dataset = MemoryClips(8 * b, t, h, w)
 
     # the loader's first batches (the run's: same dataset, batch and seed)
@@ -1798,7 +1840,7 @@ def trainer_phase(dev) -> dict:
                 p.shape, generator=g, device=dev))
     img = windows[0]["images"]
     stale = ev.window_flows(fwd, img, dev)
-    trainer.copy_weights(restored.model, fwd.model)
+    fwd.model.load_state_dict(restored.model.state_dict())
     got = ev.window_flows(fwd, img, dev)
     want = ev.window_flows(lambda x: fwd.model(x, iters=args.val_iters,
                                                test_mode=True), img, dev)
@@ -1839,7 +1881,7 @@ def trainer_phase(dev) -> dict:
     del run, state, fwd
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts
+    return steps_counts, val_counts, steps_summary
 
 
 # ---------------------------------------------------------------- phase 31
@@ -1987,8 +2029,8 @@ def main() -> None:
     counts["serving"] = phase(28, "serving harness", serving_phase, dev)
     summary["serving"] = summary["inference"]
     phase(29, "high resolution", high_res_phase, dev)
-    counts["trainer"] = phase(30, "trainer", trainer_phase, dev)
-    summary["trainer"] = summary["train_step"]
+    counts["trainer"], trainer_val, summary["trainer"] = phase(
+        30, "trainer", trainer_phase, dev)
     phase(31, "stage forms", stage_forms_phase, dev)
     log(f"phases 3-31: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
@@ -2018,7 +2060,9 @@ def main() -> None:
                                else round(s["library_ms"], 4)),
                 **({"ms_by_traffic": {t: round(v, 4) for t, v in
                                       s["ms_by_traffic"].items()}}
-                   if "ms_by_traffic" in s else {})})
+                   if "ms_by_traffic" in s else {}),
+                **({"launches_validation": trainer_val[k]}
+                   if path == "trainer" else {})})
     log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

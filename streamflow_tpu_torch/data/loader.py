@@ -93,8 +93,8 @@ class DataLoader:
                 with ThreadPoolExecutor(self.workers) as pool:
                     for b in range(nb):
                         lo = b * self.bs
-                        n = min(self.bs, len(order) - lo)
-                        samples = list(pool.map(load_one, range(lo, lo + n)))
+                        samples = list(pool.map(load_one,
+                                                range(lo, lo + self.bs)))
                         # stack every array key the dataset provides
                         # (bithings adds flows_bw/valids_bw; eval datasets
                         # add frame_ids)

@@ -56,9 +56,7 @@ def main(argv=None) -> dict:
     for step in steps:
         sd = torch.load(mgr.path(step), map_location="cpu",
                         weights_only=True)["model"]
-        with torch.no_grad():
-            for name, param in model.named_parameters():
-                param.copy_(sd[name])     # in place: the graphs read these
+        model.load_state_dict(sd)   # in place: the graphs read by address
         if args.dataset == "sintel":
             r = evaluation.validate_sintel(fwd, args.sintel_root, args.iters,
                                            args.T, progress=False)

@@ -147,18 +147,6 @@ def run_validation(which: str, fwd, args) -> Dict[str, float]:
     return {}
 
 
-def copy_weights(src, dst) -> None:
-    """``src``'s parameters into ``dst``'s, in place (cast to its dtype):
-    a CUDA graph captured on ``dst`` reads them by address, so replacing
-    the tensors would leave it replaying the old ones."""
-    import torch
-
-    own = dict(src.named_parameters())
-    with torch.no_grad():
-        for name, p in dst.named_parameters():
-            p.copy_(own[name])
-
-
 @dataclasses.dataclass
 class Run:
     """What ``train`` leaves: the train state, the GraphedForward of the
@@ -267,7 +255,11 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
                     print(f"checkpointed at step {cur}")
                     if validate is not None:
                         t0 = time.perf_counter()
-                        copy_weights(model, fwd.model)
+                        # in place (load_state_dict copies into the
+                        # eval model's tensors, cast to their dtype): the
+                        # held graph reads them by address, and new
+                        # tensors would leave it replaying the old weights
+                        fwd.model.load_state_dict(model.state_dict())
                         val = validate(fwd)
                         val_s.append(time.perf_counter() - t0)
                         logger.push_val(cur, val)

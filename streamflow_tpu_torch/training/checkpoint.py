@@ -47,22 +47,19 @@ class CheckpointManager:
     """Keep-N train-state checkpoints in ``directory`` (counterpart of the
     JAX package's orbax manager, :23-52).
 
-    ``save(state)`` skips a step that is not a multiple of
-    ``save_interval_steps`` or not after the latest saved one; otherwise it
-    copies the state to the host, then writes it on a thread of its own
-    (``wait=True`` waits for the write). The file appears under its name
-    only once it is complete, and only then is the oldest beyond
+    ``save(state)`` skips a step that is not after the latest saved one;
+    otherwise it copies the state to the host, then writes it on a thread
+    of its own (``wait=True`` waits for the write). The file appears under
+    its name only once it is complete, and only then is the oldest beyond
     ``max_to_keep`` deleted, so a failed or interrupted save leaves the
-    earlier checkpoints as they were; a temporary file it leaves behind
-    is not a step. A write's error is raised by the next call that waits
+    earlier checkpoints as they were; a temporary file it leaves behind is
+    not a step. A write's error is raised by the next call that waits
     for it (``save``, ``wait_until_finished``, ``restore``, ``close``)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5,
-                 save_interval_steps: int = 1):
+    def __init__(self, directory: str, max_to_keep: int = 5):
         self.dir = Path(directory).absolute()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
-        self.save_interval_steps = save_interval_steps
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -84,8 +81,7 @@ class CheckpointManager:
         self.wait_until_finished()
         step = int(state.step)
         latest = self.latest_step()
-        if step % self.save_interval_steps or (latest is not None
-                                               and step <= latest):
+        if latest is not None and step <= latest:
             return False
         snapshot = _host_copy(state.state_dict())
         self._writer = threading.Thread(target=self._write,

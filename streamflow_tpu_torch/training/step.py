@@ -70,8 +70,8 @@ def make_train_step(gamma: float = 0.8, iters: int = 12,
     batch: {"images": (B, T, H, W, 3), "flows": (B, F, H, W, 2), "valids":
     (B, F, H, W)} on the model's device. Metrics (0-d tensors): loss, epe,
     1px, 3px, 5px of the first supervised frame pair, grad_norm (before
-    clipping), and epe_bw when ``bidirectional``. After the step each parameter's
-    ``.grad`` holds its clipped gradient."""
+    clipping), and epe_bw when ``bidirectional``. After the step each
+    parameter's ``.grad`` holds its clipped gradient."""
     loss_fn = make_loss_fn(gamma, iters, kitti_last_pair_only, bidirectional)
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
