@@ -28,6 +28,11 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      each K2 call timed beside its library composite (bf16 torch ops, the
      hidden activation through device memory: a yardstick, not a
      library_ms), and every timed case with its achieved TFLOP/s and GB/s;
+     and the shapes of phase 32's ablation configs: K2 ffn_pair without
+     its residual at the Twins MLP widths (Twins1DConv), the K2 forms of
+     TAM v1's per-frame flow head (128 -> 2), K3 at d=32 over the B*T
+     per-frame GSA images of stage 0 and K4 over the B*T per-frame LGA
+     grids;
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
@@ -93,13 +98,27 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   31. the stage forms, one step each at B=1: things (T=3, 400x720), kitti
      (last pair only, 432x960) and bithings (T=3, the reversed clip folded
      into the batch), launches (derived from the shape), finite loss,
-     every parameter moved; phase 8's training guard at T=3.
+     every parameter moved; phase 8's training guard at T=3;
+  32. the ablation configs (ZOO: the per-frame Twins family, the CNN
+     encoders 'basic' and 'res18_3d' with their BatchNorm cnet, and on
+     Twins_CSC the decoders sk_tam_v1, sk_tam_v3_noinit and use_gma=False),
+     each in the default SK layout at 440x1024, B=1, T=4, 12 iterations,
+     bf16, seeded random weights: phase 4's forward (exact launches and
+     the Twins MLPs' K2 forms, ms/clip, device time, idle share, peak
+     memory), phase 5's accuracy guards at 216x512, a GraphedForward
+     replay of 'basic' equal to its eager forward bit for bit, and two
+     train steps of phase 7's form for 'basic' (bidirectional: two
+     applications, the running statistics one update from the reversed
+     clip alone), 'twins_temporal_attention' and 'sk_tam_v1'.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
 "train_step": phases 6-7, per step; "inference_dw_<layout>" and
 "train_step_dw_<layout>": the same for each other layout, phases 3, 6
-and that layout's forward and train step; "serving": phase 28's
+and that layout's forward and train step; "inference_<config>" and
+"train_step_<config>": the same for each ZOO config, phases 3, 6 and
+32, a bidirectional BatchNorm step's numbers for its two applications;
+"serving": phase 28's
 launches, with phase 3's numbers per 440x1024 clip; "trainer": the
 launches of phase 30's 6 steps, with phase 30's B=8 kernel numbers
 summed over the same 6 steps, and its validation's launches apart under
@@ -243,6 +262,75 @@ LAYOUTS = {"auto": ("", EXPECTED_LAUNCHES, EXPECTED_TRAIN_LAUNCHES),
 # the layouts whose train step and training guard run (phases 7-8, 11-12,
 # 15-16, 19-20, 23-24); the other runs its forward and accuracy guards
 TRAINED = ("auto", "pallas", "banded_mxu", "banded_chain", "banded_mxu_t")
+
+# phase 32: the ablation configs (StreamFlowConfig fields beside the
+# canonical ones), each in the default SK layout; their paths in the
+# kernels line are "inference_<name>" and, for ZOO_TRAINED,
+# "train_step_<name>"
+ZOO = {"twins": dict(encoder="twins"),
+       "twins_1dconv": dict(encoder="twins_1dconv"),
+       "twins_temporal_attention": dict(encoder="twins_temporal_attention"),
+       "twins_3dconv": dict(encoder="twins_3dconv"),
+       "basic": dict(encoder="basic"),
+       "res18_3d": dict(encoder="res18_3d"),
+       "sk_tam_v1": dict(update_block="sk_tam_v1"),
+       "sk_tam_v3_noinit": dict(update_block="sk_tam_v3_noinit"),
+       "no_gma": dict(use_gma=False)}
+# the trained ones (two steps each, phase 7's form), with the model
+# applications a step makes: 'basic' steps bidirectionally, and its
+# BatchNorm makes that two applications, one per direction
+ZOO_TRAINED = {"basic": 2, "twins_temporal_attention": 1, "sk_tam_v1": 1}
+# phase 32's numbers per config (ms/clip, device ms, idle share, peak GiB
+# above what the process held before the config's model was built)
+ZOO_TABLE = {}
+# phase 32's accuracy guards run at this size (the f32 and bf16 plain
+# paths on the CPU for each of nine functions at 440x1024 would take
+# ~4 minutes)
+ZOO_GUARD_H, ZOO_GUARD_W = 216, 512
+
+
+def zoo_kind(name: str) -> dict:
+    """What of the path a config runs: a Twins encoder (``frame``: the
+    per-frame family, ``csc``: the canonical token grid, ``hook``) or a
+    CNN, GMA, the per-frame flow head (``v1``)."""
+    from streamflow_tpu_torch.config import TWINS_ENCODERS
+
+    kw = ZOO[name]
+    grid, hook, _ = TWINS_ENCODERS.get(kw.get("encoder", "twins_csc"),
+                                       (False, "none", False))
+    twins = kw.get("encoder", "twins_csc") in TWINS_ENCODERS
+    return dict(twins=twins, csc=twins and grid, frame=twins and not grid,
+                hook=hook, gma=kw.get("use_gma", True),
+                v1=kw.get("update_block") == "sk_tam_v1")
+
+
+def zoo_launches(name: str, train: bool = False, t: int = T, h: int = 440,
+                 w: int = 1024) -> dict:
+    """Launches of each kernel in one forward (or train step) of a ZOO
+    config: as forward_launches / train_launches, with K3's GMA calls only
+    under GMA, its GSA calls where a Twins encoder's GSA block has more
+    than GSA_FLASH_TOKENS an image (the canonical grid stacks the frames;
+    the per-frame family runs B*T images of one frame each: stage 0 only
+    at 440x1024 and 432x960), K4 and the 8 K2 MLPs in the Twins encoders
+    only; a bidirectional BatchNorm step makes every launch twice."""
+    k = zoo_kind(name)
+    if k["csc"]:
+        gsa = gsa_flash_blocks(t, h, w)
+    elif k["frame"]:
+        gsa = sum((h // s) * (w // s) > GSA_FLASH_TOKENS
+                  for s in (4, 8) for _ in ("fnet", "cnet"))
+    else:
+        gsa = 0
+    gma = ITERS if k["gma"] else 0
+    enc, lga = (8, 4) if k["twins"] else (0, 0)
+    base = dict.fromkeys(KERNELS, 0)
+    if not train:
+        return dict(base, corr_lookup=ITERS, ffn_pair=12 * ITERS + enc,
+                    flash_attention=gma + gsa, lga_attention=lga)
+    one = dict(base, corr_lookup=2 * ITERS, ffn_pair=2 * 12 * ITERS + enc,
+               flash_attention=2 * gma + gsa,
+               flash_attention_bwd=2 * (gma + gsa), lga_attention=lga)
+    return {kk: ZOO_TRAINED[name] * v for kk, v in one.items()}
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -435,6 +523,12 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
     def ffn_case(variant, rows, c, ch, co):
         def make(dt):
             run, plain, flops, args, _, _ = make_k2(dt)
+            if variant == "ffn_pair_nores":    # the 1D-conv Twins MLP
+                return (run, plain, flops, args, None,
+                        ("the library composite (bf16 torch ops, the hidden "
+                         "activation through device memory)",
+                         lambda: F.linear(F.gelu(F.linear(
+                             args[0], args[1], args[2])), args[3], args[4])))
             names = {"ffn_pair": "x w1 b1 w2 b2",
                      "pw_ffn_pair": "x wp bp w1 b1 w2 b2",
                      "ffn_pair_k1": "x w1 b1 w2 b2 kw kb",
@@ -451,10 +545,11 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
             b = lambda n: rnd(n, scale=0.1, dt=dt)  # noqa: E731
             x = rnd(rows, c, dt=dt)
             flops = 2 * rows * (c * ch + ch * co)
-            if variant == "ffn_pair":
+            if variant in ("ffn_pair", "ffn_pair_nores"):
+                res = variant == "ffn_pair"
                 args = (x, w(c, ch), b(ch), w(ch, co), b(co))
-                return (lambda: K2.ffn_pair(*args),
-                        lambda: K2.ffn_pair_plain(*args, True),
+                return (lambda: K2.ffn_pair(*args, residual=res),
+                        lambda: K2.ffn_pair_plain(*args, res),
                         flops, args, None, None)
             if variant == "pw_ffn_pair":
                 args = (x, w(c, c), b(c), w(c, ch), b(ch), w(ch, co), b(co))
@@ -630,17 +725,28 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
           (640, 128, 3 * batch, 7), (384, 6, batch, 15)]
     every, auto = tuple(LAYOUTS), ("auto",)
     pair = tuple(lt for lt in LAYOUTS if lt != "auto")
+    # the ZOO configs among the paths (each in the default layout), by
+    # what of the path they run
+    zoo = [z for z in summaries if z in ZOO]
+
+    def zoo_with(**want):
+        return tuple(z for z in zoo
+                     if all(zoo_kind(z)[k] == v for k, v in want.items()))
+    zoo_all = tuple(zoo)
     dw_kernels = (("dw_chain", "pallas"), ("dw_banded_mxu", "banded_mxu"),
                   ("dw_banded_mxu_t", "banded_mxu_t"),
                   ("sk_chain_banded", "banded_chain"))
     cases = []  # (kernel, label, make, calls per clip or step, layouts)
-    for c, co, pairs, k in sk:
+    for i, (c, co, pairs, k) in enumerate(sk):
         ch, rows = int(1.5 * c), pairs * h8 * w8
+        # the joint flow head (the last block) is not TAM v1's
+        zoo_sk = zoo_with(v1=False) if i == len(sk) - 1 else zoo_all
         cases.append(("ffn_pair", f"ffn_pair_k1 {rows}x{c}-{ch}-{c}",
-                      ffn_case("ffn_pair_k1", rows, c, ch, c), refine, auto))
+                      ffn_case("ffn_pair_k1", rows, c, ch, c), refine,
+                      auto + zoo_sk))
         cases.append(("ffn_pair", f"dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("dwres_pw_ffn_pair", rows, c, ch, co),
-                      refine, auto))
+                      refine, auto + zoo_sk))
         cases.append(("ffn_pair", f"ffn_pair {rows}x{c}-{ch}-{c}",
                       ffn_case("ffn_pair", rows, c, ch, c), refine, pair))
         for kernel, layout in dw_kernels:
@@ -649,12 +755,35 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
         cases.append(("ffn_pair", f"pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("pw_ffn_pair", rows, c, ch, co), refine,
                       pair))
+    # TAM v1's per-frame flow head, SK(128 -> 2) on the batch*(T-1) frame
+    # pairs: its K2 forms in the default layout and (checked only) the
+    # pair layouts' second pair
+    c, ch, rows = 128, 192, 3 * batch * h8 * w8
+    cases.append(("ffn_pair", f"v1 flow head ffn_pair_k1 {rows}x{c}-{ch}-{c}",
+                  ffn_case("ffn_pair_k1", rows, c, ch, c), refine,
+                  zoo_with(v1=True)))
+    cases.append(("ffn_pair",
+                  f"v1 flow head dwres_pw_ffn_pair {rows}x{c}-{ch}-2",
+                  ffn_case("dwres_pw_ffn_pair", rows, c, ch, 2), refine,
+                  zoo_with(v1=True)))
+    if not train:
+        cases.append(("ffn_pair", f"v1 flow head pw_ffn_pair {rows}x{c}-{ch}-2",
+                      ffn_case("pw_ffn_pair", rows, c, ch, 2), 0, every))
+    # the Twins MLPs (B*T frames' tokens for the fnet, B*(T-1) for the
+    # cnet, at 1/4 and 1/8, in one grid or per frame: the same rows);
+    # Twins1DConv's pair alone, without its LayerNorm and residual
     for c, rows in ((128, batch * T * h4 * w4),
                     (128, batch * (T - 1) * h4 * w4),
                     (256, batch * T * h8 * w8),
                     (256, batch * (T - 1) * h8 * w8)):
         cases.append(("ffn_pair", f"ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
-                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, every))
+                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2,
+                      every + zoo_with(twins=True, hook="none")
+                      + zoo_with(hook="attn")))
+        cases.append(("ffn_pair",
+                      f"1dconv ffn_pair residual=False {rows}x{c}-{4 * c}-{c}",
+                      ffn_case("ffn_pair_nores", rows, c, 4 * c, c), 2,
+                      zoo_with(hook="1dconv")))
     # K2's tails (64-row tiles): one row, one row past a tile, one row past
     # the main path's 21120, in every form at every width of the path
     if not train:
@@ -682,14 +811,25 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
                               edge_case(kind, nb, h, w, c, kks), 0, every))
     n = h8 * w8
     cases.append(("flash_attention", f"gma bh{3 * batch} n{n} m{n} d128",
-                  flash_case((3 * batch, 1), n, n, 128), refine, every))
-    # GSA: keys from a stride-sr conv of the frames stacked along H
+                  flash_case((3 * batch, 1), n, n, 128), refine,
+                  every + zoo_with(gma=True)))
+    # GSA: keys from a stride-sr conv of the frames stacked along H; in the
+    # per-frame family of each of batch*t frames, K3 above
+    # GSA_FLASH_TOKENS an image (stage 0 only at the path's sizes)
     for stage, nh, sr, hh, ww in ((0, 4, 8, h4, w4), (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             n, m = t * hh * ww, (t * hh // sr) * (ww // sr)
             cases.append(("flash_attention",
                           f"gsa{stage} {enc} b{batch} h{nh} n{n} m{m} d32",
-                          flash_case((batch, nh), n, m, 32), 1, every))
+                          flash_case((batch, nh), n, m, 32), 1,
+                          every + zoo_with(csc=True)))
+            n, m = hh * ww, (hh // sr) * (ww // sr)
+            if n > GSA_FLASH_TOKENS:
+                cases.append((
+                    "flash_attention",
+                    f"per-frame gsa{stage} {enc} b{batch * t} h{nh} n{n} "
+                    f"m{m} d32", flash_case((batch * t, nh), n, m, 32), 1,
+                    zoo_with(frame=True)))
     # tails of K3's tiles (128 query rows; 128 keys at d=128, 64 at d=32):
     # fewer keys than one tile, ragged query and key counts, one query row
     for bh_shape, n, m, d in (((1, 2), 300, 1000, 128), ((2, 1), 1, 1000, 128),
@@ -705,13 +845,20 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
             cases.append(("lga_attention",
                           f"stage{stage} {enc} {batch}x{hq}x{wq}x{3 * c} "
                           f"h{nh}",
-                          lga_case(hq, wq, c, nh, b=batch), 1, every))
+                          lga_case(hq, wq, c, nh, b=batch), 1,
+                          every + zoo_with(csc=True)))
+            hq = -(-hh // 7) * 7      # per frame: batch*t grids of one
+            cases.append(("lga_attention",
+                          f"per-frame stage{stage} {enc} {batch * t}x{hq}x"
+                          f"{wq}x{3 * c} h{nh}",
+                          lga_case(hq, wq, c, nh, b=batch * t), 1,
+                          zoo_with(frame=True)))
     # K4's tails: one-window grids and a stage-1 grid, two images each
     for hq, wq, c, nh in ((7, 7, 128, 4), (7, 7, 256, 8), (14, 21, 256, 8)):
         cases.append(("lga_attention", f"tail b2 {hq}x{wq}x{3 * c} h{nh}",
                       lga_case(hq, wq, c, nh, b=2), 0, every))
     cases.append(("corr_lookup", f"{3 * batch}x{h8}x{w8}x256 4 levels r4",
-                  corr_case(), refine, every, "jitter30"))
+                  corr_case(), refine, every + zoo_all, "jitter30"))
     # K1 under the other traffics (timed apart: the kernels line's ms is
     # the jitter30 case's), then checked only: the branches of its bf16
     # body (128-, 64- and 32-column planes, empty boxes, box rows of
@@ -723,7 +870,7 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
                       f"{traffic} {3 * batch}x{h8}x{w8}x256 4 levels r4",
                       corr_traffic_case(traffic, 3 * batch, h8, w8, 256,
                                         4, 4),
-                      refine, every, traffic))
+                      refine, every + zoo_all, traffic))
     for label, args in (
             ("mixed tiles 3x45x150x96 4 levels r4",
              ("smooth", 3, 45, 150, 96, 4, 4, mixed_tiles)),
@@ -812,16 +959,26 @@ def make_clip(dev, h=H, w=W, mode="sintel", seed=SEED):
     return imgs.reshape(B, T, *padder.padded_shape, 3).to(dev)
 
 
-def full_forward(dev, dw_impl):
+def full_forward(dev, dw_impl, zoo=None):
+    """The test-mode forward of the SK layout ``dw_impl`` or, with ``zoo``,
+    of that ZOO config in the default layout (its Twins MLPs' K2 forms
+    counted apart); returns the launches and ms/clip, and for a ZOO
+    config keeps its numbers in ZOO_TABLE."""
     import torch
 
     from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.layers import twins
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
 
-    suffix, expected, _ = LAYOUTS[dw_impl]
+    if zoo is None:
+        suffix, expected, _ = LAYOUTS[dw_impl]
+        tag = f"dw_impl={dw_impl!r}"
+    else:
+        suffix, expected, tag = f"_{zoo}", zoo_launches(zoo), f"config {zoo!r}"
     cfg = StreamFlowConfig(T=T, iters=ITERS, mixed_precision=True,
-                           dw_impl=dw_impl)
+                           dw_impl=dw_impl, **ZOO.get(zoo, {}))
+    held = torch.cuda.memory_allocated()    # by the phases before this one
     model = create_model("streamflow", cfg=cfg)
     init_weights(model, SEED)
     imgs = make_clip(dev)
@@ -829,14 +986,35 @@ def full_forward(dev, dw_impl):
 
     flows = model(imgs, test_mode=True)       # warm-up (builds nothing new)
     torch.cuda.synchronize()
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    flows = model(imgs, test_mode=True)
-    torch.cuda.synchronize()
+    # the Twins encoders' K2 forms, counted where they are called
+    forms = {"ln_ffn_pair": 0, "ffn_pair": 0}
+    wrapped = {n: getattr(twins, n) for n in forms}
+
+    def counting(name):
+        def call(*a, **kw):
+            forms[name] += 1
+            return wrapped[name](*a, **kw)
+        return call
+    for name in forms:
+        setattr(twins, name, counting(name))
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        flows = model(imgs, test_mode=True)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(twins, name, fn)
     counts = dict(LAUNCHES)
-    log(f"forward dw_impl={dw_impl!r} launches {json.dumps(counts)} expected "
-        f"{json.dumps(expected)}")
+    kind = zoo_kind(zoo) if zoo else dict(twins=True, hook="none")
+    want_forms = {"ln_ffn_pair": 8 * (kind["twins"]
+                                      and kind["hook"] != "1dconv"),
+                  "ffn_pair": 8 * (kind["hook"] == "1dconv")}
+    log(f"forward {tag} launches {json.dumps(counts)} expected "
+        f"{json.dumps(expected)}; the Twins MLPs' K2 forms {forms} expected "
+        f"{want_forms}")
     assert counts == expected, "launch counts differ"
+    assert forms == want_forms, "the Twins MLPs' K2 forms differ"
     assert flows.shape == (B, T - 1, hp, wp, 2), flows.shape
     assert bool(torch.isfinite(flows).all()), "non-finite flows"
     peak = torch.cuda.max_memory_allocated()
@@ -850,15 +1028,21 @@ def full_forward(dev, dw_impl):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = 1e3 * sum(times) / len(times)
-    log(f"forward dw_impl={dw_impl!r} {tuple(flows.shape)} finite; ms/clip "
+    log(f"forward {tag} {tuple(flows.shape)} finite; ms/clip "
         f"{ms:.3f} (mean of "
         f"{REPS}, min {1e3 * min(times):.3f}); frames/s {T / (ms / 1e3):.3f};"
-        f" max_memory_allocated {peak / 2 ** 30:.3f} GiB; |flow| px mean "
+        f" max_memory_allocated {peak / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f}"
+        f" of it held before the model was built); |flow| px mean "
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
-    profile_device(lambda: model(imgs, test_mode=True), ms,
-                   "forward" + suffix)
+    prof = profile_device(lambda: model(imgs, test_mode=True), ms,
+                          "forward" + suffix)
+    if zoo is not None:
+        ZOO_TABLE[zoo] = dict(ms_clip=round(ms, 3),
+                              device_ms=round(prof["total_ms"], 3),
+                              idle=round(prof["idle"], 4),
+                              peak_gib=round((peak - held) / 2 ** 30, 3))
     return counts, ms
 
 
@@ -909,12 +1093,13 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
     return {"total_ms": total / 1e3, "idle": idle}
 
 
-def accuracy_guards(dev, dw_impl, refs) -> None:
-    """iters=1, one clip, the same weights, the SK layout ``dw_impl``: the
-    kernel path on the card and the plain path on the CPU, each in f32 and
-    bf16, against the f32 plain path. Every layout computes the same
-    function in f32, so that reference is made once, by the first call,
-    and kept in ``refs``."""
+def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W) -> None:
+    """iters=1, one h x w clip, the same weights, the SK layout
+    ``dw_impl`` (and the ZOO config ``zoo``): the kernel path on the card
+    and the plain path on the CPU, each in f32 and bf16, against the f32
+    plain path. Every layout computes the same function in f32, so that
+    reference is made once, by the first call, and kept in ``refs`` (a
+    ZOO config is a function of its own: give it refs of its own)."""
     import copy
 
     import torch
@@ -922,12 +1107,12 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
 
-    imgs = make_clip("cpu")
+    imgs = make_clip("cpu", h, w)
     flows = {}
     for dtype in ("float32", "bfloat16"):
         cfg = StreamFlowConfig(T=T, iters=1,
                                mixed_precision=dtype == "bfloat16",
-                               dw_impl=dw_impl)
+                               dw_impl=dw_impl, **ZOO.get(zoo, {}))
         cpu_model = create_model("streamflow", cfg=cfg, device="cpu")
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
@@ -944,7 +1129,8 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
     f32 = rel_epe(flows["float32", "card"], ref)
     bf16, bf16_plain = (rel_epe(flows["bfloat16", where], ref)
                         for where in ("card", "cpu"))
-    log(f"accuracy guard dw_impl={dw_impl!r} iters=1 against the f32 plain "
+    tag = f"dw_impl={dw_impl!r}" if zoo is None else f"config {zoo!r}"
+    log(f"accuracy guard {tag} {h}x{w} iters=1 against the f32 plain "
         f"path (of dw_impl={ref_layout!r}; |flow_ref| px "
         f"mean {float(mag.mean()):.4g} max {float(mag.max()):.4g}), rel EPE "
         f"global / per-pixel p99: f32 kernels {f32[0]:.3e} / {f32[1]:.3e} "
@@ -957,13 +1143,14 @@ def accuracy_guards(dev, dw_impl, refs) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def backward_checks(dev, summaries, batch=1) -> None:
+def backward_checks(dev, summaries, batch=1, zoo=None) -> None:
     """B5, with K3's output and lse, against their plain versions at the
     training shapes of ``batch`` clips (f32, bf16; bf16 timed beside its
     bound and SDPA's backward, summed over one train step's calls into
-    each of ``summaries``), and, at batch=1 only, B5's tails and each
-    kernel wrapper's forward (f32, bf16) and gradient (f32) against its
-    plain version: neither depends on the batch."""
+    each of ``summaries`` and of the ZOO configs' ``zoo`` ({name:
+    summary}) whose step runs that case), and, at batch=1 only, B5's
+    tails and each kernel wrapper's forward (f32, bf16) and gradient
+    (f32) against its plain version: neither depends on the batch."""
     import torch
     import torch.nn.functional as F
 
@@ -986,20 +1173,33 @@ def backward_checks(dev, summaries, batch=1) -> None:
     # stride-sr conv, stage 0 sr 8, stage 1 sr 4), each above the
     # 16384-token switch; calls per train step
     h8, w8 = TRAIN_H // 8, TRAIN_W // 8
-    cases = [("gma", (3 * batch, 1), h8 * w8, h8 * w8, 128, ITERS)]
+    zoo = zoo or {}
+
+    def zoo_with(**want):
+        return [zs for z, zs in zoo.items()
+                if all(zoo_kind(z)[k] == v for k, v in want.items())]
+    cases = [("gma", (3 * batch, 1), h8 * w8, h8 * w8, 128, ITERS,
+              summaries + zoo_with(gma=True))]
     for stage, nh, sr, hh, ww in ((0, 4, 8, 2 * h8, 2 * w8),
                                   (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             cases.append((f"gsa{stage} {enc}", (batch, nh), t * hh * ww,
-                          (t * hh // sr) * (ww // sr), 32, 1))
+                          (t * hh // sr) * (ww // sr), 32, 1,
+                          summaries + zoo_with(csc=True)))
+            # the per-frame family: batch*t images of one frame
+            if hh * ww > GSA_FLASH_TOKENS and zoo_with(frame=True):
+                cases.append((f"per-frame gsa{stage} {enc}",
+                              (batch * t, nh), hh * ww,
+                              (hh // sr) * (ww // sr), 32, 1,
+                              zoo_with(frame=True)))
     # B5's tails (128 resident and 64 walked rows a block): one query row,
     # fewer keys than one tile, ragged query and key counts
     tails = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
              ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
              ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32))
     for bh_shape, n, m, d in tails if batch == 1 else ():
-        cases.append(("tail", bh_shape, n, m, d, 0))
-    for label, bh_shape, n, m, d, calls in cases:
+        cases.append(("tail", bh_shape, n, m, d, 0, []))
+    for label, bh_shape, n, m, d, calls, paths in cases:
         label = f"{label} bh{math.prod(bh_shape)} n{n} m{m} d{d}"
         for dt in (torch.float32, torch.bfloat16):
             q = rnd(*bh_shape, n, d, scale=d ** -0.5, dt=dt)
@@ -1030,7 +1230,7 @@ def backward_checks(dev, summaries, batch=1) -> None:
                     ref, (qs, ks, vs), do, retain_graph=True), REPS)
                 flops = 10 * math.prod(bh_shape) * n * m * d
                 io = nbytes(q, k, v, do, lse, delta, *got)
-                for summary in summaries:
+                for summary in paths:
                     s = summary["flash_attention_bwd"]
                     s["err"] = max(s["err"], err)
                     b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
@@ -1144,21 +1344,23 @@ def backward_checks(dev, summaries, batch=1) -> None:
 
 
 # ---------------------------------------------------------------- phase 7
-def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl, t=T):
-    """A TrainState holding a training model (SK layout ``dw_impl``, T=t)
-    with the seeded weights, and a seeded synthetic batch (uint8-range
-    images, N(0, 4^2) px flows)."""
+def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl, t=T,
+                zoo=None, bidir=False):
+    """A TrainState holding a training model (SK layout ``dw_impl``, T=t,
+    the ZOO config ``zoo``) with the seeded weights, and a seeded
+    synthetic batch (uint8-range images, N(0, 4^2) px flows; the backward
+    flows too with ``bidir``)."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.tools.train_bench import synthetic_batch
     from streamflow_tpu_torch.training.state import TrainState
 
     cfg = StreamFlowConfig(T=t, iters=iters, mixed_precision=mixed_precision,
-                           remat=True, dw_impl=dw_impl)
+                           remat=True, dw_impl=dw_impl, **ZOO.get(zoo, {}))
     model = create_model("streamflow", cfg=cfg, device=dev, train=True)
     init_weights(model, seed)
     state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
-    return state, synthetic_batch(B, t, h, w, seed, dev)
+    return state, synthetic_batch(B, t, h, w, seed, dev, bidir)
 
 
 def train_step_phase(dev, dw_impl) -> dict:
@@ -1393,11 +1595,12 @@ def eager_then_graph(model, imgs, label):
     return fwd, got, want, ms_g[0]
 
 
-def check_nodes(fwd, imgs, dw_impl) -> None:
+def check_nodes(fwd, imgs, dw_impl, expected=None) -> None:
     """One replay of ``fwd``'s bucket of ``imgs`` runs each port kernel as
-    many times as the eager forward launches it (LAYOUTS)."""
+    many times as the eager forward launches it (LAYOUTS, or
+    ``expected``)."""
     got, other = replay_kernel_counts(lambda: fwd(imgs))
-    want = {k: v for k, v in LAYOUTS[dw_impl][1].items() if v}
+    want = {k: v for k, v in (expected or LAYOUTS[dw_impl][1]).items() if v}
     log(f"graph dw_impl={dw_impl!r} kernel nodes in one replay "
         f"{json.dumps(got)} expected {json.dumps(want)} (and {other} "
         f"kernels of PyTorch and its libraries, {PROFILE_PAD} of them the "
@@ -1949,6 +2152,124 @@ def stage_forms_phase(dev) -> None:
     training_guard(dev, "auto", t=3)
 
 
+# ---------------------------------------------------------------- phase 32
+def zoo_phase(dev) -> dict:
+    """The ablation configs (ZOO), each in the default layout at 440x1024,
+    B=1, T=4, 12 iterations, bf16, seeded random weights: phase 4's
+    forward (exact launches, the Twins MLPs' K2 forms, ms/clip, device
+    time, idle share, peak memory), phase 5's accuracy guards at
+    ZOO_GUARD_H x ZOO_GUARD_W, for 'basic' one GraphedForward replay equal
+    to the eager forward bit for bit (BatchNorm on its running
+    statistics, which the capture leaves as they were), and for
+    ZOO_TRAINED two train steps of phase 7's form. Returns the launches
+    of each path."""
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.training.step import batch_stats
+
+    counts = {}
+    for name in ZOO:
+        counts["inference_" + name], _ = full_forward(dev, "auto", name)
+        accuracy_guards(dev, "auto", {}, name, ZOO_GUARD_H, ZOO_GUARD_W)
+        if name == "basic":
+            model = create_model("streamflow", cfg=StreamFlowConfig(
+                T=T, iters=ITERS, mixed_precision=True, **ZOO[name]),
+                device=dev)
+            init_weights(model, SEED)
+            stats = [t.clone() for t in batch_stats(model)]
+            imgs = make_clip(dev)
+            fwd, got, want, _ = eager_then_graph(model, imgs,
+                                                 f"{name}_440x1024")
+            assert torch.equal(got, want), "the graph's flows differ"
+            check_nodes(fwd, imgs, "auto", zoo_launches(name))
+            assert all(torch.equal(a, b) for a, b in
+                       zip(batch_stats(model), stats)), "statistics moved"
+            log(f"graph config {name!r}: a replay gives the eager flows bit "
+                f"for bit; the {len(stats)} running statistics unchanged")
+            del model, fwd
+        if name in ZOO_TRAINED:
+            counts["train_step_" + name] = zoo_train_steps(dev, name)
+        torch.cuda.empty_cache()
+    log("ms/clip, device ms, idle share and peak GiB (above what the "
+        "process held before the model was built) by config, 440x1024 T=4 "
+        "12 iterations bf16 ('auto'): " + json.dumps(ZOO_TABLE))
+    return counts
+
+
+def zoo_train_steps(dev, name) -> dict:
+    """Two train steps of a ZOO config (432x960, B=1, T=4, 12 iterations,
+    bf16 with f32 parameters, remat; 'basic' bidirectional, the reversed
+    clip in a second application): launches of the first step exactly,
+    finite losses, every parameter moved; with BatchNorm, the running
+    statistics after the first step equal one update from the reversed
+    clip alone (the cnet's train-mode forward of it from the pre-step
+    statistics), not the forward clip's, and move again in the second."""
+    import copy
+
+    import torch
+
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.training.step import (batch_stats,
+                                                    make_train_step)
+
+    bidir = ZOO_TRAINED[name] == 2
+    state, batch = train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED,
+                               "auto", zoo=name, bidir=bidir)
+    model = state.model
+    step = make_train_step(gamma=0.85, iters=ITERS, bidirectional=bidir)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    derived = {}
+    if batch_stats(model):
+        x = (2.0 * (batch["images"].float() / 255.0) - 1.0).to(model.dtype)
+        for clip, xx in (("reversed", x.flip(1)), ("forward", x)):
+            ref = copy.deepcopy(model)
+            with torch.no_grad():
+                ref.cnet(xx[:, :-1], True)
+            derived[clip] = [t.clone() for t in batch_stats(ref)]
+            del ref
+    torch.cuda.synchronize()
+    reset_launches()
+    times, losses = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            counts = dict(LAUNCHES)
+            after1 = [t.clone() for t in batch_stats(model)]
+    expected = zoo_launches(name, True, h=TRAIN_H, w=TRAIN_W)
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    extra = ""
+    if derived:
+        err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+                  for a, b in zip(after1, derived["reversed"]))
+        off = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+                  for a, b in zip(after1, derived["forward"]))
+        moved = all(not torch.equal(a, b)
+                    for a, b in zip(batch_stats(model), after1))
+        extra = (f"; running statistics after step 1 against one update from "
+                 f"the reversed clip alone: max rel err {err:.3e} (bound "
+                 f"1e-3), against the forward clip's {off:.3e}; "
+                 f"{len(after1)} moved again in step 2: {moved}")
+    log(f"train step config {name!r} B=1{'+1 reversed' * bidir} T={T} "
+        f"{TRAIN_H}x{TRAIN_W}: launches {json.dumps(counts)} expected "
+        f"{json.dumps(expected)}; loss, grad_norm {losses}; ms per step "
+        f"{[round(t, 1) for t in times]}; {len(before) - len(still)} of "
+        f"{len(before)} parameters moved" + extra)
+    assert counts == expected, "train launch counts differ"
+    assert all(math.isfinite(v) for pair in losses for v in pair), losses
+    assert not still, f"parameters that did not move: {still[:5]}"
+    if derived:
+        assert err <= 1e-3 < off and moved, (err, off, moved)
+    del state, batch, model
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -1996,7 +2317,16 @@ def main() -> None:
     def per_layout(path):
         return {dw: summary[path + LAYOUTS[dw][0]] for dw in LAYOUTS}
 
-    phase(3, "kernels", kernel_checks, dev, per_layout("inference"), 440,
+    for name in ZOO:
+        summary["inference_" + name] = new_summary()
+    for name in ZOO_TRAINED:
+        summary["train_step_" + name] = new_summary()
+
+    def per_zoo(path, names):
+        return {z: summary[f"{path}_{z}"] for z in names}
+
+    phase(3, "kernels", kernel_checks, dev,
+          {**per_layout("inference"), **per_zoo("inference", ZOO)}, 440,
           1024, False)
     refs, ms_clip = {}, {}
     counts["inference"], ms_clip["auto"] = phase(4, "forward", full_forward,
@@ -2004,8 +2334,18 @@ def main() -> None:
     phase(5, "accuracy guards", accuracy_guards, dev, "auto", refs)
 
     def training_kernels():
-        kernel_checks(dev, per_layout("train_step"), TRAIN_H, TRAIN_W, True)
-        backward_checks(dev, list(per_layout("train_step").values()))
+        zoo = per_zoo("train_step", ZOO_TRAINED)
+        kernel_checks(dev, {**per_layout("train_step"), **zoo}, TRAIN_H,
+                      TRAIN_W, True)
+        backward_checks(dev, list(per_layout("train_step").values()),
+                        zoo=zoo)
+        # a bidirectional BatchNorm step runs the path twice
+        for name, apps in ZOO_TRAINED.items():
+            for s in zoo[name].values():
+                for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "mem_ms"):
+                    s[k] *= apps
+                if s["library_ms"] is not None:
+                    s["library_ms"] *= apps
     phase(6, "training-shape kernels", training_kernels)
     counts["train_step"] = phase(7, "train step", train_step_phase, dev,
                                  "auto")
@@ -2032,7 +2372,8 @@ def main() -> None:
     counts["trainer"], trainer_val, summary["trainer"] = phase(
         30, "trainer", trainer_phase, dev)
     phase(31, "stage forms", stage_forms_phase, dev)
-    log(f"phases 3-31: {time.perf_counter() - t_start:.1f} s after the "
+    counts.update(phase(32, "ablation configs", zoo_phase, dev))
+    log(f"phases 3-32: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

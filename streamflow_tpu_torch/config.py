@@ -37,6 +37,19 @@ import dataclasses
 from typing import Optional, Sequence
 
 
+# the encoders the port runs (every one of the JAX config's but "umt"):
+# the Twins family by name -> (one token grid over the T frames, the
+# blocks' temporal hook, a final 3x3x3 conv over (T, H, W)), and the RAFT
+# CNN per frame ("basic", "resnet18" and "mf_basic" are one module, as in
+# JAX) or with temporal hooks ("res18_3d")
+TWINS_ENCODERS = {"twins_csc": (True, "none", False),
+                  "twins": (False, "none", False),
+                  "twins_1dconv": (False, "1dconv", False),
+                  "twins_temporal_attention": (False, "attn", False),
+                  "twins_3dconv": (False, "none", True)}
+CNN_ENCODERS = ("basic", "resnet18", "mf_basic", "res18_3d")
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamFlowConfig:
     T: int = 4

@@ -1,23 +1,41 @@
-"""The checkpoint table of the canonical StreamFlow: flax parameter paths of
-the JAX package's model against the reference's torch keys.
+"""The checkpoint tables of StreamFlow: flax variable paths of the JAX
+package's model against the reference's torch keys, for every config the
+port runs.
 
-The port's own copy of ``build_mapping`` and ``torch_shape_for`` from
-``streamflow_tpu/convert/torch_import.py`` (plain Python, no JAX): the port
-names its parameters after the torch keys, so this table is what moves
-weights (and gradients) between the two packages.
+The port's own copy of ``build_mapping``, ``_bn``, ``_basic_encoder`` and
+``torch_shape_for`` from ``streamflow_tpu/convert/torch_import.py`` (plain
+Python, no JAX), widened to the ablation configs: the port names its
+parameters after the torch keys, so these tables are what move weights
+(and gradients, and BatchNorm statistics) between the two packages.
+
+Where the JAX package's table has the reference's keys (the Twins stages,
+the RAFT CNN of ``_basic_encoder`` with its ``running_mean`` and
+``running_var``, the decoder), they are used. Where it has none, the keys
+are named after the flax modules: the per-frame Twins hooks
+(``svt.blocks.i.j.norm0``, ``.temporal_attn``, ``.temporal_fc``,
+``.temporal_conv``), Twins3DConv's final ``temporal_conv``, and Res18_3D
+(``layer1.0.norm0``, ``.temporal_attn``, ``.temporal_fc``, ``.spatial``).
+The CNN encoders sit under flax's ``enc`` (``_PerFrameBasicEncoder``) at
+the reference's ``fnet.`` / ``cnet.`` keys.
 
 Each rule is (flax path, torch key, kind); kind is the layout rule:
 
-  conv    Conv2d (O, I, kh, kw)  <-> flax kernel (kh, kw, I, O)
-  linear  Linear (O, I)          <-> flax kernel (I, O)
-  raw     copied as-is (biases, LayerNorm scale/bias, gamma)
+  conv    Conv2d (O, I, kh, kw)      <-> flax kernel (kh, kw, I, O)
+  conv1d  Conv1d (O, I, k)           <-> flax kernel (k, I, O)
+  conv3d  Conv3d (O, I, kt, kh, kw)  <-> flax kernel (kt, kh, kw, I, O)
+  linear  Linear (O, I)              <-> flax kernel (I, O)
+  raw     copied as-is (biases, norm scale/bias, gamma, running stats)
 
 A trailing ``?`` marks a leaf that may be absent (a bias-free layer).
+``build_mapping`` gives the ``params`` collection's rules,
+``build_stats_mapping`` the ``batch_stats`` collection's.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
+
+from streamflow_tpu_torch.config import CNN_ENCODERS, TWINS_ENCODERS
 
 # (dst flax path, src torch key, kind)
 Rule = Tuple[str, str, str]
@@ -49,7 +67,10 @@ def _sk_block(dst, src, k_conv) -> List[Rule]:
     return rules
 
 
-def _twins(dst, src, depths=(2, 2)) -> List[Rule]:
+def _twins(dst, src, depths=(2, 2), hook: str = "none",
+           conv3d: bool = False) -> List[Rule]:
+    """The Twins encoders' stages (the same keys in every variant), the
+    per-block ``hook`` ("attn", "1dconv") and Twins3DConv's conv."""
     rules: List[Rule] = []
     for i in range(2):
         rules += _conv(f"{dst}/stages/patch_embed{i}/proj",
@@ -73,7 +94,93 @@ def _twins(dst, src, depths=(2, 2)) -> List[Rule]:
                 rules += _linear(f"{bd}/attn/kv", f"{bs}.attn.kv")
                 rules += _conv(f"{bd}/attn/sr", f"{bs}.attn.sr")
                 rules += _ln(f"{bd}/attn/norm", f"{bs}.attn.norm")
+            if hook == "attn":
+                rules += _ln(f"{bd}/norm0", f"{bs}.norm0")
+                rules += _tiny_attention(f"{bd}/temporal_attn",
+                                         f"{bs}.temporal_attn")
+                rules += _linear(f"{bd}/temporal_fc", f"{bs}.temporal_fc")
+            elif hook == "1dconv":
+                rules += [(f"{bd}/temporal_conv/kernel",
+                           f"{bs}.temporal_conv.weight", "conv1d"),
+                          (f"{bd}/temporal_conv/bias",
+                           f"{bs}.temporal_conv.bias", "raw")]
+    if conv3d:
+        rules += [(f"{dst}/temporal_conv/kernel",
+                   f"{src}.temporal_conv.weight", "conv3d"),
+                  (f"{dst}/temporal_conv/bias", f"{src}.temporal_conv.bias",
+                   "raw")]
     return rules
+
+
+def _tiny_attention(dst, src) -> List[Rule]:
+    """layers/temporal.py::TinyAttention's own parameters."""
+    return [(f"{dst}/qkv_kernel", f"{src}.qkv.weight", "linear"),
+            (f"{dst}/proj_kernel", f"{src}.proj.weight", "linear"),
+            (f"{dst}/proj_bias", f"{src}.proj.bias", "raw")]
+
+
+def _norm(dst, src, kind: str) -> Tuple[List[Rule], List[Rule]]:
+    """A ``_Norm`` wrapper's parameters and statistics: BatchNorm's
+    (flax's anonymous child 'BatchNorm_0') split into params and stats,
+    GroupNorm's ('GroupNorm_0') params; instance and none have none."""
+    if kind == "batch":
+        return ([(f"{dst}/BatchNorm_0/scale", f"{src}.weight", "raw"),
+                 (f"{dst}/BatchNorm_0/bias", f"{src}.bias", "raw")],
+                [(f"{dst}/BatchNorm_0/mean", f"{src}.running_mean", "raw"),
+                 (f"{dst}/BatchNorm_0/var", f"{src}.running_var", "raw")])
+    if kind == "group":
+        return ([(f"{dst}/GroupNorm_0/scale", f"{src}.weight", "raw"),
+                 (f"{dst}/GroupNorm_0/bias", f"{src}.bias", "raw")], [])
+    return [], []
+
+
+def _residual_block(dst, src, norm_fn: str, down: bool):
+    rules, stats = _conv(f"{dst}/conv1", f"{src}.conv1"), []
+    rules += _conv(f"{dst}/conv2", f"{src}.conv2")
+    names = ("norm1", "norm2") + (("norm3",) if down else ())
+    if down:
+        rules += _conv(f"{dst}/downsample", f"{src}.downsample.0")
+    for n in names:
+        p, st = _norm(f"{dst}/{n}", f"{src}.{n}", norm_fn)
+        rules += p
+        stats += st
+    return rules, stats
+
+
+def _basic_encoder(dst, src, norm_fn: str, temporal: bool = False
+                   ) -> Tuple[List[Rule], List[Rule]]:
+    """The RAFT CNN (reference BasicEncoder, core/extractor.py:121-194) ->
+    layers/basic_encoder.py, params and stats; ``temporal``: Res18_3D, a
+    hook before each residual block, which then sits under ``spatial``."""
+    rules = _conv(f"{dst}/conv1", f"{src}.conv1")
+    rules += _conv(f"{dst}/conv2", f"{src}.conv2")
+    rules_n, stats = _norm(f"{dst}/norm1", f"{src}.norm1", norm_fn)
+    rules += rules_n
+    for i, stride in enumerate((1, 2, 2), start=1):
+        for j in range(2):
+            bs, bd = f"{src}.layer{i}.{j}", f"{dst}/layer{i}_{j}"
+            if temporal:
+                rules += _ln(f"{bd}/norm0", f"{bs}.norm0")
+                rules += _tiny_attention(f"{bd}/temporal_attn",
+                                         f"{bs}.temporal_attn")
+                rules += _linear(f"{bd}/temporal_fc", f"{bs}.temporal_fc")
+                bs, bd = f"{bs}.spatial", f"{bd}/spatial"
+            r, st = _residual_block(bd, bs, norm_fn, j == 0 and stride != 1)
+            rules += r
+            stats += st
+    return rules, stats
+
+
+def _encoder(dst, src, encoder: str, norm_fn: str
+             ) -> Tuple[List[Rule], List[Rule]]:
+    if encoder in TWINS_ENCODERS:
+        _, hook, conv3d = TWINS_ENCODERS[encoder]
+        return _twins(dst, src, hook=hook, conv3d=conv3d), []
+    if encoder == "res18_3d":
+        return _basic_encoder(dst, src, norm_fn, temporal=True)
+    if encoder in CNN_ENCODERS:
+        return _basic_encoder(f"{dst}/enc", src, norm_fn)
+    raise NotImplementedError(f"no table for encoder '{encoder}'")
 
 
 def _temporal(dst, src) -> List[Rule]:
@@ -94,14 +201,20 @@ def _temporal(dst, src) -> List[Rule]:
 
 
 def build_mapping(k_conv: Sequence[int] = (1, 15),
-                  pc_updater_conv: Sequence[int] = (1, 7)) -> List[Rule]:
-    """Rules of the canonical StreamFlow (Twins_CSC + SKMotionEncoder6 +
-    SKUpdateBlock_TAM_v3 + GMA); decoder leaves live under the refinement
-    scan's ``step/`` prefix on the flax side."""
+                  pc_updater_conv: Sequence[int] = (1, 7),
+                  encoder: str = "twins_csc", use_gma: bool = True
+                  ) -> List[Rule]:
+    """Rules of the ``params`` collection of StreamFlow with ``encoder``
+    (fnet instance-normed, cnet batch-normed where the encoder is a CNN)
+    + SKMotionEncoder6 + the SKUpdateBlock_TAM family (v3, v1 and
+    v3_noinit have the same leaves) [+ GMA]; decoder leaves live under the
+    refinement scan's ``step/`` prefix on the flax side. The default is
+    the canonical config."""
     rules: List[Rule] = []
-    rules += _twins("fnet", "fnet")
-    rules += _twins("cnet", "cnet")
-    rules += _conv("att/to_qk", "att.to_qk")
+    rules += _encoder("fnet", "fnet", encoder, "instance")[0]
+    rules += _encoder("cnet", "cnet", encoder, "batch")[0]
+    if use_gma:
+        rules += _conv("att/to_qk", "att.to_qk")
 
     ub_s, ub_d = "update_block", "step/update_block"
     enc = f"{ub_s}.encoder"
@@ -110,8 +223,10 @@ def build_mapping(k_conv: Sequence[int] = (1, 15),
     rules += _conv(f"{ub_d}/encoder/convf1", f"{enc}.convf1")
     rules += _sk_block(f"{ub_d}/encoder/convf2", f"{enc}.convf2", k_conv)
     rules += _sk_block(f"{ub_d}/encoder/conv", f"{enc}.conv", k_conv)
-    rules += _conv(f"{ub_d}/aggregator/to_v", f"{ub_s}.aggregator.to_v")
-    rules += [(f"{ub_d}/aggregator/gamma", f"{ub_s}.aggregator.gamma", "raw")]
+    if use_gma:
+        rules += _conv(f"{ub_d}/aggregator/to_v", f"{ub_s}.aggregator.to_v")
+        rules += [(f"{ub_d}/aggregator/gamma", f"{ub_s}.aggregator.gamma",
+                   "raw")]
     rules += _temporal(f"{ub_d}/transformer_block",
                        f"{ub_s}.transformer_block")
     rules += _sk_block(f"{ub_d}/gru", f"{ub_s}.gru", pc_updater_conv)
@@ -121,12 +236,32 @@ def build_mapping(k_conv: Sequence[int] = (1, 15),
     return rules
 
 
+def build_stats_mapping(encoder: str = "twins_csc") -> List[Rule]:
+    """Rules of the ``batch_stats`` collection (the cnet's BatchNorm
+    running statistics of the CNN encoders; none for the Twins family)."""
+    return (_encoder("fnet", "fnet", encoder, "instance")[1]
+            + _encoder("cnet", "cnet", encoder, "batch")[1])
+
+
+def table_kwargs(cfg) -> dict:
+    """``build_mapping``'s arguments for a StreamFlowConfig (either
+    package's), or the canonical ones for None."""
+    if cfg is None:
+        return {}
+    return dict(k_conv=tuple(cfg.k_conv),
+                pc_updater_conv=tuple(cfg.pc_updater_conv),
+                encoder=cfg.encoder, use_gma=cfg.use_gma)
+
+
+# flax layout (axes) of a torch tensor of each kind; the inverse is argsort
+TO_FLAX = {"conv": (2, 3, 1, 0), "conv1d": (2, 1, 0),
+           "conv3d": (2, 3, 4, 1, 0), "linear": (1, 0)}
+
+
 def torch_shape_for(kind: str, flax_shape) -> tuple:
     """The torch shape of a leaf of flax shape ``flax_shape``."""
-    if kind == "conv":
-        kh, kw, i, o = flax_shape
-        return (o, i, kh, kw)
-    if kind == "linear":
-        i, o = flax_shape
-        return (o, i)
-    return tuple(flax_shape)
+    if kind not in TO_FLAX:
+        return tuple(flax_shape)
+    to_torch = sorted(range(len(flax_shape)),
+                      key=TO_FLAX[kind].__getitem__)
+    return tuple(flax_shape[a] for a in to_torch)

@@ -1,17 +1,31 @@
-"""Twins-SVT-Large stages 1-2 with StreamFlow's temporal token grid (port of
-streamflow_tpu/layers/twins.py::TwinsCSC; reference
-core/encoders/twins_csc.py + timm twins_svt_large).
+"""Twins-SVT-Large stages 1-2: StreamFlow's temporal token grid and the
+per-frame ablation family (port of streamflow_tpu/layers/twins.py::
+TwinsCSC, Twins, Twins1DConv, TwinsTemporalAttention, Twins3DConv and the
+temporal hooks of TwinsBlock, :243-497; reference
+core/encoders/twins_csc.py, twins.py, twins_1dconv.py,
+twins_temporal_attention.py, twins_3dconv.py + timm twins_svt_large).
 
 stage 1: patch 4, dim 128, heads 4, sr 8; stage 2: patch 2, dim 256,
 heads 8, sr 4; each stage is [LGA block (7x7 windows), PEG, GSA block].
-Tokens of all T frames form one (T*h, w) grid, frames stacked along the
-height. Tensors are (B, N, C) tokens; module names follow the reference's
-torch keys (``svt.patch_embeds``, ``svt.pos_block``, ``svt.blocks``).
+TwinsCSC: tokens of all T frames form one (T*h, w) grid, frames stacked
+along the height. The per-frame family folds T into the batch (each frame
+its own (h, w) grid), with per-block temporal hooks: ``"attn"``
+(TwinsTemporalAttention: norm0, a zero-init TinyAttention over each
+pixel's T tokens, a zero-init ``temporal_fc``, before the spatial
+attention) or ``"1dconv"`` (Twins1DConv: a dirac-init Conv1d along T on
+the MLP branch, before its residual); Twins3DConv adds a dirac-init 3x3x3
+conv over (T, H, W) at the end. Tensors are (B, N, C) tokens; module
+names follow the reference's torch keys (``svt.patch_embeds``,
+``svt.pos_block``, ``svt.blocks``); the hooks, which no reference table
+names, are named after the flax modules (``convert.py``).
 
 Kernels: the LGA attention is K4; the GSA attention goes through K3
-exactly where the JAX package calls flash attention (n > 16384 tokens or
-``gsa_flash``); the pre-norm MLP (norm2 + fc1 + gelu + fc2 + residual) is
-one K2 ``ln_ffn_pair`` call.
+exactly where the JAX package calls flash attention (n > 16384 tokens an
+image, or ``gsa_flash``: per frame that is stage 0 only at 440x1024); the
+pre-norm MLP (norm2 + fc1 + gelu + fc2 + residual) is one K2
+``ln_ffn_pair`` call, except under the ``"1dconv"`` hook, where the MLP
+pair alone is K2 ``ffn_pair(residual=False)`` (JAX's fused ``Mlp``,
+layers/common.py:85-101) and the temporal conv and the residual follow.
 """
 
 from __future__ import annotations
@@ -22,7 +36,8 @@ import torch.nn.functional as F
 
 from streamflow_tpu_torch.layers.common import (Mlp, cast, conv2d, layer_norm,
                                                 linear)
-from streamflow_tpu_torch.ops.kernels.ffn_pair import ln_ffn_pair
+from streamflow_tpu_torch.layers.temporal import TinyAttention
+from streamflow_tpu_torch.ops.kernels.ffn_pair import ffn_pair, ln_ffn_pair
 from streamflow_tpu_torch.ops.kernels.flash_attention import flash_attention
 from streamflow_tpu_torch.ops.kernels.lga_attention import lga_attention
 
@@ -113,13 +128,40 @@ class GlobalSubSampleAttn(nn.Module):
         return linear(out.transpose(1, 2).reshape(b, n, c), self.proj)
 
 
+def _dirac_(w: torch.Tensor) -> torch.Tensor:
+    """A conv kernel (O, I, k...) that passes channel o % I through at the
+    centre tap (JAX's dirac init): the identity for O == I."""
+    with torch.no_grad():
+        w.zero_()
+        o, i = w.shape[:2]
+        centre = tuple(k // 2 for k in w.shape[2:])
+        for c in range(o):
+            w[(c, c % i) + centre] = 1.0
+    return w
+
+
 class TwinsBlock(nn.Module):
     """Pre-norm block: x + attn(LN(x)); x + mlp(LN(x)). ``ws=None`` is a
-    GSA block, otherwise LGA with that window."""
+    GSA block, otherwise LGA with that window. ``temporal`` is "none",
+    "attn" or "1dconv" (the per-frame hooks; tokens (B*T, N, C) of t
+    frames)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
-                 sr_ratio: int = 1, ws=None):
+                 sr_ratio: int = 1, ws=None, temporal: str = "none"):
         super().__init__()
+        self.temporal = temporal
+        if temporal == "attn":
+            self.norm0 = nn.LayerNorm(dim, eps=1e-5)
+            self.temporal_attn = TinyAttention(dim, num_heads)
+            self.temporal_fc = nn.Linear(dim, dim)
+            nn.init.zeros_(self.temporal_fc.weight)
+            nn.init.zeros_(self.temporal_fc.bias)
+        elif temporal == "1dconv":
+            self.temporal_conv = nn.Conv1d(dim, dim, 3, padding=1)
+            _dirac_(self.temporal_conv.weight)
+            nn.init.zeros_(self.temporal_conv.bias)
+        elif temporal != "none":
+            raise ValueError(f"unknown temporal hook {temporal!r}")
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         if ws is None:
             self.attn = GlobalSubSampleAttn(dim, num_heads, sr_ratio)
@@ -128,19 +170,39 @@ class TwinsBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
 
-    def forward(self, x, size, gsa_flash: bool = False):
+    def forward(self, x, size, gsa_flash: bool = False, t: int = 1):
+        bt, n, c = x.shape
+
+        def to_time(tok):      # (B*T, N, C) -> (B, N, T, C)
+            return tok.reshape(bt // t, t, n, c).transpose(1, 2)
+
+        def from_time(tok):
+            return tok.transpose(1, 2).reshape(bt, n, c)
+
+        if self.temporal == "attn":
+            tok = self.temporal_attn(to_time(layer_norm(x, self.norm0)))
+            x = x + from_time(linear(tok, self.temporal_fc))
         if isinstance(self.attn, GlobalSubSampleAttn):
             x = x + self.attn(layer_norm(x, self.norm1), size, gsa_flash)
         else:
             x = x + self.attn(layer_norm(x, self.norm1), size)
         n2, fc1, fc2 = self.norm2, self.mlp.fc1, self.mlp.fc2
-        return ln_ffn_pair(x.contiguous(), *(cast(p, x) for p in (
-            n2.weight, n2.bias, fc1.weight, fc1.bias, fc2.weight, fc2.bias)),
-            add_res=True)
+        if self.temporal != "1dconv":
+            return ln_ffn_pair(x.contiguous(), *(cast(p, x) for p in (
+                n2.weight, n2.bias, fc1.weight, fc1.bias, fc2.weight,
+                fc2.bias)), add_res=True)
+        y = ffn_pair(layer_norm(x, n2).contiguous(), *(cast(p, x) for p in (
+            fc1.weight, fc1.bias, fc2.weight, fc2.bias)), residual=False)
+        conv = self.temporal_conv
+        tok = to_time(y).reshape(-1, t, c).transpose(1, 2)   # (B*N, C, T)
+        tok = F.conv1d(tok, cast(conv.weight, x), cast(conv.bias, x),
+                       padding=1)
+        y = from_time(tok.transpose(1, 2).reshape(bt // t, n, t, c))
+        return x + y
 
 
 class _SVT(nn.Module):
-    def __init__(self, cfg=SVT_LARGE, in_chans: int = 3):
+    def __init__(self, cfg=SVT_LARGE, in_chans: int = 3, hook: str = "none"):
         super().__init__()
         dims = cfg["embed_dims"]
         self.patch_embeds = nn.ModuleList(
@@ -150,28 +212,53 @@ class _SVT(nn.Module):
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 TwinsBlock(dims[i], cfg["num_heads"][i], cfg["mlp_ratio"],
-                           cfg["sr_ratios"][i], ws=cfg["ws"]),
+                           cfg["sr_ratios"][i], ws=cfg["ws"], temporal=hook),
                 TwinsBlock(dims[i], cfg["num_heads"][i], cfg["mlp_ratio"],
-                           cfg["sr_ratios"][i], ws=None)])
+                           cfg["sr_ratios"][i], ws=None, temporal=hook)])
             for i in range(2))
 
 
-class TwinsCSC(nn.Module):
-    """(B, T, H, W, 3) -> (B, T, H/8, W/8, 256)."""
+class TwinsEncoder(nn.Module):
+    """(B, T, H, W, 3) -> (B, T, H/8, W/8, 256) (JAX ``_TwinsStages`` and
+    the encoder classes around it). ``temporal=True`` is Twins_CSC's one
+    token grid over all T frames; ``temporal=False`` folds T into the
+    batch, each frame its own grid, with the blocks' ``hook`` ("none",
+    "attn" or "1dconv") and, with ``conv3d``, the final dirac-init 3x3x3
+    ``temporal_conv`` over (T, H, W) added to the output."""
 
-    def __init__(self, gsa_flash: bool = False):
+    def __init__(self, gsa_flash: bool = False, temporal: bool = True,
+                 hook: str = "none", conv3d: bool = False):
         super().__init__()
-        self.gsa_flash = gsa_flash
-        self.svt = _SVT()
+        self.gsa_flash, self.temporal = gsa_flash, temporal
+        self.svt = _SVT(hook=hook)
+        self.hook = hook
+        if conv3d:
+            dim = SVT_LARGE["embed_dims"][-1]
+            self.temporal_conv = nn.Conv3d(dim, dim, 3, padding=1)
+            _dirac_(self.temporal_conv.weight)
+            nn.init.zeros_(self.temporal_conv.bias)
+        else:
+            self.temporal_conv = None
 
-    def forward(self, x):
-        t = x.shape[1]
+    def forward(self, x, train: bool = False):
+        """``train`` is taken for the CNN encoders' sake and unused."""
+        b, t = x.shape[:2]
+        if not self.temporal:
+            x = x.reshape(b * t, 1, *x.shape[2:])
+        t_grid = t if self.temporal else 1
+        t_hook = t if self.hook != "none" else 1
         svt = self.svt
         for i in range(2):
             x, size = svt.patch_embeds[i](x)
             lga, gsa = svt.blocks[i]
-            x = svt.pos_block[i](lga(x, size), size)
-            x = gsa(x, size, self.gsa_flash)
+            x = svt.pos_block[i](lga(x, size, t=t_hook), size)
+            x = gsa(x, size, self.gsa_flash, t=t_hook)
             ht, w = size
-            x = x.reshape(x.shape[0], t, ht // t, w, -1)
+            x = x.reshape(x.shape[0], t_grid, ht // t_grid, w, -1)
+        x = x.reshape(b, t, *x.shape[2:])
+        if self.temporal_conv is not None:
+            conv = self.temporal_conv
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), cast(conv.weight, x),
+                         cast(conv.bias, x), padding=1)
+            x = x + y.permute(0, 2, 3, 4, 1)
         return x

@@ -11,10 +11,13 @@ def create_model(name: str, cfg=None, device="cuda", train: bool = False,
     """Build a model by name ('streamflow', the one the port has so far) on
     ``device``: the card unless the caller asks for ``device="cpu"``; a
     CUDA device without a card raises. ``kwargs`` build the config when
-    ``cfg`` is None.
+    ``cfg`` is None: every ``encoder``, ``update_block`` and ``use_gma``
+    of the JAX config but ``encoder="umt"``, which raises
+    NotImplementedError (ROADMAP A11).
 
     ``train=False``: for inference, parameters in the compute dtype
-    (bf16 under ``mixed_precision``), eval mode, no gradients.
+    (bf16 under ``mixed_precision``; BatchNorm's and GroupNorm's stay f32,
+    as flax's), eval mode, no gradients.
     ``train=True``: f32 parameters that require gradients, train mode; each
     layer casts them to the compute dtype where it uses them, as the JAX
     package's ``dtype=bf16, param_dtype=f32`` modules do."""

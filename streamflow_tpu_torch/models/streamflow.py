@@ -1,5 +1,17 @@
-"""StreamFlow (port of streamflow_tpu/models/streamflow.py::StreamFlow;
-reference SKFlow_MF8, core/models/streamflow.py:30-149).
+"""StreamFlow (port of streamflow_tpu/models/streamflow.py::StreamFlow and
+``_make_encoder``, :55-102, 164-270; reference SKFlow_MF8,
+core/models/streamflow.py:30-149).
+
+Every encoder, decoder and ``use_gma`` value of the JAX config but
+``encoder="umt"`` (ROADMAP A11): the Twins family (``twins_csc``, the
+canonical one; ``twins``, ``twins_1dconv``, ``twins_temporal_attention``,
+``twins_3dconv``), the RAFT CNN per frame (``basic``, ``resnet18`` and
+``mf_basic``, one module as in JAX) and ``res18_3d``; the decoders
+``sk_tam_v3``, ``sk_tam_v1`` (per-frame flow head) and
+``sk_tam_v3_noinit`` (live temporal layer). The CNN encoders' fnet uses
+instance norm and their cnet BatchNorm, whose statistics follow
+``forward``'s ``train`` argument (JAX's ``train``), not
+``nn.Module.train()``.
 
 Images (B, T, H, W, 3) in [0, 255] -> flows (B, T-1, H, W, 2), (x, y).
 Dtype policy as in the JAX package: encoders, GMA and the update block
@@ -15,8 +27,10 @@ autograd) runs the mask head on the last iteration only and
 returns the final flows. Train mode (``test_mode=False``) returns the
 flows of every iteration, (iters, B, T-1, H, W, 2), with the mask head and
 the convex upsampling on every iteration, as JAX's ``compute_mask=None``
-path; with ``cfg.remat`` each refinement step is recomputed in the
-backward (``torch.utils.checkpoint``, the counterpart of ``nn.remat``).
+path; with ``cfg.remat`` and ``train`` each refinement step is
+recomputed in the backward (``torch.utils.checkpoint``, the counterpart
+of JAX's ``nn.remat`` under ``cfg.remat and train``), never the encoders,
+so no BatchNorm runs twice.
 """
 
 from __future__ import annotations
@@ -25,48 +39,72 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from streamflow_tpu_torch.config import StreamFlowConfig
+from streamflow_tpu_torch.config import (CNN_ENCODERS, TWINS_ENCODERS,
+                                         StreamFlowConfig)
+from streamflow_tpu_torch.layers.basic_encoder import (PerFrameBasicEncoder,
+                                                       Res18_3D)
 from streamflow_tpu_torch.layers.gma import GMAAttention
-from streamflow_tpu_torch.layers.twins import TwinsCSC
+from streamflow_tpu_torch.layers.twins import TwinsEncoder
 from streamflow_tpu_torch.layers.update import SKUpdateBlockTAMv3
 from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.kernels.corr_lookup import FusedCorr
 from streamflow_tpu_torch.ops.upsample import convex_upsample
 
-_CANONICAL = dict(encoder="twins_csc", update_block="sk_tam_v3",
-                  motion_encoder="sk6", use_gma=True)
+UPDATE_BLOCKS = ("sk_tam_v3", "sk_tam_v1", "sk_tam_v3_noinit")
+
+
+def make_encoder(cfg: StreamFlowConfig, norm_fn: str) -> nn.Module:
+    """JAX ``_make_encoder``: (B, T, H, W, 3) -> (B, T, H/8, W/8, 256);
+    ``norm_fn`` reaches the CNN encoders ('instance' for the fnet, 'batch'
+    for the cnet)."""
+    if cfg.encoder in TWINS_ENCODERS:
+        return TwinsEncoder(cfg.gsa_flash, *TWINS_ENCODERS[cfg.encoder])
+    if cfg.encoder == "res18_3d":
+        return Res18_3D(256, norm_fn)
+    if cfg.encoder in CNN_ENCODERS:
+        return PerFrameBasicEncoder(256, norm_fn)
+    if cfg.encoder == "umt":
+        raise NotImplementedError(
+            "encoder='umt' is not ported yet (ROADMAP A11: it needs K1 at "
+            "C=768 and K3/B5 at head dim 64)")
+    raise ValueError(f"unknown encoder '{cfg.encoder}'")
 
 
 class StreamFlow(nn.Module):
     def __init__(self, cfg: StreamFlowConfig = StreamFlowConfig()):
         super().__init__()
-        for field, want in _CANONICAL.items():
-            if getattr(cfg, field) != want:
-                raise NotImplementedError(
-                    f"the port runs the canonical StreamFlow only: "
-                    f"{field}={getattr(cfg, field)!r} (want {want!r})")
+        if cfg.update_block not in UPDATE_BLOCKS:
+            raise ValueError(f"unknown update_block '{cfg.update_block}'")
+        if cfg.motion_encoder != "sk6":
+            raise ValueError(f"unknown motion_encoder "
+                             f"'{cfg.motion_encoder}'")
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
-        self.fnet = TwinsCSC(cfg.gsa_flash)
-        self.cnet = TwinsCSC(cfg.gsa_flash)
-        self.att = GMAAttention(cfg.context_dim, cfg.num_heads,
-                                cfg.context_dim)
+        self.fnet = make_encoder(cfg, "instance")
+        self.cnet = make_encoder(cfg, "batch")
+        self.att = (GMAAttention(cfg.context_dim, cfg.num_heads,
+                                 cfg.context_dim) if cfg.use_gma else None)
         self.update_block = SKUpdateBlockTAMv3(
             cfg.hidden_dim, cfg.T - 1, cfg.corr_planes, cfg.k_conv,
-            cfg.pc_updater_conv, cfg.num_heads, cfg.ratio, cfg.dw_impl)
+            cfg.pc_updater_conv, cfg.num_heads, cfg.ratio, cfg.dw_impl,
+            use_gma=cfg.use_gma,
+            joint_flow_head=cfg.update_block != "sk_tam_v1",
+            temporal_zero_init=cfg.update_block != "sk_tam_v3_noinit")
 
     def forward(self, images, iters=None, flow_init=None,
-                test_mode: bool = False):
+                test_mode: bool = False, train: bool = False):
         """Test mode (``test_mode=True``): flows (B, T-1, H, W, 2) f32,
         and with ``flow_init`` (B, T-1, H/8, W/8, 2) also the low-res
         flows. Train mode (the default): the per-iteration flows (iters,
-        B, T-1, H, W, 2) f32."""
+        B, T-1, H, W, 2) f32. ``train`` (JAX's): BatchNorm on batch
+        statistics, updating its running statistics, and ``cfg.remat``
+        in force; the train step passes it."""
         if test_mode:
             with torch.no_grad():
-                return self._run(images, iters, flow_init, True)
-        return self._run(images, iters, flow_init, False)
+                return self._run(images, iters, flow_init, True, train)
+        return self._run(images, iters, flow_init, False, train)
 
-    def _run(self, images, iters, flow_init, test_mode: bool):
+    def _run(self, images, iters, flow_init, test_mode: bool, train: bool):
         cfg = self.cfg
         iters = cfg.iters if iters is None else iters
         b, t = images.shape[:2]
@@ -74,15 +112,16 @@ class StreamFlow(nn.Module):
         assert t == cfg.T, f"model is configured for T={cfg.T}, got {t}"
 
         x = (2.0 * (images.float() / 255.0) - 1.0).to(self.dtype)
-        fmaps = self.fnet(x)
-        cnets = self.cnet(x[:, :-1])
+        fmaps = self.fnet(x, train)
+        cnets = self.cnet(x[:, :-1], train)
         h, w, c = fmaps.shape[2:]
         pyramid = FusedCorr(fmaps[:, :-1].reshape(b * f, h, w, c),
                             fmaps[:, 1:].reshape(b * f, h, w, c),
                             cfg.corr_levels, cfg.corr_radius)
         net, inp = cnets.split(cfg.hidden_dim, dim=-1)
         net, inp = torch.tanh(net), torch.relu(inp)
-        attn = self.att(inp.reshape(b * f, h, w, cfg.context_dim))
+        attn = (None if self.att is None else
+                self.att(inp.reshape(b * f, h, w, cfg.context_dim)))
 
         coords0 = coords_grid(b * f, h, w, images.device).reshape(
             b, f, h, w, 2)
@@ -108,7 +147,7 @@ class StreamFlow(nn.Module):
 
             flows = []
             for _ in range(iters):
-                if cfg.remat:
+                if cfg.remat and train:
                     net, coords1, up = checkpoint(train_step, net, coords1,
                                                   use_reentrant=False)
                 else:

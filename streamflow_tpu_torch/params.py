@@ -1,13 +1,18 @@
-"""Weight bridge between the JAX package's StreamFlow (flax parameters) and
+"""Weight bridge between the JAX package's StreamFlow (flax variables) and
 the port (a ``state_dict`` named after the reference's torch keys).
 
 Both directions run off the port's own copy of the JAX package's checkpoint
-table (``streamflow_tpu_torch/convert.py``): every rule maps a flax path
+tables (``streamflow_tpu_torch/convert.py``): every rule maps a flax path
 (decoder parameters live under the refinement scan's ``step/`` prefix) to a
-torch key and a layout kind. ``from_jax`` moves flax parameters into the
-port; ``to_jax`` moves port tensors (parameters or their gradients) back to
-flax paths and layouts. A released reference ``.pth`` would load into the
-port as it is. Nothing here imports jax or the JAX package.
+torch key and a layout kind. The tables depend on the config's encoder,
+``use_gma`` and kernel sizes (``convert.table_kwargs``); the default is
+the canonical config. The ``params`` collection maps to the port's
+parameters, the ``batch_stats`` collection (the CNN encoders' BatchNorm
+running statistics) to its buffers. ``from_jax`` moves flax variables into
+the port; ``to_jax`` moves port tensors (parameters or their gradients)
+back to flax paths and layouts, and ``to_jax_variables`` a whole
+``state_dict`` with its statistics. A released reference ``.pth`` would
+load into the port as it is. Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from streamflow_tpu_torch.convert import build_mapping, torch_shape_for
+from streamflow_tpu_torch.convert import (TO_FLAX, build_mapping,
+                                          build_stats_mapping, table_kwargs,
+                                          torch_shape_for)
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -31,74 +38,108 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
+def _tables(cfg, k_conv, pc_updater_conv):
+    """(params rules, batch_stats rules) of ``cfg`` (or of the canonical
+    config with these kernel sizes)."""
+    kw = table_kwargs(cfg) or dict(k_conv=tuple(k_conv),
+                                   pc_updater_conv=tuple(pc_updater_conv))
+    return (build_mapping(**kw),
+            build_stats_mapping(kw.get("encoder", "twins_csc")))
+
+
 def _to_torch_layout(kind: str, value: np.ndarray) -> np.ndarray:
-    if kind == "conv":        # (kh, kw, I, O) -> (O, I, kh, kw)
-        return np.transpose(value, (3, 2, 0, 1))
-    if kind == "linear":      # (I, O) -> (O, I)
-        return np.transpose(value, (1, 0))
-    return value
+    if kind not in TO_FLAX:
+        return value
+    return np.transpose(value, np.argsort(TO_FLAX[kind]))
 
 
-def from_jax(flax_params, k_conv=(1, 15), pc_updater_conv=(1, 7)
-             ) -> Dict[str, torch.Tensor]:
-    """flax params (``{'params': ...}`` or the bare tree) -> f32 state_dict.
-    Raises on a JAX leaf no rule consumes, or a leaf of the wrong shape."""
-    tree = flax_params.get("params", flax_params)
-    flat = _flatten(tree)
+def _from_flat(flat, rules, what) -> Dict[str, torch.Tensor]:
     sd, used = {}, set()
-    for dst, src, kind in build_mapping(k_conv, pc_updater_conv):
+    for dst, src, kind in rules:
         optional = kind.endswith("?")
         kind = kind.rstrip("?")
         if dst not in flat:
             if optional:
                 continue
-            raise KeyError(f"JAX params lack '{dst}' (for '{src}')")
+            raise KeyError(f"JAX {what} lack '{dst}' (for '{src}')")
         value = flat[dst]
         want = torch_shape_for(kind, value.shape)
         value = _to_torch_layout(kind, value)
         assert value.shape == tuple(want), (dst, value.shape, want)
-        sd[src] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+        sd[src] = torch.from_numpy(np.array(value, np.float32, order="C"))
         used.add(dst)
     unused = sorted(set(flat) - used)
     if unused:
-        raise KeyError(f"{len(unused)} JAX leaves left unused, e.g. "
+        raise KeyError(f"{len(unused)} JAX {what} leaves left unused, e.g. "
                        f"{unused[:5]}")
     return sd
 
 
-def to_jax(tensors: Dict[str, torch.Tensor], k_conv=(1, 15),
-           pc_updater_conv=(1, 7)) -> Dict[str, np.ndarray]:
-    """Port tensors keyed by parameter name (a ``state_dict``, or the
-    parameters' gradients) -> {flax path: f32 array in the flax layout},
-    the inverse of ``from_jax``. Raises on a key no rule names."""
-    out, used = {}, set()
-    for dst, src, kind in build_mapping(k_conv, pc_updater_conv):
+def from_jax(flax_variables, k_conv=(1, 15), pc_updater_conv=(1, 7),
+             cfg=None) -> Dict[str, torch.Tensor]:
+    """flax variables (``{'params': ...[, 'batch_stats': ...]}``) or a bare
+    params tree -> f32 state_dict (parameters, and the running statistics
+    where ``batch_stats`` is given) of the config ``cfg`` (default: the
+    canonical one). Raises on a JAX leaf no rule consumes, or a leaf of
+    the wrong shape."""
+    rules, stats = _tables(cfg, k_conv, pc_updater_conv)
+    tree = flax_variables.get("params", flax_variables)
+    sd = _from_flat(_flatten(tree), rules, "params")
+    if "params" in flax_variables and "batch_stats" in flax_variables:
+        sd.update(_from_flat(_flatten(flax_variables["batch_stats"]), stats,
+                             "batch_stats"))
+    return sd
+
+
+def _to_flat(tensors, rules, strict=True):
+    out = {}
+    for dst, src, kind in rules:
         if src not in tensors:
-            if kind.endswith("?"):
+            if kind.endswith("?") or not strict:
                 continue
             raise KeyError(f"port tensors lack '{src}' (for '{dst}')")
         value = tensors[src].detach().float().cpu().numpy()
         kind = kind.rstrip("?")
-        if kind == "conv":        # (O, I, kh, kw) -> (kh, kw, I, O)
-            value = np.transpose(value, (2, 3, 1, 0))
-        elif kind == "linear":    # (O, I) -> (I, O)
-            value = np.transpose(value, (1, 0))
+        if kind in TO_FLAX:
+            value = np.transpose(value, TO_FLAX[kind])
         out[dst] = np.ascontiguousarray(value)
-        used.add(src)
-    unused = sorted(set(tensors) - used)
-    if unused:
-        raise KeyError(f"{len(unused)} port tensors left unmapped, e.g. "
-                       f"{unused[:5]}")
     return out
 
 
-def load_jax(model: torch.nn.Module, flax_params) -> None:
-    """Copy JAX params into ``model`` (cast to its dtype). Raises if a port
-    parameter is left unset or a shape disagrees."""
+def to_jax(tensors: Dict[str, torch.Tensor], k_conv=(1, 15),
+           pc_updater_conv=(1, 7), cfg=None) -> Dict[str, np.ndarray]:
+    """Port tensors keyed by parameter name (a ``state_dict``, or the
+    parameters' gradients) -> {flax params path: f32 array in the flax
+    layout}, the inverse of ``from_jax`` on the ``params`` collection; a
+    ``state_dict``'s running statistics are left to
+    ``to_jax_variables``. Raises on a key no rule names."""
+    rules, stats = _tables(cfg, k_conv, pc_updater_conv)
+    known = {src for _, src, _ in rules + stats}
+    unused = sorted(set(tensors) - known)
+    if unused:
+        raise KeyError(f"{len(unused)} port tensors left unmapped, e.g. "
+                       f"{unused[:5]}")
+    return _to_flat(tensors, rules)
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor], cfg=None
+                     ) -> Dict[str, Dict[str, np.ndarray]]:
+    """A port ``state_dict`` -> {'params': {flax path: array}} and, for a
+    config with BatchNorm, 'batch_stats' likewise: the layout of JAX's
+    variables export (training/checkpoint.py::load_variables_npz)."""
+    rules, stats = _tables(cfg, (1, 15), (1, 7))
+    out = {"params": to_jax(state_dict, cfg=cfg)}
+    if stats:
+        out["batch_stats"] = _to_flat(state_dict, stats)
+    return out
+
+
+def load_jax(model: torch.nn.Module, flax_variables) -> None:
+    """Copy JAX variables (params, and batch_stats where the model has
+    BatchNorm) into ``model`` (cast to its tensors' dtypes). Raises if a
+    port parameter or buffer is left unset or a shape disagrees."""
     cfg = getattr(model, "cfg", None)
-    kw = {} if cfg is None else dict(k_conv=tuple(cfg.k_conv),
-                                     pc_updater_conv=tuple(cfg.pc_updater_conv))
-    sd = from_jax(flax_params, **kw)
+    sd = from_jax(flax_variables, cfg=cfg)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

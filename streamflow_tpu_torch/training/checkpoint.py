@@ -3,17 +3,19 @@ streamflow_tpu/training/checkpoint.py; reference: torch.save dict
 {model, optimizer, scheduler, total_steps} + latest.pth
 delete-then-rewrite, train_mf.py:207-212, 264-283).
 
-``CheckpointManager`` keeps the last N train states, one ``step_<n>.pt``
-each, written atomically (a temporary file in the same directory,
+``CheckpointManager`` keeps the last N train states (the BatchNorm
+running statistics with the model's tensors), one ``step_<n>.pt`` each, written atomically (a temporary file in the same directory,
 flushed and fsynced, then ``os.replace``d: no crash window while the
 latest is deleted, SURVEY §5.3), and resumes model, optimizer, schedule
 and step exactly (train_mf.py:149-157).
 
 Flat npz parameter files in the JAX package's layout (:55-92): one array
-per flax path ("params/fnet/.../kernel"), so an npz written by either
-package loads in the other. Into the port: ``params.load_jax(model,
-load_variables_npz(path))``; out of it: ``save_params_npz(path,
-{"params": tree})`` with the tree rebuilt from ``params.to_jax``.
+per flax path ("params/fnet/.../kernel", and "batch_stats/cnet/.../mean"
+for the CNN encoders, the layout JAX's :89 loads), so an npz written by
+either package loads in the other. Into the port: ``params.load_jax(model,
+load_variables_npz(path))`` (batch_stats included); out of it:
+``save_params_npz(path, params.to_jax_variables(model.state_dict(),
+model.cfg))``.
 """
 
 from __future__ import annotations

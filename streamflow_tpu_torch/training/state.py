@@ -1,6 +1,9 @@
 """Train state: the model, its optimizer and schedule, and the step counter
 (port of streamflow_tpu/training/state.py; reference checkpoint dict
-{model, optimizer, scheduler, total_steps}, train_mf.py:207-212)."""
+{model, optimizer, scheduler, total_steps}, train_mf.py:207-212). JAX's
+``model_state`` (BatchNorm's ``batch_stats``) is the model's buffers here:
+updated by the train-mode forward, never by the optimizer, which holds
+the parameters only."""
 
 from __future__ import annotations
 
@@ -39,7 +42,10 @@ class TrainState:
         return self.optimizer.param_groups[0]["lr"]
 
     def state_dict(self) -> Dict[str, Any]:
-        """The model's tensors, AdamW's moments and step counts, the
+        """The model's tensors (its parameters and, for the CNN encoders,
+        the BatchNorm running statistics: JAX's ``TrainState.model_state``,
+        kept out of the optimizer as there), AdamW's moments and step
+        counts, the
         scheduler's state (its ``last_epoch``) and ``step``: references to
         the live tensors, as ``nn.Module.state_dict`` gives them."""
         return {"model": self.model.state_dict(),

@@ -7,22 +7,39 @@ to the state's ``clip``, AdamW under the OneCycle schedule.
 supervised, the one that carries KITTI's ground truth (train_mf.py:240-241).
 
 ``bidirectional``: the batch also carries "flows_bw"/"valids_bw" (the
-backward flow of each pair); the time-reversed clip is folded into the
-batch axis (one forward on 2B clips, exact for the canonical model, which
-has no cross-batch coupling), and its pair q is supervised by the
-backward flow of original pair F-1-q.
+backward flow of each pair), and the time-reversed clip's pair q is
+supervised by the backward flow of original pair F-1-q. Without
+BatchNorm the reversed clip is folded into the batch axis (one forward on
+2B clips, exact: the model has no cross-batch coupling). With BatchNorm
+(the CNN encoders' cnet) the step keeps two applications, so that each
+direction normalises over its own B clips, and, as JAX's step
+(training/step.py:66-75, 104-115), both start from the same pre-step
+running statistics and the second one's update is kept: after the step
+the statistics are one momentum update from the reversed clip alone (the
+first direction's update is dropped).
+
+The forward runs with ``train=True`` (JAX's ``train``): BatchNorm on batch
+statistics, updating its running statistics, and remat in force.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 import torch
 
+from streamflow_tpu_torch.layers.common import BatchNorm
 from streamflow_tpu_torch.training.loss import sequence_loss
 from streamflow_tpu_torch.training.optim import (clip_by_global_norm,
                                                  global_norm)
 from streamflow_tpu_torch.training.state import TrainState
+
+
+def batch_stats(model) -> List[torch.Tensor]:
+    """The model's BatchNorm running statistics (JAX's ``batch_stats``;
+    empty for the Twins encoders)."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm)
+            for t in (m.running_mean, m.running_var)]
 
 
 def make_loss_fn(gamma: float = 0.8, iters: int = 12,
@@ -44,19 +61,32 @@ def make_loss_fn(gamma: float = 0.8, iters: int = 12,
                 metrics = mi
         return total, metrics
 
+    def apply(model, images):
+        return model(images, iters=iters, test_mode=False, train=True)
+
     def loss_fn(model, batch):
         images = batch["images"]
-        if bidirectional:
+        stats = batch_stats(model)
+        if bidirectional and not stats:
             b = images.shape[0]
-            preds = model(torch.cat([images, images.flip(1)]), iters=iters,
-                          test_mode=False)
+            preds = apply(model, torch.cat([images, images.flip(1)]))
             total, metrics = supervise(preds[:, :b], batch["flows"],
                                        batch["valids"])
             bt, mb = supervise(preds[:, b:], batch["flows_bw"].flip(1),
                                batch["valids_bw"].flip(1))
             return total + bt, dict(metrics, epe_bw=mb["epe"])
-        preds = model(images, iters=iters, test_mode=False)
-        return supervise(preds, batch["flows"], batch["valids"])
+        before = [s.clone() for s in stats] if bidirectional else []
+        total, metrics = supervise(apply(model, images), batch["flows"],
+                                   batch["valids"])
+        if not bidirectional:
+            return total, metrics
+        with torch.no_grad():     # the second application starts from
+            for s, s0 in zip(stats, before):   # the pre-step statistics
+                s.copy_(s0)
+        bt, mb = supervise(apply(model, images.flip(1)),
+                           batch["flows_bw"].flip(1),
+                           batch["valids_bw"].flip(1))
+        return total + bt, dict(metrics, epe_bw=mb["epe"])
 
     return loss_fn
 

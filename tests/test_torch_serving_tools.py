@@ -245,6 +245,16 @@ import streamflow_tpu_torch.tools.demo
 import streamflow_tpu_torch.tools.evaluate
 import streamflow_tpu_torch.tools.submit
 import streamflow_tpu_torch.tools.test_memory
+import streamflow_tpu_torch.layers.basic_encoder
+import streamflow_tpu_torch.layers.twins
+from streamflow_tpu_torch.evaluation import GraphedForward
+from streamflow_tpu_torch.models import create_model
+
+import torch
+
+model = create_model("streamflow", device="cpu", encoder="basic", T=2,
+                     iters=1, mixed_precision=False)
+GraphedForward(model, 1)(torch.zeros(1, 2, 16, 16, 3))
 assert "jax" not in sys.modules, "jax imported"
 bad = [m for m in sys.modules if m.split(".")[0] == "streamflow_tpu"]
 assert not bad, bad

@@ -227,16 +227,33 @@ from streamflow_tpu_torch.config import StreamFlowConfig
 from streamflow_tpu_torch.models import create_model
 from streamflow_tpu_torch.params import from_jax, to_jax
 
+import streamflow_tpu_torch.layers.basic_encoder
+import streamflow_tpu_torch.layers.twins
+import streamflow_tpu_torch.training.step
+from streamflow_tpu_torch.params import to_jax_variables
+
+
+def nest(flat):
+    tree = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
 model = create_model("streamflow", cfg=StreamFlowConfig(), device="cpu")
-tree = {}
-for path, value in to_jax(model.state_dict()).items():
-    node = tree
-    *parents, leaf = path.split("/")
-    for p in parents:
-        node = node.setdefault(p, {})
-    node[leaf] = value
-sd = from_jax({"params": tree})
+sd = from_jax({"params": nest(to_jax(model.state_dict()))})
 assert set(sd) == set(model.state_dict())
+for enc in ("twins_temporal_attention", "res18_3d"):
+    cfg = StreamFlowConfig(encoder=enc, update_block="sk_tam_v1",
+                           use_gma=False)
+    model = create_model("streamflow", cfg=cfg, device="cpu")
+    v = {k: nest(t) for k, t in to_jax_variables(model.state_dict(),
+                                                  cfg).items()}
+    assert set(from_jax(v, cfg=cfg)) == set(model.state_dict())
 assert "jax" not in sys.modules, "jax imported"
 bad = [m for m in sys.modules if m.split(".")[0] == "streamflow_tpu"]
 assert not bad, bad
