@@ -109,7 +109,23 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      replay of 'basic' equal to its eager forward bit for bit, and two
      train steps of phase 7's form for 'basic' (bidirectional: two
      applications, the running statistics one update from the reversed
-     clip alone), 'twins_temporal_attention' and 'sk_tam_v1'.
+     clip alone), 'twins_temporal_attention' and 'sk_tam_v1';
+  33. the two-frame baselines (RAFT_MODELS: 'raft', 'raft_gma', 'skflow';
+     models/raft.py), each at full width, bf16, seeded random weights, at
+     validate_sintel_2f's shape and depth (436x1024 padded to 440x1024,
+     32 iterations, B=1): the eager forward with exact launches
+     (raft_launches: K1 32, K3 32 with GMA, K2 384 in skflow), ms/clip,
+     device time, idle share, peak memory; GraphedForward2F's flows equal
+     to eager bit for bit and its replay's kernel nodes; phase 5's
+     accuracy guards at 216x512; two make_train_step_2f steps at
+     train_2f's defaults (B=8, 368x496, 12 iterations): exact launches,
+     every parameter moved, the BatchNorm statistics one update from the
+     batch; then skflow through tools/train_2f.py's loop for 3 steps with
+     a checkpoint and an exact resume. Phases 3 and 6 check and time the
+     two-frame shapes (K1 on the bf16 C=256 fmaps at 1x55x128 and
+     8x46x62, with the f32 body of JAX's f32 cast timed beside; K2's two
+     default forms at SKFlow's six SK blocks, its gru 512 wide, and the
+     384-wide gru without GMA; K3 and B5 on the two-frame GMA grids).
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -118,6 +134,9 @@ entry per kernel and path ("inference": phases 3-4, per clip;
 and that layout's forward and train step; "inference_<config>" and
 "train_step_<config>": the same for each ZOO config, phases 3, 6 and
 32, a bidirectional BatchNorm step's numbers for its two applications;
+"inference_<model>" and "train_step_<model>": the same for each
+two-frame model, phases 3, 6 and 33, per 440x1024 pair of 32
+iterations and per B=8 step;
 "serving": phase 28's
 launches, with phase 3's numbers per 440x1024 clip; "trainer": the
 launches of phase 30's 6 steps, with phase 30's B=8 kernel numbers
@@ -331,6 +350,42 @@ def zoo_launches(name: str, train: bool = False, t: int = T, h: int = 440,
                flash_attention=2 * gma + gsa,
                flash_attention_bwd=2 * (gma + gsa), lga_attention=lga)
     return {kk: ZOO_TRAINED[name] * v for kk, v in one.items()}
+
+# phase 33: the two-frame baselines (models/raft.py), each at full width,
+# bf16, seeded random weights, in inference at validate_sintel_2f's shape
+# and depth (436x1024 padded to 440x1024, 32 iterations, B=1) and in
+# train steps at tools/train_2f.py's defaults (B=8, 368x496, 12
+# iterations, no remat); their paths in the kernels line are
+# "inference_<name>" and "train_step_<name>"
+RAFT_MODELS = ("raft", "raft_gma", "skflow")
+RAFT_ITERS = 32
+RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W, RAFT_TRAIN_ITERS = 8, 368, 496, 12
+# tools/train_2f.py's lr, weight decay and gamma
+RAFT_LR, RAFT_WD, RAFT_GAMMA = 4e-4, 1e-4, 0.8
+RAFT_TRAINER_STEPS, RAFT_TRAINER_CKPT = 3, 2
+RAFT_TRAINER_DIR = os.path.join(ROOT, "build", "chip_smoke_trainer_2f")
+# phase 33's numbers per model (ms/clip eager and graphed, device ms,
+# idle share, peak GiB; ms/step and device ms/step)
+RAFT_TABLE = {}
+
+
+def raft_launches(name: str, train: bool = False) -> dict:
+    """Launches of each kernel in one forward (RAFT_ITERS iterations) or
+    one train step (RAFT_TRAIN_ITERS, no remat) of a two-frame model: K1
+    once per iteration in every model; K3 once per iteration (the GMA
+    aggregate) in raft_gma and skflow; K2 twice (ffn_pair_k1,
+    dwres_pw_ffn_pair) per SK block per iteration in skflow (6 blocks:
+    convc1, convc2, convf2, conv, gru, flow_head); in a step B5's two
+    kernels per K3 call. The batch size changes none."""
+    iters = RAFT_TRAIN_ITERS if train else RAFT_ITERS
+    gma = 0 if name == "raft" else iters
+    out = dict(dict.fromkeys(KERNELS, 0), corr_lookup=iters,
+               flash_attention=gma,
+               ffn_pair=12 * iters if name == "skflow" else 0)
+    if train:
+        out["flash_attention_bwd"] = 2 * gma
+    return out
+
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -706,6 +761,21 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
         h, w = coords.shape[1:3]
         coords[2, 20:] = KB.corr_coords("uniform", 1, h, w, g, dev)[0, 20:]
 
+    def corr_2f_case(nb, h, w):
+        """K1 on a two-frame model's pyramid, C=256, under the jitter
+        traffic: the port feeds K1's bf16 body the bf16 fmaps; JAX's path
+        casts them to f32 (models/raft.py:87), which would run K1's f32
+        body, timed beside it on the same values."""
+        inner = corr_traffic_case("jitter30", nb, h, w, 256, 4, 4)
+
+        def make(dt):
+            run, plain, flops, args, lib, _ = inner(dt)
+            f32 = [t.float() for t in args[:-1]]
+            return (run, plain, flops, args, lib,
+                    ("K1's f32 body on the fmaps cast to f32 (JAX's path)",
+                     lambda: K1.corr_lookup(f32[0], f32[1:], args[-1], 4)))
+        return make
+
     # token grids at 1/8 and 1/4 of the padded clip; the refinement kernels
     # (SK pairs, GMA, K1) run on batch*(T-1) frame pairs, the flow head's
     # pair on batch grids with the pairs in their channels; the Twins
@@ -886,10 +956,40 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
         cases.append(("corr_lookup", f"tail {label}",
                       corr_traffic_case(*args), 0, every))
 
+    # phase 33's two-frame models among the paths, at their own shapes:
+    # validate_sintel_2f's 440x1024 grid of one pair (RAFT_ITERS calls a
+    # clip) or train_2f's RAFT_TRAIN_B pairs of 368x496 (RAFT_TRAIN_ITERS
+    # a step); SKFlow's six SK blocks (its gru 512 wide, with GMA) in the
+    # default layout; the 384-wide gru of SKFlow without GMA, on no path
+    # of this run, checked and timed ("timed")
+    two = tuple(m for m in summaries if m in RAFT_MODELS)
+    if two:
+        nb, gh, gw, calls2 = ((RAFT_TRAIN_B, RAFT_TRAIN_H // 8,
+                               RAFT_TRAIN_W // 8, RAFT_TRAIN_ITERS) if train
+                              else (1, 440 // 8, 1024 // 8, RAFT_ITERS))
+        rows, n2 = nb * gh * gw, gh * gw
+        cases.append(("corr_lookup",
+                      f"2f jitter30 {nb}x{gh}x{gw}x256 4 levels r4",
+                      corr_2f_case(nb, gh, gw), calls2, two))
+        blocks = [(324, 256, calls2), (256, 192, calls2), (128, 64, calls2),
+                  (256, 126, calls2), (512, 128, calls2), (128, 2, calls2),
+                  (384, 128, "timed")]
+        for c, co, where in blocks:
+            ch = int(1.5 * c)
+            paths = (("skflow",) if where != "timed" else ("timed",))
+            for form, out in (("ffn_pair_k1", c), ("dwres_pw_ffn_pair", co)):
+                cases.append(("ffn_pair", f"2f {form} {rows}x{c}-{ch}-{out}",
+                              ffn_case(form, rows, c, ch, out), calls2,
+                              paths))
+        cases.append(("flash_attention", f"2f gma bh{nb} n{n2} m{n2} d128",
+                      flash_case((nb, 1), n2, n2, 128), calls2,
+                      tuple(m for m in two if m != "raft")))
+
     for kernel, label, make, calls, layouts, *traffic in cases:
         traffic = traffic[0] if traffic else None
+        timed_only = "timed" in layouts
         layouts = tuple(lt for lt in layouts if lt in summaries)
-        if not layouts or (batch > 1 and not calls):
+        if not (layouts or timed_only) or (batch > 1 and not calls):
             continue
         for dt in (torch.float32, torch.bfloat16):
             run, plain, flops, inputs, library, aside = make(dt)
@@ -925,7 +1025,8 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
                     f"FLOP, {io:.4g} B; achieved {flops / ms / 1e9:.1f} "
                     f"TFLOP/s, {io / ms / 1e6:.0f} GB/s) library "
                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
-                    + f"; calls per {path} {calls} ({'/'.join(layouts)})"
+                    + f"; calls per {path} {calls} ("
+                    + ("/".join(layouts) or "on no path of this run") + ")"
                     + extra)
             del got, want
         torch.cuda.empty_cache()
@@ -1143,13 +1244,16 @@ def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W) -> None:
 
 
 # ---------------------------------------------------------------- phase 6
-def backward_checks(dev, summaries, batch=1, zoo=None) -> None:
+def backward_checks(dev, summaries, batch=1, zoo=None,
+                    two_frame=None) -> None:
     """B5, with K3's output and lse, against their plain versions at the
     training shapes of ``batch`` clips (f32, bf16; bf16 timed beside its
     bound and SDPA's backward, summed over one train step's calls into
     each of ``summaries`` and of the ZOO configs' ``zoo`` ({name:
-    summary}) whose step runs that case), and, at batch=1 only, B5's
-    tails and each kernel wrapper's forward (f32, bf16) and gradient
+    summary}) whose step runs that case), at the two-frame models' GMA
+    grid (phase 33's step: RAFT_TRAIN_B pairs of 368x496) into
+    ``two_frame``'s ({name: summary}) with GMA, and, at batch=1 only,
+    B5's tails and each kernel wrapper's forward (f32, bf16) and gradient
     (f32) against its plain version: neither depends on the batch."""
     import torch
     import torch.nn.functional as F
@@ -1192,6 +1296,11 @@ def backward_checks(dev, summaries, batch=1, zoo=None) -> None:
                               (batch * t, nh), hh * ww,
                               (hh // sr) * (ww // sr), 32, 1,
                               zoo_with(frame=True)))
+    gma2 = [sm for m, sm in (two_frame or {}).items() if m != "raft"]
+    if gma2:
+        n2 = (RAFT_TRAIN_H // 8) * (RAFT_TRAIN_W // 8)
+        cases.append(("2f gma", (RAFT_TRAIN_B, 1), n2, n2, 128,
+                      RAFT_TRAIN_ITERS, gma2))
     # B5's tails (128 resident and 64 walked rows a block): one query row,
     # fewer keys than one tile, ragged query and key counts
     tails = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
@@ -2270,6 +2379,323 @@ def zoo_train_steps(dev, name) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 33
+def make_pair(dev, h=H, w=W, b=1, seed=SEED):
+    """A seeded pair of b x h x w uint8-range images, padded in 'sintel'
+    mode, on ``dev``."""
+    import torch
+
+    from streamflow_tpu_torch.ops.padding import InputPadder
+
+    g = torch.Generator().manual_seed(seed)
+    padder = InputPadder((h, w, 3), mode="sintel")
+    return tuple(padder.pad(torch.randint(0, 256, (b, h, w, 3),
+                                          generator=g).float()).to(dev)
+                 for _ in range(2))
+
+
+def raft_forward(dev, name) -> dict:
+    """The two-frame model ``name`` at validate_sintel_2f's shape and depth
+    (bf16, seeded random weights): the eager test-mode forward with exact
+    launches (raft_launches), finite flows of the padded shape, ms/clip,
+    device time, idle share and peak memory; then GraphedForward2F: its
+    flows equal the eager ones bit for bit, one replay runs each port
+    kernel as often as the eager forward launches it, ms/clip and device
+    time. Keeps the numbers in RAFT_TABLE; returns the launches."""
+    import torch
+
+    from streamflow_tpu_torch.evaluation import GraphedForward2F
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools.common import host_ms
+
+    held = torch.cuda.memory_allocated()
+    model = create_model(name, device=dev, iters=RAFT_ITERS)
+    init_weights(model, SEED)
+    im1, im2 = make_pair(dev)
+    hp, wp = im1.shape[1:3]
+
+    def eager():
+        return model(im1, im2, test_mode=True)
+
+    eager()                                     # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lowres, flow = eager()
+    torch.cuda.synchronize()
+    counts, expected = dict(LAUNCHES), raft_launches(name)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"forward 2f {name!r} launches {json.dumps(counts)} expected "
+        f"{json.dumps(expected)}")
+    assert counts == expected, "launch counts differ"
+    assert flow.shape == (1, hp, wp, 2) and lowres.shape == (
+        1, hp // 8, wp // 8, 2), (flow.shape, lowres.shape)
+    assert bool(torch.isfinite(flow).all()), "non-finite flows"
+    mag = flow.norm(dim=-1)
+    ms_e = host_ms(eager, REPS, dev)
+    prof_e = profile_device(eager, ms_e[0], f"forward_{name}")
+
+    fwd = GraphedForward2F(model, RAFT_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = fwd(im1, im2)
+    assert torch.equal(got, flow), "the graph's flows differ from eager"
+    assert torch.equal(fwd(im1, im2), flow), "a second replay differs"
+    peak_g = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    nodes, other = replay_kernel_counts(lambda: fwd(im1, im2))
+    want = {k: v for k, v in expected.items() if v}
+    log(f"graph 2f {name!r} kernel nodes in one replay {json.dumps(nodes)} "
+        f"expected {json.dumps(want)} (and {other} kernels of PyTorch and "
+        f"its libraries)")
+    assert nodes == want, "the graph's kernels differ from the eager launches"
+    ms_g = host_ms(lambda: fwd(im1, im2), REPS, dev)
+    prof_g = profile_device(lambda: fwd(im1, im2), ms_g[0],
+                            f"graph_{name}")
+    RAFT_TABLE[name] = dict(
+        ms_clip=round(ms_e[0], 3), ms_clip_graph=round(ms_g[0], 3),
+        device_ms=round(prof_e["total_ms"], 3),
+        device_ms_graph=round(prof_g["total_ms"], 3),
+        idle=round(prof_e["idle"], 4), idle_graph=round(prof_g["idle"], 4),
+        peak_gib=round(peak, 3), peak_gib_graph=round(peak_g, 3))
+    log(f"forward 2f {name!r} {tuple(im1.shape)} {RAFT_ITERS} iterations "
+        f"bf16: ms/clip eager {ms_e[0]:.3f} (mean of {REPS}, min "
+        f"{ms_e[1]:.3f}), graph {ms_g[0]:.3f} (min {ms_g[1]:.3f}); device "
+        f"ms {prof_e['total_ms']:.3f} / {prof_g['total_ms']:.3f}; idle "
+        f"share {prof_e['idle']:.4f} / {prof_g['idle']:.4f}; peak GiB above "
+        f"what the process held {peak:.3f} / {peak_g:.3f}; the graph's "
+        f"flows equal eager bit for bit; |flow| px mean "
+        f"{float(mag.mean()):.4g} max {float(mag.max()):.4g}")
+    del model, fwd
+    return counts
+
+
+def raft_guards(dev, name, h=ZOO_GUARD_H, w=ZOO_GUARD_W) -> None:
+    """Phase 5's accuracy guards for a two-frame model: iters=1, one h x w
+    pair, the same weights, the kernel path on the card and the plain
+    path on the CPU, each in f32 and bf16, against the f32 plain path."""
+    import copy
+
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.tools.common import rel_epe
+
+    im1, im2 = make_pair("cpu", h, w)
+    flows = {}
+    for dtype in ("float32", "bfloat16"):
+        cpu_model = create_model(name, device="cpu", iters=1,
+                                 mixed_precision=dtype == "bfloat16")
+        init_weights(cpu_model, SEED + 1)
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        flows[dtype, "card"] = gpu_model(im1.to(dev), im2.to(dev),
+                                         test_mode=True)[1].float().cpu()
+        flows[dtype, "cpu"] = cpu_model(im1, im2, test_mode=True)[1].float()
+    ref = flows["float32", "cpu"]
+    mag = ref.norm(dim=-1)
+    f32 = rel_epe(flows["float32", "card"], ref)
+    bf16, bf16_plain = (rel_epe(flows["bfloat16", where], ref)
+                        for where in ("card", "cpu"))
+    log(f"accuracy guard 2f {name!r} {h}x{w} iters=1 against the f32 plain "
+        f"path (|flow_ref| px mean {float(mag.mean()):.4g} max "
+        f"{float(mag.max()):.4g}), rel EPE global / per-pixel p99: f32 "
+        f"kernels {f32[0]:.3e} / {f32[1]:.3e} (bound {F32_GUARD_TOL} each);"
+        f" bf16 kernels {bf16[0]:.3e} / {bf16[1]:.3e}, bf16 plain "
+        f"{bf16_plain[0]:.3e} / {bf16_plain[1]:.3e} (bound "
+        f"{BF16_GUARD_RATIO}x the plain)")
+    assert all(math.isfinite(v) and v < F32_GUARD_TOL for v in f32), f32
+    assert all(math.isfinite(k) and k <= BF16_GUARD_RATIO * p
+               for k, p in zip(bf16, bf16_plain)), (bf16, bf16_plain)
+
+
+def raft_train_steps(dev, name) -> dict:
+    """Two make_train_step_2f steps of ``name`` (f32 parameters, bf16
+    compute, seeded weights and batch) at train_2f's defaults: the first
+    step's launches exactly (B5 counting its two kernels),
+    finite losses, every parameter moved; the running statistics after
+    the first step equal one update from the batch's first images (the
+    cnet's train-mode forward of them from the pre-step statistics) and
+    move again in the second; ms/step, device ms of a profiled step, idle
+    share and peak memory."""
+    import copy
+
+    import torch
+
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools.train_bench import synthetic_batch
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import (batch_stats,
+                                                    make_train_step_2f)
+
+    held = torch.cuda.memory_allocated()
+    model = create_model(name, device=dev, train=True,
+                         iters=RAFT_TRAIN_ITERS)
+    init_weights(model, SEED)
+    state = TrainState.create(model, lr=RAFT_LR, num_steps=100_000,
+                              weight_decay=RAFT_WD)
+    batch = synthetic_batch(RAFT_TRAIN_B, 2, RAFT_TRAIN_H, RAFT_TRAIN_W,
+                            SEED, dev)
+    step = make_train_step_2f(RAFT_GAMMA, RAFT_TRAIN_ITERS)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ref = copy.deepcopy(model)
+    with torch.no_grad():
+        x = (2.0 * (batch["images"][:, 0] / 255.0) - 1.0).to(ref.dtype)
+        ref.cnet(x, True)
+    derived = [t.clone() for t in batch_stats(ref)]
+    del ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            counts = dict(LAUNCHES)
+            after1 = [t.clone() for t in batch_stats(model)]
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    expected = raft_launches(name, True)
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    err = max(float(((a - b).abs() / (b.abs() + 1e-3)).max())
+              for a, b in zip(after1, derived))
+    moved = all(not torch.equal(a, b)
+                for a, b in zip(batch_stats(model), after1))
+    prof = profile_device(lambda: step(state, batch), times[1],
+                          f"train_step_{name}")
+    RAFT_TABLE.setdefault(name, {}).update(
+        ms_step=[round(t, 3) for t in times],
+        device_ms_step=round(prof["total_ms"], 3),
+        idle_step=round(prof["idle"], 4), peak_gib_step=round(peak, 3))
+    log(f"train step 2f {name!r} B={RAFT_TRAIN_B} {RAFT_TRAIN_H}x"
+        f"{RAFT_TRAIN_W} iters {RAFT_TRAIN_ITERS} bf16 + f32 params: "
+        f"launches {json.dumps(counts)} expected {json.dumps(expected)}; "
+        f"loss, grad_norm {losses}; ms per step "
+        f"{[round(t, 1) for t in times]} (the first with its warm-up), "
+        f"device ms {prof['total_ms']:.3f}, idle share {prof['idle']:.4f}, "
+        f"peak GiB above what the process held {peak:.3f}; "
+        f"{len(before) - len(still)} of {len(before)} parameters moved; "
+        f"running statistics after step 1 against one update from the "
+        f"batch: max rel err {err:.3e} (bound 1e-3); {len(after1)} moved "
+        f"again in step 2: {moved}")
+    assert counts == expected, "train launch counts differ"
+    assert all(math.isfinite(v) for pair in losses for v in pair), losses
+    assert not still, f"parameters that did not move: {still[:5]}"
+    assert len(after1) == 30 and err <= 1e-3 and moved, (err, moved)
+    del state, batch, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def raft_trainer(dev) -> None:
+    """SKFlow through tools/train_2f.py's loop (``train``) at its defaults
+    (B=8, 368x496, 12 iterations, bf16) on in-memory pairs for
+    RAFT_TRAINER_STEPS steps, checkpointing at step RAFT_TRAINER_CKPT and
+    at the end: launches per step exactly, finite metrics every step,
+    the last checkpoint restored into a fresh state equal to the live one
+    bit for bit (parameters, AdamW state, running statistics, step, lr),
+    and one more step from each giving the same loss."""
+    import shutil
+
+    import torch
+
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools import train_2f
+    from streamflow_tpu_torch.tools.train_bench import synthetic_batch
+    from streamflow_tpu_torch.training.checkpoint import CheckpointManager
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import make_train_step_2f
+
+    shutil.rmtree(RAFT_TRAINER_DIR, ignore_errors=True)
+    args = train_2f.build_parser().parse_args([
+        "--model", "sk", "--num_steps", str(RAFT_TRAINER_STEPS),
+        "--val_freq", str(RAFT_TRAINER_CKPT), "--print_freq", "1",
+        "--output", RAFT_TRAINER_DIR])
+    b, (h, w) = args.batch_size, args.image_size
+    assert (b, h, w, args.iters, args.lr, args.wdecay, args.gamma) == (
+        RAFT_TRAIN_B, RAFT_TRAIN_H, RAFT_TRAIN_W, RAFT_TRAIN_ITERS, RAFT_LR,
+        RAFT_WD, RAFT_GAMMA), vars(args)
+    assert args.mixed_precision and args.device == "cuda"
+    dataset = MemoryClips(4 * b, 2, h, w)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    run = train_2f.train(args, dataset)
+    run_s = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    want = {k: RAFT_TRAINER_STEPS * v
+            for k, v in raft_launches("skflow", True).items()}
+    state = run.state
+    out = os.path.join(RAFT_TRAINER_DIR, args.name)
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    gaps = [round(1e3 * (t1 - t0), 1)
+            for t0, t1 in zip(run.step_t, run.step_t[1:])]
+    log(f"trainer 2f 'skflow': {RAFT_TRAINER_STEPS} steps in {run_s:.1f} s "
+        f"(ms between the ends of steps {gaps}, checkpoint saves "
+        f"{[round(1e3 * x, 1) for x in run.save_s]} ms); launches "
+        f"{json.dumps(counts)} expected {json.dumps(want)}; losses "
+        f"{[round(r['loss'], 6) for r in records]}")
+    assert counts == want, "trainer launches"
+    assert state.step == RAFT_TRAINER_STEPS
+    assert [r["step"] for r in records] == list(
+        range(1, RAFT_TRAINER_STEPS + 1)), records
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in records), records
+
+    mgr = CheckpointManager(os.path.join(out, "ckpts"))
+    assert mgr.all_steps() == [RAFT_TRAINER_CKPT, RAFT_TRAINER_STEPS]
+    fresh = create_model("skflow", cfg=state.model.cfg, device=dev,
+                         train=True)
+    restored = mgr.restore(TrainState.create(
+        fresh, args.lr, args.num_steps, args.wdecay, clip=args.clip))
+    live_sd, rest_sd = state.model.state_dict(), restored.model.state_dict()
+    for k, t in live_sd.items():
+        assert torch.equal(t, rest_sd[k]), k
+    live_opt = state.optimizer.state_dict()["state"]
+    rest_opt = restored.optimizer.state_dict()["state"]
+    for i, st in live_opt.items():
+        for k, v in st.items():
+            assert torch.equal(v, rest_opt[i][k]), (i, k)
+    assert (restored.step, restored.lr) == (state.step, state.lr)
+    batch = synthetic_batch(b, 2, h, w, SEED + 8, dev)
+    step = make_train_step_2f(args.gamma, args.iters)
+    l_live = float(step(state, batch)["loss"])
+    l_rest = float(step(restored, batch)["loss"])
+    rel = abs(l_rest - l_live) / abs(l_live)
+    log(f"trainer 2f checkpoint: step {RAFT_TRAINER_STEPS} restored into a "
+        f"fresh state equals the live one bit for bit ({len(live_sd)} "
+        f"tensors, the 30 running statistics among them; AdamW state, step, "
+        f"lr); one more step: loss live {l_live!r} restored {l_rest!r}, "
+        f"rel diff {rel:.3e} (bound {GRAD_TOL})")
+    assert rel <= GRAD_TOL, (l_live, l_rest)
+    del run, state, restored, fresh
+    shutil.rmtree(RAFT_TRAINER_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def raft_phase(dev) -> dict:
+    """The two-frame baselines (RAFT_MODELS): each one's forward and graph
+    at 440x1024 with 32 iterations, its accuracy guards at
+    ZOO_GUARD_H x ZOO_GUARD_W and two train steps at train_2f's defaults;
+    then SKFlow through train_2f's loop with a checkpoint and an exact
+    resume. Returns the launches of each path."""
+    counts = {}
+    for name in RAFT_MODELS:
+        counts["inference_" + name] = raft_forward(dev, name)
+        raft_guards(dev, name)
+        counts["train_step_" + name] = raft_train_steps(dev, name)
+    raft_trainer(dev)
+    log("two-frame baselines (NVIDIA card as above): 440x1024 "
+        f"{RAFT_ITERS} iterations bf16 B=1, and steps at B={RAFT_TRAIN_B} "
+        f"{RAFT_TRAIN_H}x{RAFT_TRAIN_W} {RAFT_TRAIN_ITERS} iterations: "
+        + json.dumps(RAFT_TABLE))
+    return counts
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -2325,9 +2751,13 @@ def main() -> None:
     def per_zoo(path, names):
         return {z: summary[f"{path}_{z}"] for z in names}
 
+    for name in RAFT_MODELS:
+        summary["inference_" + name] = new_summary()
+        summary["train_step_" + name] = new_summary()
+
     phase(3, "kernels", kernel_checks, dev,
-          {**per_layout("inference"), **per_zoo("inference", ZOO)}, 440,
-          1024, False)
+          {**per_layout("inference"), **per_zoo("inference", ZOO),
+           **per_zoo("inference", RAFT_MODELS)}, 440, 1024, False)
     refs, ms_clip = {}, {}
     counts["inference"], ms_clip["auto"] = phase(4, "forward", full_forward,
                                                  dev, "auto")
@@ -2335,10 +2765,11 @@ def main() -> None:
 
     def training_kernels():
         zoo = per_zoo("train_step", ZOO_TRAINED)
-        kernel_checks(dev, {**per_layout("train_step"), **zoo}, TRAIN_H,
-                      TRAIN_W, True)
+        two = per_zoo("train_step", RAFT_MODELS)
+        kernel_checks(dev, {**per_layout("train_step"), **zoo, **two},
+                      TRAIN_H, TRAIN_W, True)
         backward_checks(dev, list(per_layout("train_step").values()),
-                        zoo=zoo)
+                        zoo=zoo, two_frame=two)
         # a bidirectional BatchNorm step runs the path twice
         for name, apps in ZOO_TRAINED.items():
             for s in zoo[name].values():
@@ -2373,7 +2804,8 @@ def main() -> None:
         30, "trainer", trainer_phase, dev)
     phase(31, "stage forms", stage_forms_phase, dev)
     counts.update(phase(32, "ablation configs", zoo_phase, dev))
-    log(f"phases 3-32: {time.perf_counter() - t_start:.1f} s after the "
+    counts.update(phase(33, "two-frame baselines", raft_phase, dev))
+    log(f"phases 3-33: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

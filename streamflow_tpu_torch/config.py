@@ -1,4 +1,5 @@
-"""Configuration of the port's StreamFlow.
+"""Configuration of the port's StreamFlow and of its two-frame baselines
+(RAFT, RAFT-GMA, SKFlow: ``RAFTConfig``).
 
 The port's own copy of the JAX package's ``StreamFlowConfig``: the same
 fields with the same defaults (the released configuration: Twins_CSC
@@ -99,3 +100,53 @@ class StreamFlowConfig:
     @property
     def corr_planes(self) -> int:
         return self.corr_levels * (2 * self.corr_radius + 1) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RAFTConfig:
+    """The port's copy of the JAX package's ``RAFTConfig``
+    (streamflow_tpu/config.py:235-258; reference core/models/raft.py:71-190,
+    raftgma.py, sk_decoder.py): the same fields with the same defaults
+    (hidden and context 128, 4 levels of radius 4, 12 iterations, bf16).
+
+    ``update_block`` picks the decoder: ``'raft'`` (BasicUpdateBlock),
+    ``'gma'`` (GMAUpdateBlock) or ``'sk'`` (SKUpdateBlockAllDecoder, with
+    GMA when ``use_gma``). ``encoder`` is the RAFT CNN, the only one JAX's
+    RAFT builds.
+
+    ``corr_impl``, ``attn_impl``, ``dw_impl`` and ``dropout`` are accepted
+    and ignored, as StreamFlowConfig's TPU fields are: the lookup is K1
+    (``FusedCorr``) and GMA K3 in flash form on a CUDA tensor, their plain
+    versions on a CPU tensor, and the SK blocks run the default
+    (edge-fused) layout, K2 ``ffn_pair_k1``, the depthwise conv, K2
+    ``dwres_pw_ffn_pair``. JAX ignores ``dw_impl`` too: its RAFT never
+    hands it to the SK blocks (layers/update.py:234-252)."""
+
+    encoder: str = "basic"
+    update_block: str = "raft"
+    hidden_dim: int = 128
+    context_dim: int = 128
+    corr_levels: int = 4
+    corr_radius: int = 4
+    num_heads: int = 1
+    use_gma: bool = False
+    k_conv: Sequence[int] = (1, 15)
+    pc_updater_conv: Sequence[int] = (1, 7)
+    iters: int = 12
+    mixed_precision: bool = True
+    corr_impl: str = "xla"
+    attn_impl: str = "full"
+    dw_impl: str = "auto"
+    dropout: float = 0.0
+
+    @property
+    def corr_planes(self) -> int:
+        return self.corr_levels * (2 * self.corr_radius + 1) ** 2
+
+    @property
+    def uses_gma(self) -> bool:
+        """Whether the model computes GMA's attention: always with the
+        'gma' block, with the 'sk' block under ``use_gma`` (JAX
+        models/raft.py:98-100)."""
+        return self.update_block == "gma" or (self.update_block == "sk"
+                                              and self.use_gma)

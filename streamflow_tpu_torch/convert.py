@@ -1,12 +1,15 @@
-"""The checkpoint tables of StreamFlow: flax variable paths of the JAX
-package's model against the reference's torch keys, for every config the
-port runs.
+"""The checkpoint tables of StreamFlow and of the two-frame baselines:
+flax variable paths of the JAX package's models against the reference's
+torch keys, for every config the port runs, and the conversion of a
+reference ``.pth`` into flax variables (``tools/convert.py``).
 
-The port's own copy of ``build_mapping``, ``_bn``, ``_basic_encoder`` and
-``torch_shape_for`` from ``streamflow_tpu/convert/torch_import.py`` (plain
-Python, no JAX), widened to the ablation configs: the port names its
-parameters after the torch keys, so these tables are what move weights
-(and gradients, and BatchNorm statistics) between the two packages.
+The port's own copy of ``build_mapping``, ``_bn``, ``_basic_encoder``,
+``build_raft_mapping``, ``convert_raft_checkpoint``,
+``convert_streamflow_checkpoint``, ``load_torch_checkpoint`` and
+``torch_shape_for`` from ``streamflow_tpu/convert/torch_import.py``
+(no JAX), widened to the ablation configs: the port names its parameters
+after the torch keys, so these tables are what move weights (and
+gradients, and BatchNorm statistics) between the two packages.
 
 Where the JAX package's table has the reference's keys (the Twins stages,
 the RAFT CNN of ``_basic_encoder`` with its ``running_mean`` and
@@ -33,9 +36,12 @@ A trailing ``?`` marks a leaf that may be absent (a bias-free layer).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
-from streamflow_tpu_torch.config import CNN_ENCODERS, TWINS_ENCODERS
+import numpy as np
+
+from streamflow_tpu_torch.config import (CNN_ENCODERS, TWINS_ENCODERS,
+                                         RAFTConfig)
 
 # (dst flax path, src torch key, kind)
 Rule = Tuple[str, str, str]
@@ -137,13 +143,16 @@ def _norm(dst, src, kind: str) -> Tuple[List[Rule], List[Rule]]:
 def _residual_block(dst, src, norm_fn: str, down: bool):
     rules, stats = _conv(f"{dst}/conv1", f"{src}.conv1"), []
     rules += _conv(f"{dst}/conv2", f"{src}.conv2")
-    names = ("norm1", "norm2") + (("norm3",) if down else ())
+
+    def norm(n):
+        p, st = _norm(f"{dst}/{n}", f"{src}.{n}", norm_fn)
+        rules.extend(p)
+        stats.extend(st)
+    norm("norm1")
+    norm("norm2")
     if down:
         rules += _conv(f"{dst}/downsample", f"{src}.downsample.0")
-    for n in names:
-        p, st = _norm(f"{dst}/{n}", f"{src}.{n}", norm_fn)
-        rules += p
-        stats += st
+        norm("norm3")
     return rules, stats
 
 
@@ -251,6 +260,148 @@ def table_kwargs(cfg) -> dict:
     return dict(k_conv=tuple(cfg.k_conv),
                 pc_updater_conv=tuple(cfg.pc_updater_conv),
                 encoder=cfg.encoder, use_gma=cfg.use_gma)
+
+
+def build_raft_mapping(update_block: str = "raft",
+                       k_conv: Sequence[int] = (1, 15),
+                       pc_updater_conv: Sequence[int] = (1, 7),
+                       use_gma: Optional[bool] = None
+                       ) -> Tuple[List[Rule], List[Rule]]:
+    """(params rules, batch_stats rules) of the two-frame baselines
+    (reference core/models/raft.py:71-190, raftgma.py,
+    sk_decoder.py:79-209): the RAFT CNN fnet (instance norm) and cnet
+    (BatchNorm), then BasicUpdateBlock / GMAUpdateBlock /
+    SKUpdateBlock6_Deep_nopoolres_AllDecoder (core/update.py:1932-1953,
+    2245-2268, 410-448) under the refinement scan's ``step/`` prefix.
+    ``use_gma`` None takes JAX's rule, GMA with 'gma' and 'sk'; the
+    bridge passes the config's (``RAFTConfig.uses_gma``)."""
+    rules, stats = _basic_encoder("fnet", "fnet", "instance")
+    r2, s2 = _basic_encoder("cnet", "cnet", "batch")
+    rules += r2
+    stats += s2
+
+    ub_s, ub_d = "update_block", "step/update_block"
+    if update_block == "sk":
+        enc = f"{ub_s}.encoder"
+        rules += _sk_block(f"{ub_d}/encoder/convc1", f"{enc}.convc1", k_conv)
+        rules += _sk_block(f"{ub_d}/encoder/convc2", f"{enc}.convc2", k_conv)
+        rules += _conv(f"{ub_d}/encoder/convf1", f"{enc}.convf1")
+        rules += _sk_block(f"{ub_d}/encoder/convf2", f"{enc}.convf2", k_conv)
+        rules += _sk_block(f"{ub_d}/encoder/conv", f"{enc}.conv", k_conv)
+        rules += _sk_block(f"{ub_d}/gru", f"{ub_s}.gru", pc_updater_conv)
+        rules += _sk_block(f"{ub_d}/flow_head", f"{ub_s}.flow_head", k_conv)
+    else:
+        for c in ("convc1", "convc2", "convf1", "convf2", "conv"):
+            rules += _conv(f"{ub_d}/encoder/{c}", f"{ub_s}.encoder.{c}")
+        for tn, jn in (("1", "h"), ("2", "v")):
+            for g in ("convz", "convr", "convq"):
+                rules += _conv(f"{ub_d}/gru/{g}_{jn}", f"{ub_s}.gru.{g}{tn}")
+        rules += _conv(f"{ub_d}/flow_head/conv1", f"{ub_s}.flow_head.conv1")
+        rules += _conv(f"{ub_d}/flow_head/conv2", f"{ub_s}.flow_head.conv2")
+    rules += _conv(f"{ub_d}/mask/conv1", f"{ub_s}.mask.0")
+    rules += _conv(f"{ub_d}/mask/conv2", f"{ub_s}.mask.2")
+    if use_gma is None:
+        use_gma = update_block in ("gma", "sk")
+    if use_gma:
+        rules += _conv("att/to_qk", "att.to_qk")
+        rules += _conv(f"{ub_d}/aggregator/to_v", f"{ub_s}.aggregator.to_v")
+        rules += [(f"{ub_d}/aggregator/gamma", f"{ub_s}.aggregator.gamma",
+                   "raw")]
+    return rules, stats
+
+
+def tables(cfg) -> Tuple[List[Rule], List[Rule]]:
+    """(params rules, batch_stats rules) of a config of either package:
+    a RAFTConfig's, a StreamFlowConfig's, or the canonical StreamFlow's
+    for None."""
+    if cfg is not None and cfg.update_block in ("raft", "gma", "sk"):
+        return build_raft_mapping(cfg.update_block, tuple(cfg.k_conv),
+                                  tuple(cfg.pc_updater_conv),
+                                  RAFTConfig.uses_gma.fget(cfg))
+    kw = table_kwargs(cfg)
+    return build_mapping(**kw), build_stats_mapping(
+        kw.get("encoder", "twins_csc"))
+
+
+# ---------------------------------------------------------------- .pth
+def apply_rule(kind: str, value: np.ndarray) -> np.ndarray:
+    """A torch tensor in the flax layout of its rule's kind."""
+    value = np.asarray(value)
+    kind = kind.rstrip("?")
+    return np.transpose(value, TO_FLAX[kind]) if kind in TO_FLAX else value
+
+
+def _set(tree: dict, path: str, value) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.asarray(value)
+
+
+def _strip_wrappers(state_dict: Dict[str, np.ndarray]
+                    ) -> Dict[str, np.ndarray]:
+    """Unwrap the reference checkpoint format: an optional {'model': ...}
+    key and DataParallel 'module.' prefixes (train_mf.py:207-212,
+    demo.py:388)."""
+    if "model" in state_dict and isinstance(state_dict["model"], dict):
+        state_dict = state_dict["model"]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state_dict.items()}
+
+
+def _apply_table(tree: dict, sd: Dict[str, np.ndarray],
+                 table: Sequence[Rule], strict: bool) -> None:
+    """One table into ``tree``; a rule whose kind ends in '?' may lack its
+    source key, and ``strict=False`` skips any missing key."""
+    for dst, src, kind in table:
+        if src not in sd:
+            if kind.endswith("?") or not strict:
+                continue
+            raise KeyError(f"checkpoint missing '{src}' (for {dst})")
+        _set(tree, dst, apply_rule(kind, sd[src]))
+
+
+def convert_streamflow_checkpoint(state_dict: Dict[str, np.ndarray],
+                                  k_conv: Sequence[int] = (1, 15),
+                                  pc_updater_conv: Sequence[int] = (1, 7),
+                                  strict: bool = True) -> dict:
+    """A flat torch state_dict of the canonical StreamFlow -> {'params':
+    flax tree}. Takes raw or {'model': ...}-wrapped dicts and strips
+    'module.' prefixes."""
+    tree: dict = {}
+    _apply_table(tree, _strip_wrappers(state_dict),
+                 build_mapping(k_conv, pc_updater_conv), strict)
+    return {"params": tree}
+
+
+def convert_raft_checkpoint(state_dict: Dict[str, np.ndarray],
+                            update_block: str = "raft",
+                            strict: bool = True, gma: bool = False) -> dict:
+    """A flat torch state_dict of a two-frame baseline (update_block
+    'raft' | 'gma' | 'sk'; the legacy ``gma=True`` means 'gma') ->
+    {'params', 'batch_stats'} flax trees. Takes raw or
+    {'model': ...}-wrapped dicts and strips 'module.' prefixes."""
+    if gma and update_block == "raft":
+        update_block = "gma"
+    sd = _strip_wrappers(state_dict)
+    rules, stats = build_raft_mapping(update_block=update_block)
+    out = {"params": {}, "batch_stats": {}}
+    _apply_table(out["params"], sd, rules, strict)
+    _apply_table(out["batch_stats"], sd, stats, strict)
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A .pth file -> {key: numpy array}, unwrapping its 'model' key."""
+    import torch
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if (isinstance(ckpt, dict) and "model" in ckpt
+            and isinstance(ckpt["model"], dict)):
+        ckpt = ckpt["model"]
+    return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+            for k, v in ckpt.items()}
 
 
 # flax layout (axes) of a torch tensor of each kind; the inverse is argsort

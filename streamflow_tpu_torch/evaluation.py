@@ -15,9 +15,10 @@ validator takes a model, and builds its own ``GraphedForward``, or a
 whole run). The per-window steps (``window_flows``, ``tiled_window_flows``, ``pair_epes``,
 ``kitti_pair_metrics``) take any clip, from a dataset or from memory.
 
-The two-frame validators (``JittedForward2F``, ``validate_chairs``,
-``validate_things``, ``validate_sintel_2f``) come with the port of the
-two-frame models.
+The two-frame baselines (RAFT, RAFT-GMA, SKFlow) have their own
+forward, ``GraphedForward2F`` (one CUDA graph per input shape, JAX's
+``JittedForward2F``), and validators, ``validate_chairs``,
+``validate_things`` and ``validate_sintel_2f``.
 """
 
 from __future__ import annotations
@@ -121,11 +122,28 @@ class GraphedForward:
         return _Bucket(graph, x, fi, out)
 
 
-def graphed(model, iters: int) -> GraphedForward:
-    """``model`` itself if it is a ``GraphedForward`` (of ``iters``
-    iterations), else a new ``GraphedForward`` of it."""
-    if not isinstance(model, GraphedForward):
-        return GraphedForward(model, iters)
+class GraphedForward2F(GraphedForward):
+    """Shape-bucketed test-mode forward of a two-frame model (RAFT,
+    RAFT-GMA, SKFlow): the counterpart of streamflow_tpu/evaluation.py::
+    JittedForward2F (:224-246). ``fwd(im1, im2)`` (each (B, H, W, 3)) ->
+    the upsampled flow (B, H, W, 2). One CUDA graph per input shape, as
+    GraphedForward: the pair is held as one (B, 2, H, W, 3) static
+    input."""
+
+    def _forward(self, images, flow_init):
+        return self.model(images[:, 0], images[:, 1], iters=self.iters,
+                          test_mode=True)[1]
+
+    def __call__(self, im1: torch.Tensor, im2: torch.Tensor):
+        return super().__call__(torch.stack([im1, im2], dim=1))
+
+
+def graphed(model, iters: int, cls=GraphedForward) -> GraphedForward:
+    """``model`` itself if it is a ``cls`` (GraphedForward, or
+    GraphedForward2F for a two-frame model) of ``iters`` iterations, else
+    a new ``cls`` of it."""
+    if not isinstance(model, cls):
+        return cls(model, iters)
     if model.iters != iters:
         raise ValueError(f"a GraphedForward of {model.iters} iterations "
                          f"given for {iters}")
@@ -365,6 +383,89 @@ def validate_things_mf(model, root="datasets/flyingthings3d", iters=15,
         results[f"things_{tag}_epe"] = float(epe_all.mean())
         print(f"Validation mf ({dstype}) EPE: {epe_all.mean():.4f}, "
               f"1px: {(epe_all < 1).mean():.4f}")
+    return results
+
+
+def pair_flow(fwd, images: np.ndarray, device,
+              mode: Optional[str] = "sintel") -> np.ndarray:
+    """One two-frame eval pair: the (2, H, W, 3) images padded in
+    ``mode`` (None: as they are), through ``fwd`` (a GraphedForward2F),
+    unpadded -> the (H, W, 2) f32 NumPy flow."""
+    x = _clip(images, device)
+    padder = InputPadder(x.shape[-3:], mode=mode) if mode else None
+    if padder is not None:
+        x = padder.pad(x)
+    flow = fwd(x[:, 0], x[:, 1])
+    if padder is not None:
+        flow = padder.unpad(flow)
+    return flow[0].float().cpu().numpy()
+
+
+def validate_chairs(model, root="datasets/FlyingChairs_release/data",
+                    iters=24) -> Dict[str, float]:
+    """Two-frame FlyingChairs validation split, unpadded (384x512;
+    reference validate_chairs, evaluate_mf.py:375-400)."""
+    from streamflow_tpu_torch.data.datasets import FlyingChairs
+
+    fwd = graphed(model, iters, GraphedForward2F)
+    ds = FlyingChairs(None, split="validation", root=root)
+    epes = []
+    for i in range(len(ds)):
+        s = ds.load(i)
+        flow = pair_flow(fwd, s["images"], fwd.device, mode=None)
+        epes.append(_epe_map(flow, s["flows"][0]).reshape(-1))
+    epe = float(np.concatenate(epes).mean())
+    print(f"Validation Chairs EPE: {epe:.4f}")
+    return {"chairs_epe": epe}
+
+
+def validate_things(model, root="datasets/flyingthings3d",
+                    iters=24) -> Dict[str, float]:
+    """Two-frame FlyingThings validation (TEST) split, clean and final,
+    padded in 'sintel' mode (reference validate_things,
+    evaluate_mf.py:396-429)."""
+    from streamflow_tpu_torch.data.datasets import FlyingThings3D
+
+    fwd = graphed(model, iters, GraphedForward2F)
+    results = {}
+    for dstype in ["frames_cleanpass", "frames_finalpass"]:
+        ds = FlyingThings3D(None, root=root, dstype=dstype,
+                            split="validation")
+        epes = []
+        for i in range(len(ds)):
+            s = ds.load(i)
+            flow = pair_flow(fwd, s["images"], fwd.device)
+            epes.append(_epe_map(flow, s["flows"][0]).reshape(-1))
+        epe_all = np.concatenate(epes)
+        tag = dstype.replace("frames_", "").replace("pass", "")
+        results[f"things_{tag}_epe"] = float(epe_all.mean())
+        print(f"Validation ({dstype}) EPE: {epe_all.mean():.4f}, "
+              f"1px: {(epe_all < 1).mean():.4f}, "
+              f"3px: {(epe_all < 3).mean():.4f}, "
+              f"5px: {(epe_all < 5).mean():.4f}")
+    return results
+
+
+def validate_sintel_2f(model, root="datasets/sintel", iters=32,
+                       dstypes=("clean", "final")) -> Dict[str, float]:
+    """Two-frame Sintel validation of the RAFT-family baselines, padded in
+    'sintel' mode (436x1024 -> 440x1024; reference validate_sintel,
+    evaluate_mf.py:405-440)."""
+    from streamflow_tpu_torch.data.datasets import MpiSintel
+
+    fwd = graphed(model, iters, GraphedForward2F)
+    results = {}
+    for dstype in dstypes:
+        ds = MpiSintel(None, split="training", root=root, dstype=dstype)
+        epes = []
+        for i in range(len(ds)):
+            s = ds.load(i)
+            flow = pair_flow(fwd, s["images"], fwd.device)
+            epes.append(_epe_map(flow, s["flows"][0]).reshape(-1))
+        epe_all = np.concatenate(epes)
+        results[f"{dstype}_epe_2f"] = float(epe_all.mean())
+        print(f"Validation 2f ({dstype}) EPE: "
+              f"{results[f'{dstype}_epe_2f']:.4f}")
     return results
 
 

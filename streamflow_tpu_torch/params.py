@@ -1,17 +1,19 @@
-"""Weight bridge between the JAX package's StreamFlow (flax variables) and
-the port (a ``state_dict`` named after the reference's torch keys).
+"""Weight bridge between the JAX package's models (flax variables) and
+the port (a ``state_dict`` named after the reference's torch keys): the
+StreamFlow configs and the two-frame baselines (a ``RAFTConfig``).
 
 Both directions run off the port's own copy of the JAX package's checkpoint
 tables (``streamflow_tpu_torch/convert.py``): every rule maps a flax path
 (decoder parameters live under the refinement scan's ``step/`` prefix) to a
 torch key and a layout kind. The tables depend on the config's encoder,
-``use_gma`` and kernel sizes (``convert.table_kwargs``); the default is
-the canonical config. The ``params`` collection maps to the port's
-parameters, the ``batch_stats`` collection (the CNN encoders' BatchNorm
-running statistics) to its buffers. ``from_jax`` moves flax variables into
-the port; ``to_jax`` moves port tensors (parameters or their gradients)
-back to flax paths and layouts, and ``to_jax_variables`` a whole
-``state_dict`` with its statistics. A released reference ``.pth`` would
+``use_gma`` and kernel sizes (``convert.table_kwargs``), or, for a
+RAFTConfig, its update block and GMA (``convert.build_raft_mapping``);
+the default is the canonical StreamFlow. The ``params`` collection maps
+to the port's parameters, the ``batch_stats`` collection (the CNN
+encoders' BatchNorm running statistics) to its buffers. ``from_jax``
+moves flax variables into the port; ``to_jax`` moves port tensors
+(parameters or their gradients) back to flax paths and layouts, and
+``to_jax_variables`` a whole ``state_dict`` with its statistics. A released reference ``.pth`` would
 load into the port as it is. Nothing here imports jax or the JAX package.
 """
 
@@ -22,9 +24,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from streamflow_tpu_torch.convert import (TO_FLAX, build_mapping,
-                                          build_stats_mapping, table_kwargs,
-                                          torch_shape_for)
+from streamflow_tpu_torch.config import StreamFlowConfig
+from streamflow_tpu_torch.convert import TO_FLAX, tables, torch_shape_for
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -40,11 +41,11 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def _tables(cfg, k_conv, pc_updater_conv):
     """(params rules, batch_stats rules) of ``cfg`` (or of the canonical
-    config with these kernel sizes)."""
-    kw = table_kwargs(cfg) or dict(k_conv=tuple(k_conv),
-                                   pc_updater_conv=tuple(pc_updater_conv))
-    return (build_mapping(**kw),
-            build_stats_mapping(kw.get("encoder", "twins_csc")))
+    StreamFlow with these kernel sizes)."""
+    if cfg is None:
+        cfg = StreamFlowConfig(k_conv=tuple(k_conv),
+                               pc_updater_conv=tuple(pc_updater_conv))
+    return tables(cfg)
 
 
 def _to_torch_layout(kind: str, value: np.ndarray) -> np.ndarray:
@@ -80,8 +81,9 @@ def from_jax(flax_variables, k_conv=(1, 15), pc_updater_conv=(1, 7),
     """flax variables (``{'params': ...[, 'batch_stats': ...]}``) or a bare
     params tree -> f32 state_dict (parameters, and the running statistics
     where ``batch_stats`` is given) of the config ``cfg`` (default: the
-    canonical one). Raises on a JAX leaf no rule consumes, or a leaf of
-    the wrong shape."""
+    canonical StreamFlow; a RAFTConfig for the two-frame baselines).
+    Raises on a JAX leaf no rule consumes, or a leaf of the wrong
+    shape."""
     rules, stats = _tables(cfg, k_conv, pc_updater_conv)
     tree = flax_variables.get("params", flax_variables)
     sd = _from_flat(_flatten(tree), rules, "params")
@@ -134,13 +136,20 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor], cfg=None
     return out
 
 
-def load_jax(model: torch.nn.Module, flax_variables) -> None:
+def load_jax(model: torch.nn.Module, flax_variables,
+             params_only: bool = False) -> None:
     """Copy JAX variables (params, and batch_stats where the model has
     BatchNorm) into ``model`` (cast to its tensors' dtypes). Raises if a
-    port parameter or buffer is left unset or a shape disagrees."""
+    port parameter or buffer is left unset or a shape disagrees.
+    ``params_only``: only the ``params`` collection, the model's running
+    statistics left as they are (JAX train_2f's ``--restore_ckpt``)."""
     cfg = getattr(model, "cfg", None)
+    if params_only:
+        flax_variables = {"params": flax_variables.get("params",
+                                                       flax_variables)}
     sd = from_jax(flax_variables, cfg=cfg)
-    own = model.state_dict()
+    own = (dict(model.named_parameters()) if params_only
+           else model.state_dict())
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
@@ -151,4 +160,4 @@ def load_jax(model: torch.nn.Module, flax_variables) -> None:
         if tuple(own[key].shape) != tuple(val.shape):
             raise ValueError(f"{key}: port {tuple(own[key].shape)} vs JAX "
                              f"{tuple(val.shape)}")
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(sd, strict=not params_only)

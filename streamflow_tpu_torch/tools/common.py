@@ -1,7 +1,8 @@
 """What the serving tools (evaluate, submit, demo, test_memory, bench) and
-``chip_smoke.py`` share: the canonical StreamFlow on a device with its
-weights from an npz or from a seed, the relative-EPE guard, host timing,
-profiling, and the card's name and power limit."""
+``chip_smoke.py`` share: the canonical StreamFlow, or a two-frame
+baseline (RAFT, RAFT-GMA, SKFlow), on a device with its weights from an
+npz or from a seed, the relative-EPE guard, host timing, profiling, and
+the card's name and power limit."""
 
 from __future__ import annotations
 
@@ -20,6 +21,19 @@ import torch
 # in the range of real footage (tens of px, a few hundred at most).
 FLOW_HEAD_SCALE = 2e-3
 
+# the CLIs' two-frame --model values (JAX tools/evaluate.py, train_2f.py)
+# -> the registry's names
+TWO_FRAME = {"raft": "raft", "gma": "raft_gma", "sk": "skflow"}
+
+
+def raft_config(model: str, **kw):
+    """The RAFTConfig of a two-frame --model value, as JAX's CLIs build it:
+    ``update_block`` the value, GMA for 'gma' and 'sk'."""
+    from streamflow_tpu_torch.config import RAFTConfig
+
+    return RAFTConfig(update_block=model, use_gma=model in ("gma", "sk"),
+                      **kw)
+
 
 def init_weights(model, seed: int) -> None:
     """Fan-in-scaled random weights (like the JAX package's oracle tests):
@@ -37,7 +51,10 @@ def init_weights(model, seed: int) -> None:
                 p.copy_(1.0 + 0.1 * r)
             else:
                 p.copy_(0.05 * r)
-        out = model.update_block.flow_head.ffn2[2]
+        # the SK head's last 1x1 conv (StreamFlow, SKFlow) or RAFT's
+        # FlowHead conv2
+        head = model.update_block.flow_head
+        out = head.ffn2[2] if hasattr(head, "ffn2") else head.conv2
         out.weight.mul_(FLOW_HEAD_SCALE)
         out.bias.mul_(FLOW_HEAD_SCALE)
 
@@ -54,18 +71,24 @@ def add_model_args(p, iters: int) -> None:
                    help="f32 compute (default bf16, the released config)")
 
 
-def build_model(args, seed: int = 0):
-    """The canonical StreamFlow of ``args`` (``add_model_args``) on
-    ``args.device``, its weights from ``args.ckpt`` or, without one,
-    random from ``seed`` (``init_weights``) with a warning."""
+def build_model(args, seed: int = 0, name: str = "streamflow"):
+    """The canonical StreamFlow of ``args`` (``add_model_args``), or the
+    two-frame baseline of a TWO_FRAME ``name``, on ``args.device``,
+    its weights from ``args.ckpt`` or, without one, random from ``seed``
+    (``init_weights``) with a warning."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.params import load_jax
     from streamflow_tpu_torch.training.checkpoint import load_variables_npz
 
-    cfg = StreamFlowConfig(T=args.T, iters=args.iters,
-                           mixed_precision=not args.fp32)
-    model = create_model("streamflow", cfg=cfg, device=args.device)
+    mp = not args.fp32
+    if name == "streamflow":
+        cfg = StreamFlowConfig(T=args.T, iters=args.iters,
+                               mixed_precision=mp)
+    else:
+        cfg = raft_config(name, iters=args.iters, mixed_precision=mp)
+    model = create_model(TWO_FRAME.get(name, "streamflow"), cfg=cfg,
+                         device=args.device)
     if args.ckpt:
         load_jax(model, load_variables_npz(args.ckpt))
     else:

@@ -1,6 +1,7 @@
-"""The training step (port of streamflow_tpu/training/step.py::
-make_train_step; reference train_mf.py:224-257): per-frame-pair sequence
-loss summed over the pairs, backward, the global gradient norm, clipping
+"""The training steps (port of streamflow_tpu/training/step.py::
+make_train_step and make_train_step_2f; reference train_mf.py:224-257):
+the sequence loss (multi-frame: per frame pair, summed over the pairs;
+two-frame: of the one pair), backward, the global gradient norm, clipping
 to the state's ``clip``, AdamW under the OneCycle schedule.
 
 ``kitti_last_pair_only`` (the kitti stage): only the final frame pair is
@@ -102,7 +103,13 @@ def make_train_step(gamma: float = 0.8, iters: int = 12,
     1px, 3px, 5px of the first supervised frame pair, grad_norm (before
     clipping), and epe_bw when ``bidirectional``. After the step each
     parameter's ``.grad`` holds its clipped gradient."""
-    loss_fn = make_loss_fn(gamma, iters, kitti_last_pair_only, bidirectional)
+    return _stepper(make_loss_fn(gamma, iters, kitti_last_pair_only,
+                                 bidirectional))
+
+
+def _stepper(loss_fn) -> Callable[[TrainState, Dict], Dict]:
+    """step(state, batch): loss_fn(model, batch), backward, the global
+    gradient norm, clipping, AdamW and the schedule."""
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
@@ -122,3 +129,28 @@ def make_train_step(gamma: float = 0.8, iters: int = 12,
         return dict(metrics, loss=loss.detach(), grad_norm=norm)
 
     return step
+
+
+def make_loss_fn_2f(gamma: float = 0.8, iters: int = 12):
+    """Returns loss_fn(model, batch) -> (loss, metrics) of a two-frame
+    model: one train-mode application on the pair (BatchNorm's statistics
+    updated once, from this batch), the sequence loss on pair 0."""
+
+    def loss_fn(model, batch):
+        images = batch["images"]
+        preds = model(images[:, 0], images[:, 1], iters=iters,
+                      test_mode=False, train=True)
+        return sequence_loss(preds, batch["flows"][:, 0],
+                             batch["valids"][:, 0], gamma)
+
+    return loss_fn
+
+
+def make_train_step_2f(gamma: float = 0.8, iters: int = 12
+                       ) -> Callable[[TrainState, Dict], Dict]:
+    """The two-frame (RAFT / RAFT-GMA / SKFlow) train step (port of JAX
+    training/step.py::make_train_step_2f, :127-164): batch {"images": (B,
+    2, H, W, 3), "flows": (B, 1, H, W, 2), "valids": (B, 1, H, W)}; the
+    rest as ``make_train_step``'s step (the same metrics, clipping,
+    AdamW and schedule)."""
+    return _stepper(make_loss_fn_2f(gamma, iters))

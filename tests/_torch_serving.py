@@ -1,5 +1,6 @@
 """Shared helpers of the serving slice's parity tests
-(tests/test_torch_serving_*.py): synthetic dataset trees written with
+(tests/test_torch_serving_*.py, tests/test_torch_raft_*.py): synthetic
+dataset trees written with
 seeded numpy in the layouts the datasets read (the layouts of
 tests/test_evaluation_e2e.py and tests/test_datasets.py), and the model
 pair both packages run."""
@@ -29,9 +30,9 @@ def _flow(rng, h=H, w=W, scale=2.0):
     return (scale * rng.standard_normal((h, w, 2))).astype(np.float32)
 
 
-def sintel_tree(root, seed=0):
+def sintel_tree(root, seed=0, h=H, w=W):
     """training: alley_1 (7 frames), ambush_2 (5 frames), clean and final,
-    .flo GT and occlusion pngs; test: temple_1 (5 frames)."""
+    .flo GT and occlusion pngs; test: temple_1 (5 frames); h x w frames."""
     from streamflow_tpu_torch.data import frame_utils
     from PIL import Image
 
@@ -43,7 +44,7 @@ def sintel_tree(root, seed=0):
                 d = root / split / ds / scene
                 d.mkdir(parents=True, exist_ok=True)
                 for i in range(n):
-                    _png(d / f"frame_{i + 1:04d}.png", rng)
+                    _png(d / f"frame_{i + 1:04d}.png", rng, h, w)
             if split != "training":
                 continue
             fd = root / split / "flow" / scene
@@ -52,8 +53,8 @@ def sintel_tree(root, seed=0):
             od.mkdir(parents=True, exist_ok=True)
             for i in range(n - 1):
                 frame_utils.write_flo(fd / f"frame_{i + 1:04d}.flo",
-                                      _flow(rng))
-                occ = (rng.random((H, W)) < 0.3).astype(np.uint8) * 255
+                                      _flow(rng, h, w))
+                occ = (rng.random((h, w)) < 0.3).astype(np.uint8) * 255
                 Image.fromarray(occ).save(od / f"frame_{i + 1:04d}.png")
     return str(root)
 
@@ -128,6 +129,24 @@ def things_tree(root, seed=2, split="TEST"):
             frame_utils.write_pfm(str(d / f"{i:04d}.pfm"), np.concatenate(
                 [_flow(rng), np.zeros((H, W, 1), np.float32)], -1))
     return str(root)
+
+
+def chairs_tree(root, seed=4, split=(1, 1, 1, 1, 2, 2)):
+    """FlyingChairs_release: data/ with one (img1.ppm, img2.ppm, flow.flo)
+    triple per entry of ``split`` and chairs_split.txt beside it (1 =
+    training, 2 = validation). Returns the data directory (the datasets'
+    ``root``)."""
+    from streamflow_tpu_torch.data import frame_utils
+
+    rng = np.random.default_rng(seed)
+    data = root / "data"
+    data.mkdir(parents=True)
+    for i in range(len(split)):
+        for k in (1, 2):
+            _png(data / f"{i:05d}_img{k}.ppm", rng)
+        frame_utils.write_flo(data / f"{i:05d}_flow.flo", _flow(rng))
+    np.savetxt(root / "chairs_split.txt", np.asarray(split), fmt="%d")
+    return str(data)
 
 
 @functools.lru_cache(maxsize=None)

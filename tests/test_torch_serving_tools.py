@@ -8,7 +8,9 @@ Tolerances: flows written by the two packages agree as their forwards do
 one 1/64 px quantum (a value within rounding of a quantum's edge may
 fall on either side); the evaluate tool's metrics as
 test_torch_serving_eval.py holds the validators (EPE rtol 1e-4, rates
-within 2 pixels' worth of their denominator)."""
+within 2 pixels' worth of their denominator), the two-frame
+``--model raft --dataset chairs`` command as JAX's validate_chairs (EPE
+rtol 1e-4)."""
 
 import importlib.util
 import json
@@ -20,8 +22,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_serving import (H, ITERS, T, W, kitti_tree, served_pair,
-                            shared_jax_forward, sintel_tree, spring_tree)
+from _torch_raft import jax_raft
+from _torch_serving import (H, ITERS, T, W, chairs_tree, kitti_tree,
+                            served_pair, shared_jax_forward, sintel_tree,
+                            spring_tree)
 
 from streamflow_tpu import evaluation as jev
 from streamflow_tpu import submission as jsub
@@ -44,7 +48,8 @@ def trees(tmp_path_factory):
     base = tmp_path_factory.mktemp("serving_tools")
     return {"sintel": sintel_tree(base / "sintel"),
             "kitti": kitti_tree(base / "kitti"),
-            "spring": spring_tree(base / "spring")}
+            "spring": spring_tree(base / "spring"),
+            "chairs": chairs_tree(base / "chairs")}
 
 
 @pytest.fixture(scope="module")
@@ -151,9 +156,19 @@ def test_evaluate_tool_matches_jax_validate_sintel(trees, npz, capsys):
             np.testing.assert_allclose(got[k], v, rtol=1e-4, err_msg=k)
         else:   # 10 pairs of 64 x 96 per pass
             assert abs(got[k] - v) <= 2 / (10 * H * W), (k, got[k], v)
-    with pytest.raises(NotImplementedError, match="two-frame"):
-        evaluate.main(["--dataset", "chairs", "--model", "raft",
-                       "--device", "cpu"])
+    # the two-frame command on a chairs tree, against JAX's
+    # validate_chairs with the same RAFT weights (an npz written by JAX)
+    jm2, v2 = jax_raft("raft", False)
+    npz2 = str(Path(trees["chairs"]).parent / "raft.npz")
+    jckpt.save_params_npz(npz2, v2)
+    got = evaluate.main(["--dataset", "chairs", "--model", "raft",
+                         "--device", "cpu", "--fp32", "--ckpt", npz2,
+                         "--iters", str(ITERS), "--chairs_root",
+                         trees["chairs"]])
+    want = jev.validate_chairs(jm2, v2, trees["chairs"], ITERS)
+    assert got.keys() == want.keys() == {"chairs_epe"}
+    np.testing.assert_allclose(got["chairs_epe"], want["chairs_epe"],
+                               rtol=1e-4)
 
 
 def test_submit_tool_writes_the_kitti_pngs(trees, npz, tmp_path, capsys):
@@ -247,7 +262,10 @@ import streamflow_tpu_torch.tools.submit
 import streamflow_tpu_torch.tools.test_memory
 import streamflow_tpu_torch.layers.basic_encoder
 import streamflow_tpu_torch.layers.twins
-from streamflow_tpu_torch.evaluation import GraphedForward
+import streamflow_tpu_torch.data.datasets
+import streamflow_tpu_torch.tools.convert
+import streamflow_tpu_torch.tools.train_2f
+from streamflow_tpu_torch.evaluation import GraphedForward, GraphedForward2F
 from streamflow_tpu_torch.models import create_model
 
 import torch
@@ -255,6 +273,9 @@ import torch
 model = create_model("streamflow", device="cpu", encoder="basic", T=2,
                      iters=1, mixed_precision=False)
 GraphedForward(model, 1)(torch.zeros(1, 2, 16, 16, 3))
+raft = create_model("raft", device="cpu", iters=1, mixed_precision=False)
+GraphedForward2F(raft, 1)(torch.zeros(1, 16, 16, 3),
+                          torch.zeros(1, 16, 16, 3))
 assert "jax" not in sys.modules, "jax imported"
 bad = [m for m in sys.modules if m.split(".")[0] == "streamflow_tpu"]
 assert not bad, bad

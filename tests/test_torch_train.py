@@ -229,7 +229,9 @@ from streamflow_tpu_torch.params import from_jax, to_jax
 
 import streamflow_tpu_torch.layers.basic_encoder
 import streamflow_tpu_torch.layers.twins
+import streamflow_tpu_torch.models.raft
 import streamflow_tpu_torch.training.step
+from streamflow_tpu_torch.config import RAFTConfig
 from streamflow_tpu_torch.params import to_jax_variables
 
 
@@ -251,6 +253,12 @@ for enc in ("twins_temporal_attention", "res18_3d"):
     cfg = StreamFlowConfig(encoder=enc, update_block="sk_tam_v1",
                            use_gma=False)
     model = create_model("streamflow", cfg=cfg, device="cpu")
+    v = {k: nest(t) for k, t in to_jax_variables(model.state_dict(),
+                                                  cfg).items()}
+    assert set(from_jax(v, cfg=cfg)) == set(model.state_dict())
+for ub in ("raft", "gma", "sk"):
+    cfg = RAFTConfig(update_block=ub, use_gma=ub != "raft")
+    model = create_model("raft", cfg=cfg, device="cpu")
     v = {k: nest(t) for k, t in to_jax_variables(model.state_dict(),
                                                   cfg).items()}
     assert set(from_jax(v, cfg=cfg)) == set(model.state_dict())
