@@ -36,7 +36,7 @@ A trailing ``?`` marks a leaf that may be absent (a bias-free layer).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -262,19 +262,17 @@ def table_kwargs(cfg) -> dict:
                 encoder=cfg.encoder, use_gma=cfg.use_gma)
 
 
-def build_raft_mapping(update_block: str = "raft",
+def build_raft_mapping(update_block: str, use_gma: bool,
                        k_conv: Sequence[int] = (1, 15),
                        pc_updater_conv: Sequence[int] = (1, 7),
-                       use_gma: Optional[bool] = None
                        ) -> Tuple[List[Rule], List[Rule]]:
     """(params rules, batch_stats rules) of the two-frame baselines
     (reference core/models/raft.py:71-190, raftgma.py,
     sk_decoder.py:79-209): the RAFT CNN fnet (instance norm) and cnet
     (BatchNorm), then BasicUpdateBlock / GMAUpdateBlock /
     SKUpdateBlock6_Deep_nopoolres_AllDecoder (core/update.py:1932-1953,
-    2245-2268, 410-448) under the refinement scan's ``step/`` prefix.
-    ``use_gma`` None takes JAX's rule, GMA with 'gma' and 'sk'; the
-    bridge passes the config's (``RAFTConfig.uses_gma``)."""
+    2245-2268, 410-448) under the refinement scan's ``step/`` prefix,
+    GMA's tensors under ``use_gma`` (``RAFTConfig.uses_gma``)."""
     rules, stats = _basic_encoder("fnet", "fnet", "instance")
     r2, s2 = _basic_encoder("cnet", "cnet", "batch")
     rules += r2
@@ -300,8 +298,6 @@ def build_raft_mapping(update_block: str = "raft",
         rules += _conv(f"{ub_d}/flow_head/conv2", f"{ub_s}.flow_head.conv2")
     rules += _conv(f"{ub_d}/mask/conv1", f"{ub_s}.mask.0")
     rules += _conv(f"{ub_d}/mask/conv2", f"{ub_s}.mask.2")
-    if use_gma is None:
-        use_gma = update_block in ("gma", "sk")
     if use_gma:
         rules += _conv("att/to_qk", "att.to_qk")
         rules += _conv(f"{ub_d}/aggregator/to_v", f"{ub_s}.aggregator.to_v")
@@ -315,9 +311,10 @@ def tables(cfg) -> Tuple[List[Rule], List[Rule]]:
     a RAFTConfig's, a StreamFlowConfig's, or the canonical StreamFlow's
     for None."""
     if cfg is not None and cfg.update_block in ("raft", "gma", "sk"):
-        return build_raft_mapping(cfg.update_block, tuple(cfg.k_conv),
-                                  tuple(cfg.pc_updater_conv),
-                                  RAFTConfig.uses_gma.fget(cfg))
+        return build_raft_mapping(cfg.update_block,
+                                  RAFTConfig.uses_gma.fget(cfg),
+                                  tuple(cfg.k_conv),
+                                  tuple(cfg.pc_updater_conv))
     kw = table_kwargs(cfg)
     return build_mapping(**kw), build_stats_mapping(
         kw.get("encoder", "twins_csc"))
@@ -377,15 +374,13 @@ def convert_streamflow_checkpoint(state_dict: Dict[str, np.ndarray],
 
 def convert_raft_checkpoint(state_dict: Dict[str, np.ndarray],
                             update_block: str = "raft",
-                            strict: bool = True, gma: bool = False) -> dict:
+                            strict: bool = True) -> dict:
     """A flat torch state_dict of a two-frame baseline (update_block
-    'raft' | 'gma' | 'sk'; the legacy ``gma=True`` means 'gma') ->
+    'raft' | 'gma' | 'sk'; GMA with 'gma' and 'sk', as JAX's converter) ->
     {'params', 'batch_stats'} flax trees. Takes raw or
     {'model': ...}-wrapped dicts and strips 'module.' prefixes."""
-    if gma and update_block == "raft":
-        update_block = "gma"
     sd = _strip_wrappers(state_dict)
-    rules, stats = build_raft_mapping(update_block=update_block)
+    rules, stats = build_raft_mapping(update_block, update_block != "raft")
     out = {"params": {}, "batch_stats": {}}
     _apply_table(out["params"], sd, rules, strict)
     _apply_table(out["batch_stats"], sd, stats, strict)

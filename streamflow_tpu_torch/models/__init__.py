@@ -47,8 +47,4 @@ def create_model(name: str, cfg=None, device="cuda", train: bool = False,
     return model.to(device)
 
 
-def available_models():
-    return sorted(_REGISTRY)
-
-
-__all__ = ["StreamFlow", "RAFT", "create_model", "available_models"]
+__all__ = ["StreamFlow", "RAFT", "create_model"]

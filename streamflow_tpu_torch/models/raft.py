@@ -13,12 +13,14 @@ through ``FusedCorr``), runs the update block and moves the coordinates.
 Dtype policy: the encoders, GMA and the update block compute in bf16
 under ``mixed_precision``; coordinates, the flow carry and the convex
 upsampling stay f32. JAX casts the fmaps to f32 before its materialised
-volume (:87). The fmaps hold bf16 values, so that volume is the bf16 x
-bf16 product accumulated in f32 that K1's bf16 body computes, and its
-every consumer rounds the lookup to bf16 (the motion encoder's first
-conv): the port hands the bf16 fmaps to K1's bf16 body, as its
-StreamFlow does (the pooled levels are averaged in bf16). Under f32 the
-fmaps are f32 and K1 runs its f32 body. The BatchNorm statistics follow
+volume (:87, :96). The fmaps hold bf16 values, so its level-0 volume is
+the bf16 x bf16 product accumulated in f32 that K1's bf16 body computes,
+and every consumer rounds the lookup to bf16 (the motion encoder's first
+conv): the port hands the bf16 fmaps to K1's bf16 body. Its levels 1-3
+are averaged in f32, as JAX's, and rounded once to bf16, so each lookup
+stays within two bf16 roundings of JAX's
+(tests/test_torch_raft_bf16.py). Under f32 the fmaps are f32 and K1 runs
+its f32 body. The BatchNorm statistics follow
 ``forward``'s ``train`` argument (JAX's ``train``), not
 ``nn.Module.train()``.
 
@@ -102,7 +104,7 @@ class RAFT(nn.Module):
         net, inp = self.cnet(x1, train).split(cfg.hidden_dim, dim=-1)
         net, inp = torch.tanh(net), torch.relu(inp)
         pyramid = FusedCorr(fmaps[:b], fmaps[b:], cfg.corr_levels,
-                            cfg.corr_radius)
+                            cfg.corr_radius, pool_f32=True)
         attn = None if self.att is None else self.att(inp)
 
         h, w = fmaps.shape[1], fmaps.shape[2]

@@ -101,12 +101,18 @@ def _corr_lookup(f1, f2_levels, coords, radius: int):
 class FusedCorr:
     """f1 and the pooled f2 pyramid, stored once per forward; each lookup is
     one K1 call (counterpart of streamflow_tpu/ops/pallas/corr.py::PallasCorr,
-    without its TPU padding)."""
+    without its TPU padding).
 
-    def __init__(self, fmap1, fmap2, num_levels: int = 4, radius: int = 4):
+    ``pool_f32``: average the levels in f32 and round each once to f1's
+    dtype (JAX's RAFT pools in f32, its ``CorrPyramid``); by default they
+    are averaged in fmap2's dtype, as JAX's StreamFlow does."""
+
+    def __init__(self, fmap1, fmap2, num_levels: int = 4, radius: int = 4,
+                 pool_f32: bool = False):
         self.f1 = fmap1.contiguous()
-        self.levels = [lv.contiguous()
-                       for lv in pool_pyramid(fmap2, num_levels)]
+        src = fmap2.float() if pool_f32 else fmap2
+        self.levels = [lv.to(fmap1.dtype).contiguous()
+                       for lv in pool_pyramid(src, num_levels)]
         self.radius = radius
 
     def lookup(self, coords):

@@ -22,17 +22,8 @@ import torch
 FLOW_HEAD_SCALE = 2e-3
 
 # the CLIs' two-frame --model values (JAX tools/evaluate.py, train_2f.py)
-# -> the registry's names
+# -> the registry's names, whose configs are the ones JAX's CLIs build
 TWO_FRAME = {"raft": "raft", "gma": "raft_gma", "sk": "skflow"}
-
-
-def raft_config(model: str, **kw):
-    """The RAFTConfig of a two-frame --model value, as JAX's CLIs build it:
-    ``update_block`` the value, GMA for 'gma' and 'sk'."""
-    from streamflow_tpu_torch.config import RAFTConfig
-
-    return RAFTConfig(update_block=model, use_gma=model in ("gma", "sk"),
-                      **kw)
 
 
 def init_weights(model, seed: int) -> None:
@@ -76,19 +67,15 @@ def build_model(args, seed: int = 0, name: str = "streamflow"):
     two-frame baseline of a TWO_FRAME ``name``, on ``args.device``,
     its weights from ``args.ckpt`` or, without one, random from ``seed``
     (``init_weights``) with a warning."""
-    from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.params import load_jax
     from streamflow_tpu_torch.training.checkpoint import load_variables_npz
 
-    mp = not args.fp32
+    kw = dict(iters=args.iters, mixed_precision=not args.fp32)
     if name == "streamflow":
-        cfg = StreamFlowConfig(T=args.T, iters=args.iters,
-                               mixed_precision=mp)
-    else:
-        cfg = raft_config(name, iters=args.iters, mixed_precision=mp)
-    model = create_model(TWO_FRAME.get(name, "streamflow"), cfg=cfg,
-                         device=args.device)
+        kw["T"] = args.T
+    model = create_model(TWO_FRAME.get(name, "streamflow"),
+                         device=args.device, **kw)
     if args.ckpt:
         load_jax(model, load_variables_npz(args.ckpt))
     else:

@@ -40,6 +40,7 @@ copied into it in place before each validation.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -164,29 +165,14 @@ class Run:
     val_s: List[float]
 
 
-def train(args, dataset, validate: Optional[Callable] = None) -> Run:
-    """The training loop of ``main``: ``dataset`` (``__len__`` and
-    ``load(index, rng)``, as data/mf_datasets.py) -> DataLoader ->
-    prefetch_to_device -> the train step, with checkpoints, resume,
-    metrics and, when ``validate`` is given, ``validate(fwd) -> results``
-    every ``args.val_freq`` steps, ``fwd`` the run's GraphedForward of the
-    eval model; ``VAL_KEY[args.validation]`` of the results picks
-    ``best.npz``."""
-    import math
-
+@contextlib.contextmanager
+def session(args):
+    """``<output>/<name>`` and the device, with the run's prints teed into
+    its ``log.txt`` while open: the set-up of both trainers (this one and
+    tools/train_2f.py)."""
     import torch
 
-    from streamflow_tpu_torch.config import StreamFlowConfig
-    from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
-    from streamflow_tpu_torch.evaluation import GraphedForward
-    from streamflow_tpu_torch.models import create_model
-    from streamflow_tpu_torch.params import load_jax, to_jax
-    from streamflow_tpu_torch.tools.common import init_weights
-    from streamflow_tpu_torch.training.checkpoint import (
-        CheckpointManager, load_variables_npz, save_params_npz)
-    from streamflow_tpu_torch.training.state import TrainState
-    from streamflow_tpu_torch.training.step import make_train_step
-    from streamflow_tpu_torch.utils.logger import MetricsLogger, Tee
+    from streamflow_tpu_torch.utils.logger import Tee
 
     out = Path(args.output) / args.name
     out.mkdir(parents=True, exist_ok=True)
@@ -197,6 +183,94 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
               + (f" ({torch.cuda.get_device_name(device)})"
                  if device.type == "cuda" else ""))
         print(vars(args))
+        yield out, device
+    finally:
+        tee.close()
+
+
+def run_loop(args, out, device, state, step_fn, dataset, unit: str,
+             on_checkpoint: Optional[Callable] = None):
+    """The loop of both trainers: ``dataset`` (``__len__`` and
+    ``load(index, rng)``) -> DataLoader -> prefetch_to_device ->
+    ``step_fn(state, batch)`` until ``args.num_steps``, resuming from the
+    latest checkpoint in ``<out>/ckpts`` (keep 5); metrics stay on the
+    device and are read every ``args.print_freq`` steps; every
+    ``args.val_freq`` steps a checkpoint, then ``on_checkpoint(step,
+    logger)``; at the end a save, waited for. Returns ``Run``'s
+    ``step_t`` and ``save_s``."""
+    from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from streamflow_tpu_torch.training.checkpoint import CheckpointManager
+    from streamflow_tpu_torch.utils.logger import MetricsLogger
+
+    print(f"training with {len(dataset)} {unit}")
+    loader = DataLoader(dataset, args.batch_size,
+                        num_workers=args.num_workers, seed=args.seed)
+    if not len(loader):
+        raise ValueError(f"{len(dataset)} {unit} make no batch of "
+                         f"{args.batch_size}")
+    ckpt = CheckpointManager(str(out / "ckpts"), max_to_keep=5)
+    if ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        print(f"resumed from step {state.step}")
+
+    logger = MetricsLogger(str(out), args.num_steps, args.print_freq)
+    cur = logger.step = state.step
+    step_t, save_s = [], []
+    epoch = 0
+    pending = []  # (metrics on the device, lr): read at print_freq
+    while cur < args.num_steps:
+        for batch in prefetch_to_device(loader.epoch(epoch), device):
+            metrics = step_fn(state, batch)
+            cur = state.step
+            # no per-step host sync: the metrics wait on the device
+            # until the logger prints, by which time they are computed
+            pending.append((metrics, state.lr))
+            if cur % args.print_freq == 0:
+                for m, lr in pending:
+                    logger.push({k: float(v) for k, v in m.items()}, lr=lr)
+                pending.clear()
+            if cur % args.val_freq == 0:
+                t0 = time.perf_counter()
+                ckpt.save(state)
+                save_s.append(time.perf_counter() - t0)
+                print(f"checkpointed at step {cur}")
+                if on_checkpoint is not None:
+                    on_checkpoint(cur, logger)
+            step_t.append(time.perf_counter())
+            if cur >= args.num_steps:
+                break
+        epoch += 1
+    for m, lr in pending:
+        logger.push({k: float(v) for k, v in m.items()}, lr=lr)
+    t0 = time.perf_counter()
+    ckpt.save(state, wait=True)
+    ckpt.close()
+    save_s.append(time.perf_counter() - t0)
+    logger.close()
+    print("training complete")
+    return step_t, save_s
+
+
+def train(args, dataset, validate: Optional[Callable] = None) -> Run:
+    """The training loop of ``main`` (``run_loop``) on ``dataset``
+    (``__len__`` and ``load(index, rng)``, as data/mf_datasets.py) with
+    StreamFlow's train step and, when ``validate`` is given,
+    ``validate(fwd) -> results`` after every checkpoint, ``fwd`` the
+    run's GraphedForward of the eval model; ``VAL_KEY[args.validation]``
+    of the results picks ``best.npz``."""
+    import math
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.evaluation import GraphedForward
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.params import load_jax, to_jax
+    from streamflow_tpu_torch.tools.common import init_weights
+    from streamflow_tpu_torch.training.checkpoint import (load_variables_npz,
+                                                          save_params_npz)
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import make_train_step
+
+    with session(args) as (out, device):
         cfg = StreamFlowConfig(T=args.T, iters=args.iters,
                                mixed_precision=args.mixed_precision,
                                remat=True)
@@ -208,19 +282,9 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
             print(f"restored params from {args.restore_ckpt}")
         n_params = sum(p.numel() for p in model.parameters())
         print(f"parameter count: {n_params / 1e6:.2f}M")
-        print(f"training with {len(dataset)} clips")
-        loader = DataLoader(dataset, args.batch_size,
-                            num_workers=args.num_workers, seed=args.seed)
-        if not len(loader):
-            raise ValueError(f"{len(dataset)} clips make no batch of "
-                             f"{args.batch_size}")
 
         state = TrainState.create(model, args.lr, args.num_steps,
                                   args.wdecay, args.epsilon, args.clip)
-        ckpt = CheckpointManager(str(out / "ckpts"), max_to_keep=5)
-        if ckpt.latest_step() is not None:
-            ckpt.restore(state)
-            print(f"resumed from step {state.step}")
         step_fn = make_train_step(
             args.gamma, args.iters,
             kitti_last_pair_only=args.stage == "kitti",
@@ -229,63 +293,33 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
         if validate is not None:
             fwd = GraphedForward(create_model("streamflow", cfg=cfg,
                                               device=device), args.val_iters)
+        val, best_val, val_s = {}, math.inf, []
 
-        logger = MetricsLogger(str(out), args.num_steps, args.print_freq)
-        cur = logger.step = state.step
-        best_val, val = math.inf, {}
-        step_t, save_s, val_s = [], [], []
-        epoch = 0
-        pending = []  # (metrics on the device, lr): read at print_freq
-        while cur < args.num_steps:
-            for batch in prefetch_to_device(loader.epoch(epoch), device):
-                metrics = step_fn(state, batch)
-                cur = state.step
-                # no per-step host sync: the metrics wait on the device
-                # until the logger prints, by which time they are computed
-                pending.append((metrics, state.lr))
-                if cur % args.print_freq == 0:
-                    for m, lr in pending:
-                        logger.push({k: float(v) for k, v in m.items()},
-                                    lr=lr)
-                    pending.clear()
-                if cur % args.val_freq == 0:
-                    t0 = time.perf_counter()
-                    ckpt.save(state)
-                    save_s.append(time.perf_counter() - t0)
-                    print(f"checkpointed at step {cur}")
-                    if validate is not None:
-                        t0 = time.perf_counter()
-                        # in place (load_state_dict copies into the
-                        # eval model's tensors, cast to their dtype): the
-                        # held graph reads them by address, and new
-                        # tensors would leave it replaying the old weights
-                        fwd.model.load_state_dict(model.state_dict())
-                        val = validate(fwd)
-                        val_s.append(time.perf_counter() - t0)
-                        logger.push_val(cur, val)
-                        print(f"val@{cur}: {val}")
-                        key = VAL_KEY[args.validation]
-                        if val.get(key, math.inf) < best_val:
-                            best_val = val[key]
-                            save_params_npz(str(out / "best.npz"),
-                                            to_jax(model.state_dict()))
-                            print(f"new best {key}={best_val:.4f} -> "
-                                  f"{out / 'best.npz'}")
-                step_t.append(time.perf_counter())
-                if cur >= args.num_steps:
-                    break
-            epoch += 1
-        for m, lr in pending:
-            logger.push({k: float(v) for k, v in m.items()}, lr=lr)
-        t0 = time.perf_counter()
-        ckpt.save(state, wait=True)
-        ckpt.close()
-        save_s.append(time.perf_counter() - t0)
-        logger.close()
-        print("training complete")
+        def on_checkpoint(cur, logger):
+            nonlocal val, best_val
+            if validate is None:
+                return
+            t0 = time.perf_counter()
+            # in place (load_state_dict copies into the eval model's
+            # tensors, cast to their dtype): the held graph reads them by
+            # address, and new tensors would leave it replaying the old
+            # weights
+            fwd.model.load_state_dict(model.state_dict())
+            val = validate(fwd)
+            val_s.append(time.perf_counter() - t0)
+            logger.push_val(cur, val)
+            print(f"val@{cur}: {val}")
+            key = VAL_KEY[args.validation]
+            if val.get(key, math.inf) < best_val:
+                best_val = val[key]
+                save_params_npz(str(out / "best.npz"),
+                                to_jax(model.state_dict()))
+                print(f"new best {key}={best_val:.4f} -> "
+                      f"{out / 'best.npz'}")
+
+        step_t, save_s = run_loop(args, out, device, state, step_fn,
+                                  dataset, "clips", on_checkpoint)
         return Run(state, fwd, val, best_val, step_t, save_s, val_s)
-    finally:
-        tee.close()
 
 
 def main(argv=None) -> Run:

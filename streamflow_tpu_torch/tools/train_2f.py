@@ -23,8 +23,6 @@ flax's initialisers.
 from __future__ import annotations
 
 import argparse
-import time
-from pathlib import Path
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,35 +60,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train(args, dataset):
-    """The training loop of ``main`` on ``dataset`` (``__len__`` and
-    ``load(index, rng)`` giving two-frame samples, as data/datasets.py).
-    Returns tools/train.py's ``Run`` (no validation: ``fwd`` None)."""
+    """The training loop of ``main`` (tools/train.py::run_loop) on
+    ``dataset`` (``__len__`` and ``load(index, rng)`` giving two-frame
+    samples, as data/datasets.py) with ``make_train_step_2f``. Returns
+    tools/train.py's ``Run`` (no validation: ``fwd`` None)."""
     import math
 
-    import torch
-
-    from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.params import load_jax
-    from streamflow_tpu_torch.tools.common import (TWO_FRAME, init_weights,
-                                                   raft_config)
-    from streamflow_tpu_torch.tools.train import Run
-    from streamflow_tpu_torch.training.checkpoint import (CheckpointManager,
-                                                          load_variables_npz)
+    from streamflow_tpu_torch.tools.common import TWO_FRAME, init_weights
+    from streamflow_tpu_torch.tools.train import Run, run_loop, session
+    from streamflow_tpu_torch.training.checkpoint import load_variables_npz
     from streamflow_tpu_torch.training.state import TrainState
     from streamflow_tpu_torch.training.step import make_train_step_2f
-    from streamflow_tpu_torch.utils.logger import MetricsLogger, Tee
 
-    out = Path(args.output) / args.name
-    out.mkdir(parents=True, exist_ok=True)
-    tee = Tee(out / "log.txt").install()
-    try:
-        device = torch.device(args.device)
-        print(vars(args))
-        cfg = raft_config(args.model, iters=args.iters,
-                          mixed_precision=args.mixed_precision)
-        model = create_model(TWO_FRAME[args.model], cfg=cfg, device=device,
-                             train=True)
+    with session(args) as (out, device):
+        model = create_model(TWO_FRAME[args.model], device=device,
+                             train=True, iters=args.iters,
+                             mixed_precision=args.mixed_precision)
         init_weights(model, args.seed)
         if args.restore_ckpt:
             load_jax(model, load_variables_npz(args.restore_ckpt),
@@ -98,54 +85,13 @@ def train(args, dataset):
             print(f"restored params from {args.restore_ckpt}")
         n_params = sum(p.numel() for p in model.parameters())
         print(f"parameter count: {n_params / 1e6:.2f}M")
-        print(f"training with {len(dataset)} pairs")
-        loader = DataLoader(dataset, args.batch_size,
-                            num_workers=args.num_workers, seed=args.seed)
-        if not len(loader):
-            raise ValueError(f"{len(dataset)} pairs make no batch of "
-                             f"{args.batch_size}")
 
         state = TrainState.create(model, args.lr, args.num_steps,
                                   args.wdecay, clip=args.clip)
-        ckpt = CheckpointManager(str(out / "ckpts"), max_to_keep=5)
-        if ckpt.latest_step() is not None:
-            ckpt.restore(state)
-            print(f"resumed from step {state.step}")
-        step_fn = make_train_step_2f(args.gamma, args.iters)
-
-        logger = MetricsLogger(str(out), args.num_steps, args.print_freq)
-        cur = logger.step = state.step
-        step_t, save_s, pending = [], [], []
-        epoch = 0
-        while cur < args.num_steps:
-            for batch in prefetch_to_device(loader.epoch(epoch), device):
-                metrics = step_fn(state, batch)
-                cur = state.step
-                pending.append((metrics, state.lr))
-                if cur % args.print_freq == 0:
-                    for m, lr in pending:
-                        logger.push({k: float(v) for k, v in m.items()},
-                                    lr=lr)
-                    pending.clear()
-                if cur % args.val_freq == 0:
-                    t0 = time.perf_counter()
-                    ckpt.save(state)
-                    save_s.append(time.perf_counter() - t0)
-                step_t.append(time.perf_counter())
-                if cur >= args.num_steps:
-                    break
-            epoch += 1
-        for m, lr in pending:
-            logger.push({k: float(v) for k, v in m.items()}, lr=lr)
-        t0 = time.perf_counter()
-        ckpt.save(state, wait=True)
-        ckpt.close()
-        save_s.append(time.perf_counter() - t0)
-        logger.close()
-        print("training complete")
+        step_t, save_s = run_loop(args, out, device, state,
+                                  make_train_step_2f(args.gamma, args.iters),
+                                  dataset, "pairs")
         return Run(state, None, {}, math.inf, step_t, save_s, [])
-    finally:
-        tee.close()
 
 
 def main(argv=None):

@@ -121,9 +121,10 @@ def test_bridge_round_trips_bit_for_bit(pair):
 def test_build_raft_mapping_equals_jax(update_block):
     """The port's copy of the table, rule for rule (params and
     batch_stats, in JAX's order), at the default and other kernel
-    sizes."""
+    sizes; ``use_gma`` is JAX's rule, GMA with 'gma' and 'sk'."""
+    use_gma = update_block in ("gma", "sk")
     for kw in ({}, dict(k_conv=(1, 1, 9), pc_updater_conv=(1, 5))):
-        assert (convert.build_raft_mapping(update_block, **kw)
+        assert (convert.build_raft_mapping(update_block, use_gma, **kw)
                 == jti.build_raft_mapping(update_block, **kw))
 
 
