@@ -125,7 +125,26 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      two-frame shapes (K1 on the bf16 C=256 fmaps at 1x55x128 and
      8x46x62, with the f32 body of JAX's f32 cast timed beside; K2's two
      default forms at SKFlow's six SK blocks, its gru 512 wide, and the
-     384-wide gru without GMA; K3 and B5 on the two-frame GMA grids).
+     384-wide gru without GMA; K3 and B5 on the two-frame GMA grids);
+  34. data-parallel training (streamflow_tpu_torch/parallel/), in
+     processes of its own (``chip_smoke.py --dp ...``): (a) a one-rank
+     NCCL group: its all-reduce leaves a real step's gradients, loss and
+     metric sums bit for bit as they were; phase 7's step as
+     ``shard_train_step`` against two plain runs from the same weights,
+     3 canonical steps and one 'basic' step (its BatchNorm synced): the
+     first forward's metrics and the running statistics bit for bit, the
+     rest within the card's own run-to-run spread (B5's atomic sums make
+     the backward irreproducible; measured beside), launches as phase
+     7's, wall and device ms a step of each, in turns;
+     (b) two ranks sharing the card over gloo, f32, 432x960, a global
+     batch of 2 at 2 iterations: the canonical, 'basic', bithings (fold),
+     'basic' bidirectional and RAFT two-frame steps against one process's
+     step on the whole batch, at JAX's tolerances for its sharded step,
+     the ranks equal bit for bit after two steps, launches exact on both;
+     (c) tools/train.py::train on two ranks over gloo (global batch 2,
+     4 steps, a checkpoint and a validation every 2): checkpoints written
+     by rank 0 alone, validations and best.npz on rank 0 alone, each rank
+     resuming the last checkpoint bit for bit, the ranks' states equal.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -137,7 +156,10 @@ and that layout's forward and train step; "inference_<config>" and
 "inference_<model>" and "train_step_<model>": the same for each
 two-frame model, phases 3, 6 and 33, per 440x1024 pair of 32
 iterations and per B=8 step;
-"serving": phase 28's
+"train_step_dp": phase 34 (a)'s
+launches per step, with phase 6's numbers per step; "trainer_dp": phase
+34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
+4; "serving": phase 28's
 launches, with phase 3's numbers per 440x1024 clip; "trainer": the
 launches of phase 30's 6 steps, with phase 30's B=8 kernel numbers
 summed over the same 6 steps, and its validation's launches apart under
@@ -241,17 +263,18 @@ def forward_launches(iters: int = ITERS, t: int = T, h: int = 440,
                 lga_attention=4)
 
 
-def train_launches(t: int = T, h: int = 432, w: int = 960) -> dict:
+def train_launches(t: int = T, h: int = 432, w: int = 960,
+                   iters: int = ITERS) -> dict:
     """Launches in one train step with remat: the refinement kernels run in
     the forward and again in each step's recompute (K1 2x12, K2 2x144 + the
     8 of the encoders, K3 2x12 GMA + the GSA calls), K4 once; B5's two
     kernels (dq pass, dk/dv pass) once per K3 forward that the loss
     reaches (12 GMA + the GSA calls). The batch size changes none."""
     gsa = gsa_flash_blocks(t, h, w)
-    return dict(forward_launches(ITERS, t, h, w), corr_lookup=2 * ITERS,
-                ffn_pair=2 * 12 * ITERS + 8,
-                flash_attention=2 * ITERS + gsa,
-                flash_attention_bwd=2 * (ITERS + gsa))
+    return dict(forward_launches(iters, t, h, w), corr_lookup=2 * iters,
+                ffn_pair=2 * 12 * iters + 8,
+                flash_attention=2 * iters + gsa,
+                flash_attention_bwd=2 * (iters + gsa))
 
 
 EXPECTED_LAUNCHES = forward_launches()
@@ -324,14 +347,16 @@ def zoo_kind(name: str) -> dict:
 
 
 def zoo_launches(name: str, train: bool = False, t: int = T, h: int = 440,
-                 w: int = 1024) -> dict:
+                 w: int = 1024, iters: int = ITERS, apps=None) -> dict:
     """Launches of each kernel in one forward (or train step) of a ZOO
     config: as forward_launches / train_launches, with K3's GMA calls only
     under GMA, its GSA calls where a Twins encoder's GSA block has more
     than GSA_FLASH_TOKENS an image (the canonical grid stacks the frames;
     the per-frame family runs B*T images of one frame each: stage 0 only
     at 440x1024 and 432x960), K4 and the 8 K2 MLPs in the Twins encoders
-    only; a bidirectional BatchNorm step makes every launch twice."""
+    only; a bidirectional BatchNorm step makes every launch twice
+    (``apps``: the step's model applications, ZOO_TRAINED's by
+    default)."""
     k = zoo_kind(name)
     if k["csc"]:
         gsa = gsa_flash_blocks(t, h, w)
@@ -340,16 +365,17 @@ def zoo_launches(name: str, train: bool = False, t: int = T, h: int = 440,
                   for s in (4, 8) for _ in ("fnet", "cnet"))
     else:
         gsa = 0
-    gma = ITERS if k["gma"] else 0
+    gma = iters if k["gma"] else 0
     enc, lga = (8, 4) if k["twins"] else (0, 0)
     base = dict.fromkeys(KERNELS, 0)
     if not train:
-        return dict(base, corr_lookup=ITERS, ffn_pair=12 * ITERS + enc,
+        return dict(base, corr_lookup=iters, ffn_pair=12 * iters + enc,
                     flash_attention=gma + gsa, lga_attention=lga)
-    one = dict(base, corr_lookup=2 * ITERS, ffn_pair=2 * 12 * ITERS + enc,
+    one = dict(base, corr_lookup=2 * iters, ffn_pair=2 * 12 * iters + enc,
                flash_attention=2 * gma + gsa,
                flash_attention_bwd=2 * (gma + gsa), lga_attention=lga)
-    return {kk: ZOO_TRAINED[name] * v for kk, v in one.items()}
+    apps = ZOO_TRAINED[name] if apps is None else apps
+    return {kk: apps * v for kk, v in one.items()}
 
 # phase 33: the two-frame baselines (models/raft.py), each at full width,
 # bf16, seeded random weights, in inference at validate_sintel_2f's shape
@@ -369,15 +395,17 @@ RAFT_TRAINER_DIR = os.path.join(ROOT, "build", "chip_smoke_trainer_2f")
 RAFT_TABLE = {}
 
 
-def raft_launches(name: str, train: bool = False) -> dict:
+def raft_launches(name: str, train: bool = False, iters=None) -> dict:
     """Launches of each kernel in one forward (RAFT_ITERS iterations) or
     one train step (RAFT_TRAIN_ITERS, no remat) of a two-frame model: K1
     once per iteration in every model; K3 once per iteration (the GMA
     aggregate) in raft_gma and skflow; K2 twice (ffn_pair_k1,
     dwres_pw_ffn_pair) per SK block per iteration in skflow (6 blocks:
     convc1, convc2, convf2, conv, gru, flow_head); in a step B5's two
-    kernels per K3 call. The batch size changes none."""
-    iters = RAFT_TRAIN_ITERS if train else RAFT_ITERS
+    kernels per K3 call. The batch size changes none (``iters``: another
+    depth)."""
+    if iters is None:
+        iters = RAFT_TRAIN_ITERS if train else RAFT_ITERS
     gma = 0 if name == "raft" else iters
     out = dict(dict.fromkeys(KERNELS, 0), corr_lookup=iters,
                flash_attention=gma,
@@ -528,6 +556,23 @@ def new_summary():
     return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "ops_ms": 0.0, "mem_ms": 0.0, "library_ms": None}
             for k in KERNELS}
+
+
+def scaled_summary(summary, n):
+    """A copy of a path's kernel numbers (``new_summary``'s), the times
+    times ``n``: the same calls made ``n`` times."""
+    out = {}
+    for name, s in summary.items():
+        s = dict(s)
+        for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "mem_ms"):
+            s[k] *= n
+        if s["library_ms"] is not None:
+            s["library_ms"] *= n
+        if "ms_by_traffic" in s:
+            s["ms_by_traffic"] = {k: v * n for k, v in
+                                  s["ms_by_traffic"].items()}
+        out[name] = s
+    return out
 
 
 def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
@@ -2026,14 +2071,7 @@ def trainer_phase(dev) -> tuple:
     per_step_summary = {"auto": new_summary()}
     kernel_checks(dev, per_step_summary, h, w, True, batch=b)
     backward_checks(dev, list(per_step_summary.values()), batch=b)
-    steps_summary = per_step_summary["auto"]
-    for s in steps_summary.values():
-        for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "mem_ms"):
-            s[k] *= TRAINER_STEPS
-        if s["library_ms"] is not None:
-            s["library_ms"] *= TRAINER_STEPS
-        for k in s.get("ms_by_traffic", {}):
-            s["ms_by_traffic"][k] *= TRAINER_STEPS
+    steps_summary = scaled_summary(per_step_summary["auto"], TRAINER_STEPS)
 
     dataset = MemoryClips(8 * b, t, h, w)
 
@@ -2696,6 +2734,620 @@ def raft_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 34
+# data-parallel training (streamflow_tpu_torch/parallel/), in processes of
+# its own (``python chip_smoke.py --dp PART RANK WORLD BACKEND STORE``), so
+# that no other phase holds a process group:
+# (a) a one-rank NCCL group against the plain step (part "a");
+# (b) two ranks sharing the card over gloo against one process on the
+#     same global batch, f32, then (c) tools/train.py::train with two ranks
+#     over gloo, in the same two processes (part "bc").
+DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
+DP_STEPS = 3                 # (a): steps of each side, canonical
+# (a): the group's state after DP_STEPS steps against its nearest plain
+# run, relative L2 of all parameters and buffers, of all first and of all
+# second AdamW moments; its metrics against each plain run's. Two plain
+# runs have differed by up to 4.2e-7, 5.4e-4 and 4.4e-4, their losses by
+# 3.5e-5 (H100, B5's atomic sums amplified by random weights over 3
+# steps): the bounds leave 18-28x
+DP_A_REL = {"model": 1e-5, "exp_avg": 1e-2, "exp_avg_sq": 1e-2}
+DP_A_METRIC_RTOL = 1e-3
+# the px rates: a few of the 1.24M pixels a step crossing a threshold
+DP_A_METRIC_ATOL = 1e-4
+DP_TIMED = 2                 # (a): rounds of timed steps, 2 a side each
+DP2_B, DP2_ITERS = 2, 2      # (b): the global batch, iterations
+# (b): name -> (model, config fields, bidirectional)
+DP2_FORMS = {"canonical": ("streamflow", {}, False),
+             "basic": ("streamflow", {"encoder": "basic"}, False),
+             "bithings": ("streamflow", {}, True),
+             "basic_bidir": ("streamflow", {"encoder": "basic"}, True),
+             "raft": ("raft", {}, False)}
+# (b): JAX's tolerances for its sharded step against the unsharded one
+# (tests/test_training_infra.py:173-182)
+DP2_LOSS_RTOL, DP2_PARAM_ATOL, DP2_PARAM_RTOL = 1e-5, 3e-5, 2e-3
+DP_TRAINER_STEPS, DP_TRAINER_VAL = 4, 2     # (c)
+DP_TIMEOUT = 600             # seconds a part's processes may take
+
+
+def dp_run(part: str, world: int, backend: str) -> list:
+    """Part ``part`` of phase 34 in ``world`` processes on the card (a
+    file store under DP_DIR for the rendezvous); returns each rank's
+    record. Raises if a process fails or outlasts DP_TIMEOUT; kills every
+    process it started before it returns or raises."""
+    import shutil
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    store = os.path.join(DP_DIR, f"store_{part}")
+    # (a) compares two steps bit for bit: cuBLAS needs a fixed workspace
+    # for deterministic results
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp", part, str(r),
+         str(world), backend, store], cwd=ROOT, env=env)
+        for r in range(world)]
+    try:
+        for p in procs:
+            if p.wait(timeout=DP_TIMEOUT):
+                raise AssertionError(f"phase 34 ({part}): a process exited "
+                                     f"with {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r in range(world):
+        with open(os.path.join(DP_DIR, f"{part}_{r}.json")) as fh:
+            recs.append(json.load(fh))
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return recs
+
+
+def dp_worker(part, rank, world, backend, store) -> None:
+    """One process of phase 34: joins the group, runs its part, writes
+    its record to DP_DIR/<part>_<rank>.json."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from streamflow_tpu_torch import _build, parallel
+    from streamflow_tpu_torch.parallel import multihost
+
+    _build.library()
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    t1 = time.perf_counter()
+    assert parallel.initialize(f"file://{store}", world, rank,
+                               backend=backend, device=dev) == (rank, world)
+    log(f"phase 34 ({part}) rank {rank}: torch, the kernels and the card "
+        f"{t1 - t0:.1f} s, the {backend} group {time.perf_counter() - t1:.1f}"
+        f" s")
+    try:
+        if part == "a":
+            rec = dp_one_rank(dev, rank, world)
+        else:             # (b) then (c), in the same two processes
+            rec = {"b": dp_two_ranks(dev, rank, world)}
+            torch.cuda.empty_cache()
+            rec["c"] = dp_trainer(dev, rank, world)
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(DP_DIR, f"{part}_{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def device_ms(fn) -> float:
+    """The device time (ms, kernels and copies summed) of one call of
+    ``fn``, from a profile that records the card's activity alone (a
+    traced warm-up call first, as tools/common.py::profiled): a cheaper
+    trace than profile_device's, which records the host's ops too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from streamflow_tpu_torch.tools.common import device_events
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sum(t for _, _, t in device_events(prof) if t > 0) / 1e3
+
+
+def b5_repro(dev) -> None:
+    """B5 twice on the same inputs, bf16, at the train step's GMA call and
+    its stage-0 fnet GSA call: logs how many elements of dq, dk, dv
+    differ between the two calls (the split passes' atomic sums)."""
+    import torch
+
+    from streamflow_tpu_torch.ops.kernels import flash_attention as K3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    h8, w8 = TRAIN_H // 8, TRAIN_W // 8
+    out = {}
+    for label, bh, n, m, d in (
+            ("gma", (3, 1), h8 * w8, h8 * w8, 128),
+            ("gsa0 fnet", (1, 4), T * 4 * h8 * w8, (T * 2 * h8 // 8)
+             * (2 * w8 // 8), 32)):
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=g, device=dev)
+                    ).bfloat16()
+        q = rnd(*bh, n, d, scale=d ** -0.5)
+        k, v, do = rnd(*bh, m, d), rnd(*bh, m, d), rnd(*bh, n, d)
+        o, lse = K3.flash_attention_fwd(q, k, v, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        first = K3.flash_attention_bwd(q, k, v, do, lse, delta)
+        second = K3.flash_attention_bwd(q, k, v, do, lse, delta)
+        out[label] = {name: int((a != b).sum()) for name, a, b in
+                      zip(("dq", "dk", "dv"), first, second)}
+    log(f"phase 34 (a) B5 twice on the same bf16 inputs, elements that "
+        f"differ: {json.dumps(out)}")
+
+
+def state_diffs(a, b) -> tuple:
+    """How two TrainStates differ: (the names of the tensors that differ
+    (parameters, buffers, AdamW moments), {part: relative L2 difference
+    of all its tensors together} for the parts 'model' (parameters and
+    buffers), 'exp_avg' and 'exp_avg_sq')."""
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    parts = {"model": [(k, sa[k], sb[k]) for k in sa]}
+    oa = a.optimizer.state_dict()["state"]
+    ob = b.optimizer.state_dict()["state"]
+    names = [n for n, _ in a.model.named_parameters()]
+    for m in ("exp_avg", "exp_avg_sq"):
+        parts[m] = [(f"{names[i]} {m}", s[m], ob[i][m])
+                    for i, s in oa.items()]
+    differ, rel = [], {}
+    for part, pairs in parts.items():
+        num = den = 0.0
+        for k, x, y in pairs:
+            if not torch.equal(x, y):
+                differ.append(k)
+                num += float((x.double() - y.double()).square().sum())
+            den += float(y.double().square().sum())
+        rel[part] = math.sqrt(num / max(den, 1e-300))
+    return differ, rel
+
+
+def dp_one_rank(dev, rank, world) -> dict:
+    """(a) A group of one rank (NCCL), at phase 7's step (canonical,
+    'auto', 432x960, T=4, 12 iterations, bf16 with f32 parameters, remat,
+    B=1), with deterministic algorithms on:
+    - what the group adds is exact: ``_all_reduce`` over the group leaves
+      a real step's gradients, loss and metric sums bit for bit as they
+      were;
+    - DP_STEPS steps of shard_train_step against the plain step from the
+      same seeded weights and batches (one step of 'basic', its
+      BatchNorm synced over the group), launches as phase 7's: the plain
+      step is run twice and the group's once, between the two, each from
+      a fresh copy of the seeded model. Every run's first forward
+      metrics and running statistics are bit for bit the group's. The
+      backward is not reproducible on the card, even with deterministic
+      algorithms: B5 adds the slices of its split passes into zeroed
+      buffers with f32 atomics, in no fixed order (``b5_repro`` shows it),
+      and random weights amplify each difference from step to step. So
+      the log gives every pair of runs' differences (tensors that differ,
+      relative L2), and the group's state after the steps is held within
+      DP_A_REL of its nearest plain run, its metrics within
+      DP_A_METRIC_RTOL of each;
+    - wall and device ms a step of each, in turns."""
+    import copy
+
+    import torch
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools.train_bench import synthetic_batch
+    from streamflow_tpu_torch.training.loss import masked_means
+    from streamflow_tpu_torch.training.state import TrainState
+    from streamflow_tpu_torch.training.step import (_all_reduce,
+                                                    batch_stats,
+                                                    make_train_step)
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    b5_repro(dev)
+    group = parallel.make_mesh()
+    plain_step = make_train_step(gamma=0.85, iters=ITERS)
+    group_step = parallel.shard_train_step(plain_step, group)
+    batches = [synthetic_batch(B, T, TRAIN_H, TRAIN_W, SEED + i, dev)
+               for i in range(DP_STEPS)]
+
+    t0 = time.perf_counter()
+    templates = {zoo: train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED,
+                                  "auto", zoo=zoo)[0].model
+                 for zoo in (None, "basic")}
+
+    def fresh(zoo=None):
+        """A new TrainState holding a copy of the seeded model."""
+        return TrainState.create(copy.deepcopy(templates[zoo]), lr=1.75e-4,
+                                 num_steps=180_000)
+
+    # the group's own arithmetic on a real step's buffers
+    state = fresh()
+    loss, sums = plain_step.loss_fn(state.model, batches[0], sums=True)
+    loss.backward()
+    grads = [p.grad for p in state.model.parameters()
+             if p.grad is not None]
+    before = [g.clone() for g in grads]
+    loss = loss.detach()
+    got_loss, got_sums = _all_reduce(grads, loss, sums, group)
+    assert all(torch.equal(g, g0) for g, g0 in zip(grads, before))
+    assert torch.equal(got_loss, loss)
+    want, got = masked_means(sums), masked_means(got_sums)
+    assert all(torch.equal(want[k], got[k]) for k in want), (want, got)
+    log(f"phase 34 (a) the one-rank NCCL all-reduce of a step's "
+        f"{len(grads)} gradients ({sum(g.numel() for g in grads)} f32), "
+        f"loss and metric sums: each bit for bit as it was")
+    del state, grads, before
+
+    def run(step, zoo=None, n=DP_STEPS):
+        state = fresh(zoo)
+        metrics, counts = [], []
+        for batch in batches[:n]:
+            reset_launches()
+            metrics.append(step(state, batch))
+            torch.cuda.synchronize()
+            counts.append(dict(LAUNCHES))
+            if not counts[1:]:
+                stats = [t.clone() for t in batch_stats(state.model)]
+        return state, metrics, counts, stats
+
+    def compare(label, zoo=None, n=DP_STEPS):
+        runs = {}
+        for name, step in (("plain 1", plain_step), ("group", group_step),
+                           ("plain 2", plain_step)):
+            runs[name] = run(step, zoo, n)
+        forward = ("loss", "epe", "1px", "3px", "5px")
+        g_state, g_m, g_counts, g_stats = runs["group"]
+        for name, (st, m, _, stats) in runs.items():
+            assert all(torch.equal(m[0][k], g_m[0][k]) for k in forward), (
+                name, m[0], g_m[0])
+            assert all(torch.equal(x, y) for x, y in zip(stats, g_stats))
+        same = {}
+        for a_name, b_name in (("group", "plain 1"), ("group", "plain 2"),
+                               ("plain 1", "plain 2")):
+            (sa, ma, _, _), (sb, mb, _, _) = runs[a_name], runs[b_name]
+            differ, rel = state_diffs(sa, sb)
+            differ += [f"step {i} {k}" for i, (x, y) in enumerate(zip(ma, mb))
+                       for k in x if not torch.equal(x[k], y[k])]
+            same[f"{a_name} / {b_name}"] = (len(differ), rel)
+        near = {part: min(same[f"group / plain {i}"][1][part]
+                          for i in (1, 2)) for part in DP_A_REL}
+        log(f"phase 34 (a) {label}: one-rank NCCL group and plain steps from "
+            f"the same state over {n} steps: step 1's forward metrics "
+            f"{ {k: float(g_m[0][k]) for k in forward} } and "
+            f"{len(g_stats)} running statistics bit for bit in every run; "
+            f"losses {[float(m['loss']) for m in g_m]}, grad_norm "
+            f"{[float(m['grad_norm']) for m in g_m]}; tensors and metrics "
+            f"that differ, relative L2 (parameters and buffers, AdamW "
+            f"moments): {json.dumps(same)}; the group from its nearest "
+            f"plain run {json.dumps(near)} (bound {json.dumps(DP_A_REL)}); "
+            f"{time.perf_counter() - t0:.1f} s into the part")
+        assert all(near[k] <= DP_A_REL[k] for k in near), near
+        for name in ("plain 1", "plain 2"):
+            for g, m in zip(g_m, runs[name][1]):
+                assert all(abs(float(g[k]) - float(m[k]))
+                           <= DP_A_METRIC_RTOL * abs(float(m[k]))
+                           + DP_A_METRIC_ATOL for k in m), (name, g, m)
+        return g_counts
+
+    counts = compare("canonical")
+    for i, c in enumerate(counts):
+        assert c == EXPECTED_TRAIN_LAUNCHES, (i, c, EXPECTED_TRAIN_LAUNCHES)
+    log(f"phase 34 (a) launches per step {json.dumps(counts[0])} == "
+        f"phase 7's")
+    basic_counts = compare("basic", zoo="basic", n=1)
+    want = zoo_launches("basic", train=True, t=T, h=TRAIN_H, w=TRAIN_W,
+                        apps=1)
+    assert basic_counts[0] == want, (basic_counts[0], want)
+
+    # times: one state per side, steps in turns (plain, group, group,
+    # plain), then one profiled step of each
+    sides = {"plain": (plain_step, fresh()), "group": (group_step, fresh())}
+    walls = {"plain": [], "group": []}
+    for name in ("plain", "group", "group", "plain") * DP_TIMED:
+        step, st = sides[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(st, batches[0])
+        torch.cuda.synchronize()
+        walls[name].append(1e3 * (time.perf_counter() - t0))
+    out = {"launches": counts[0]}
+    for name, (step, st) in sides.items():
+        ms = sum(walls[name]) / len(walls[name])
+        dms = device_ms(lambda: step(st, batches[0]))
+        out[name] = {"wall_ms": ms, "walls": walls[name], "device_ms": dms,
+                     "idle": max(0.0, 1 - dms / ms)}
+    log(f"phase 34 (a) {B}x{T}x{TRAIN_H}x{TRAIN_W} iters {ITERS} bf16 + f32 "
+        f"params + remat, deterministic algorithms: wall ms/step plain "
+        f"{out['plain']['wall_ms']:.3f} group {out['group']['wall_ms']:.3f} "
+        f"({DP_TIMED * 2} steps each, in turns); device ms/step plain "
+        f"{out['plain']['device_ms']:.3f} group "
+        f"{out['group']['device_ms']:.3f}; idle share plain "
+        f"{out['plain']['idle']:.4f} group {out['group']['idle']:.4f}; "
+        f"group / plain wall "
+        f"{out['group']['wall_ms'] / out['plain']['wall_ms']:.4f}, device "
+        f"{out['group']['device_ms'] / out['plain']['device_ms']:.4f}; "
+        f"the steps' walls plain {[round(x, 3) for x in walls['plain']]} "
+        f"group {[round(x, 3) for x in walls['group']]}; "
+        f"{time.perf_counter() - t0:.1f} s into the part")
+    return out
+
+
+def dp_batch(kind, seed, dev):
+    """(b)'s seeded global batch of DP2_B clips at 432x960 (two frames for
+    RAFT, T for StreamFlow with the backward flows), valid masks of 90%
+    and 35% on the two rows, so that the ranks' valid counts differ."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = 2 if kind == "raft" else T
+    shape = (DP2_B, t - 1, TRAIN_H, TRAIN_W)
+    dens = np.array([0.9, 0.35], np.float32)[:, None, None, None]
+
+    def arr(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    out = {"images": arr(rng.integers(0, 256, (DP2_B, t, TRAIN_H, TRAIN_W,
+                                               3))),
+           "flows": arr(4.0 * rng.standard_normal(shape + (2,))),
+           "valids": arr(rng.random(shape) < dens)}
+    if kind == "streamflow":
+        out["flows_bw"] = arr(4.0 * rng.standard_normal(shape + (2,)))
+        out["valids_bw"] = arr(rng.random(shape) < dens)
+    return out
+
+
+def dp_state(dev, kind, fields):
+    """(b)'s f32 train state of a form, from the seeded weights."""
+    from streamflow_tpu_torch.config import RAFTConfig, StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.training.state import TrainState
+
+    if kind == "raft":
+        model = create_model("raft", cfg=RAFTConfig(
+            iters=DP2_ITERS, mixed_precision=False, **fields), device=dev,
+            train=True)
+        init_weights(model, SEED)
+        return TrainState.create(model, lr=RAFT_LR, num_steps=100_000,
+                                 weight_decay=RAFT_WD)
+    model = create_model("streamflow", cfg=StreamFlowConfig(
+        T=T, iters=DP2_ITERS, mixed_precision=False, remat=True, **fields),
+        device=dev, train=True)
+    init_weights(model, SEED)
+    return TrainState.create(model, lr=1.75e-4, num_steps=180_000)
+
+
+def dp_two_ranks(dev, rank, world) -> dict:
+    """(b) Two ranks in two processes sharing the card over gloo, f32 (TF32
+    off), 432x960, global batch DP2_B (one clip a rank), DP2_ITERS
+    iterations: for each of DP2_FORMS, one shard_train_step step of the
+    two ranks against one process's step on the whole global batch (run
+    in rank 0's process first), at DP2_*'s tolerances; after a second
+    step the ranks' parameters, statistics and AdamW moments equal bit for
+    bit; each rank's launches in each step exact."""
+    import torch
+    import torch.distributed as dist
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.training.step import (make_train_step,
+                                                    make_train_step_2f)
+
+    out = {}
+    for name, (kind, fields, bidir) in DP2_FORMS.items():
+        if kind == "raft":
+            step = make_train_step_2f(RAFT_GAMMA, DP2_ITERS)
+            want = raft_launches("raft", train=True, iters=DP2_ITERS)
+        else:
+            step = make_train_step(0.85, DP2_ITERS, bidirectional=bidir)
+            want = (train_launches(iters=DP2_ITERS) if "encoder" not in fields
+                    else zoo_launches(fields["encoder"], train=True, t=T,
+                                      h=TRAIN_H, w=TRAIN_W, iters=DP2_ITERS,
+                                      apps=2 if bidir else 1))
+        batch = dp_batch(kind, SEED + 11, dev)
+        t0 = time.perf_counter()
+        if rank == 0:
+            ref = dp_state(dev, kind, fields)
+            m_ref = {k: float(v) for k, v in step(ref, batch).items()}
+            ref_sd = {k: v.detach().to("cpu", copy=True) for k, v in
+                      ref.model.state_dict().items()}
+            del ref
+        parallel.barrier(f"reference {name}")
+        state = dp_state(dev, kind, fields)
+        parallel.replicate(state.model)
+        sharded = parallel.shard_train_step(step)
+        local = parallel.shard_batch(batch, rank, world)
+        counts = []
+        for i in range(2):
+            reset_launches()
+            m = sharded(state, local)
+            torch.cuda.synchronize()
+            counts.append(dict(LAUNCHES))
+            if i == 0:
+                m1 = {k: float(v) for k, v in m.items()}
+                sd1 = {k: v.detach().to("cpu", copy=True) for k, v in
+                       state.model.state_dict().items()}
+        for c in counts:
+            assert c == want, (name, rank, c, want)
+        # the ranks agree bit for bit: rank 0's tensors broadcast
+        flat = torch.cat([v.reshape(-1).float() for v in
+                          state.model.state_dict().values()]
+                         + [v.reshape(-1).float() for s in
+                            state.optimizer.state_dict()["state"].values()
+                            for v in s.values() if v.is_cuda])
+        ref_flat = flat.clone()
+        dist.broadcast(ref_flat, 0)
+        agree = torch.tensor([float(torch.equal(flat, ref_flat))],
+                             device=dev)
+        dist.all_reduce(agree)
+        assert int(agree.item()) == world, f"{name}: the ranks differ"
+        rec = {"metrics": m1, "launches": counts[0],
+               "s": time.perf_counter() - t0}
+        if rank == 0:
+            keys = ("loss", "epe") + (("epe_bw",) if bidir else ())
+            errs = {k: abs(m1[k] - m_ref[k]) / abs(m_ref[k]) for k in keys}
+            assert all(e <= DP2_LOSS_RTOL for e in errs.values()), (
+                name, m1, m_ref)
+            worst, n_moved = 0.0, 0
+            for k, want_p in ref_sd.items():
+                got_p = sd1[k]
+                excess = ((got_p - want_p).abs() - DP2_PARAM_ATOL
+                          - DP2_PARAM_RTOL * want_p.abs()).max()
+                worst = max(worst, float((got_p - want_p).abs().max()))
+                assert float(excess) <= 0, (name, k, float(excess))
+                n_moved += 1
+            rec.update(ref=m_ref, rel_err=errs, param_max_abs=worst)
+            log(f"phase 34 (b) {name}: 2 ranks on one card (gloo) vs one "
+                f"process on the global batch of {DP2_B}, f32, "
+                f"{TRAIN_H}x{TRAIN_W}, iters {DP2_ITERS}: loss "
+                f"{m1['loss']!r} vs "
+                f"{m_ref['loss']!r}, rel err "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (bound {DP2_LOSS_RTOL}); {n_moved} parameters and "
+                f"buffers within atol {DP2_PARAM_ATOL} + rtol "
+                f"{DP2_PARAM_RTOL} (max abs diff {worst:.3e}); after 2 "
+                f"steps the ranks equal bit for bit; launches per rank and "
+                f"step {json.dumps({k: v for k, v in counts[0].items() if v})}"
+                f" ({time.perf_counter() - t0:.1f} s)")
+        out[name] = rec
+        del state
+        torch.cuda.empty_cache()
+        parallel.barrier(f"done {name}")
+    return out
+
+
+def dp_trainer(dev, rank, world) -> dict:
+    """(c) tools/train.py::train with two ranks sharing the card over gloo:
+    global batch 2 (one clip a rank) of in-memory clips at 432x960, T=4,
+    12 iterations, bf16 with f32 parameters and remat, DP_TRAINER_STEPS
+    steps, a checkpoint and a validation (phase 28's Sintel windows)
+    every DP_TRAINER_VAL steps. Each rank's checkpoint writes, validations
+    and launches are counted; then the last checkpoint is restored into a
+    fresh state on each rank and compared with the live one bit for bit,
+    and the ranks' states with each other."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from streamflow_tpu_torch import evaluation as ev
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.tools import train as trainer
+    from streamflow_tpu_torch.training import checkpoint
+    from streamflow_tpu_torch.training.state import TrainState
+
+    out_dir = os.path.join(DP_DIR, "trainer")
+    args = trainer.parse_args([
+        "--preset", "sintel_kitti", "--validation", "sintel",
+        "--batch_size", str(world), "--num_steps", str(DP_TRAINER_STEPS),
+        "--print_freq", "1", "--val_freq", str(DP_TRAINER_VAL),
+        "--val_iters", str(ITERS), "--num_workers", "2", "--device",
+        str(dev), "--output", out_dir])
+    h, w = args.image_size
+    writes, vals = [], []
+    val_counts = dict.fromkeys(KERNELS, 0)
+    write = checkpoint.CheckpointManager._write
+
+    def counted(self, step, snapshot):
+        writes.append(step)
+        return write(self, step, snapshot)
+
+    checkpoint.CheckpointManager._write = counted
+    windows = sintel_windows(np.random.default_rng(SEED + 6))
+
+    def validate(fwd):
+        vals.append(rank)
+        before = dict(LAUNCHES)
+        epes = np.concatenate([
+            e for s in windows
+            for e in ev.pair_epes(ev.window_flows(fwd, s["images"], dev), s,
+                                  args.T)])
+        for k in KERNELS:
+            val_counts[k] += LAUNCHES[k] - before[k]
+        return {"clean_epe": float(epes.mean())}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    run = trainer.train(args, MemoryClips(8 * world, args.T, h, w),
+                        validate)
+    run_s = time.perf_counter() - t0
+    steps_counts = {k: LAUNCHES[k] - val_counts[k] for k in KERNELS}
+    per_step = train_launches(args.T, h, w)
+    assert steps_counts == {k: DP_TRAINER_STEPS * v
+                            for k, v in per_step.items()}, steps_counts
+    model = create_model("streamflow", cfg=run.state.model.cfg, device=dev,
+                         train=True)
+    fresh = checkpoint.CheckpointManager(os.path.join(
+        out_dir, args.name, "ckpts")).restore(TrainState.create(
+            model, args.lr, args.num_steps, args.wdecay, args.epsilon,
+            args.clip))
+    bad, _ = state_diffs(run.state, fresh)
+    if (run.state.step, run.state.lr) != (fresh.step, fresh.lr):
+        bad.append("step, lr")
+    assert not bad, f"rank {rank}: the resumed state differs in {bad[:5]}"
+    flat = torch.cat([v.reshape(-1).float() for v in
+                      run.state.model.state_dict().values()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    agree = torch.tensor([float(torch.equal(flat, ref))], device=dev)
+    dist.all_reduce(agree)
+    assert int(agree.item()) == world, "the ranks' final states differ"
+    best = os.path.exists(os.path.join(out_dir, args.name, "best.npz"))
+    return {"writes": writes, "validations": len(vals), "best": best,
+            "fwd": run.fwd is not None, "val": run.val,
+            "launches": steps_counts, "val_launches": val_counts,
+            "run_s": run_s,
+            "step_ms": [1e3 * (b - a) for a, b in zip(run.step_t,
+                                                       run.step_t[1:])]}
+
+
+def dp_phase(dev) -> tuple:
+    """Phase 34: data-parallel training, parts (a), (b), (c) in processes
+    of their own. Returns (a)'s launches per step and (c)'s rank-0
+    launches over its steps."""
+    t0 = time.perf_counter()
+    (a,) = dp_run("a", 1, "nccl")
+    ta = time.perf_counter()
+    bc = dp_run("bc", 2, "gloo")
+    b, c = [r["b"] for r in bc], [r["c"] for r in bc]
+    for name in DP2_FORMS:
+        assert b[0][name]["launches"] == b[1][name]["launches"], name
+        assert b[0][name]["metrics"] == b[1][name]["metrics"], name
+    assert [r["writes"] for r in c] == [
+        list(range(DP_TRAINER_VAL, DP_TRAINER_STEPS + 1, DP_TRAINER_VAL)),
+        []], [r["writes"] for r in c]
+    n_val = DP_TRAINER_STEPS // DP_TRAINER_VAL
+    assert [r["validations"] for r in c] == [n_val, 0], c
+    assert [r["fwd"] for r in c] == [True, False]
+    assert c[0]["best"] and not any(c[1]["val_launches"].values())
+    assert c[0]["launches"] == c[1]["launches"]
+    log(f"phase 34 (c) trainer, 2 ranks on one card (gloo), global batch 2 "
+        f"at 432x960 T=4 12 iterations bf16: {DP_TRAINER_STEPS} steps in "
+        f"{c[0]['run_s']:.1f} s (ms between steps "
+        f"{[round(x, 1) for x in c[0]['step_ms']]}); checkpoints written by "
+        f"rank 0 at steps {c[0]['writes']} and by rank 1 at "
+        f"{c[1]['writes']}; validations rank 0 {c[0]['validations']} "
+        f"({c[0]['val']}), rank 1 {c[1]['validations']}; best.npz from "
+        f"rank 0; both ranks resumed the last checkpoint bit for bit and "
+        f"hold the same state; launches per rank "
+        f"{json.dumps(c[0]['launches'])}")
+    b_s = sum(r["s"] for r in b[0].values())
+    log(f"phase 34 parts: (a) {ta - t0:.1f} s, (b) and (c) "
+        f"{time.perf_counter() - ta:.1f} s ((b) {b_s:.1f} s in its forms, "
+        f"(c) {c[0]['run_s']:.1f} s in train)")
+    return a["launches"], c[0]["launches"]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -2805,7 +3457,13 @@ def main() -> None:
     phase(31, "stage forms", stage_forms_phase, dev)
     counts.update(phase(32, "ablation configs", zoo_phase, dev))
     counts.update(phase(33, "two-frame baselines", raft_phase, dev))
-    log(f"phases 3-33: {time.perf_counter() - t_start:.1f} s after the "
+    counts["train_step_dp"], counts["trainer_dp"] = phase(
+        34, "data-parallel training", dp_phase, dev)
+    # (a) runs phase 7's step, (c) phase 7's step per rank and step
+    summary["train_step_dp"] = summary["train_step"]
+    summary["trainer_dp"] = scaled_summary(summary["train_step"],
+                                           DP_TRAINER_STEPS)
+    log(f"phases 3-34: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})
@@ -2844,4 +3502,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp"]:      # a process of phase 34
+        part, rank, world, backend, store = sys.argv[2:7]
+        dp_worker(part, int(rank), int(world), backend, store)
+    else:
+        main()

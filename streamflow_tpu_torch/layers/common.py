@@ -132,6 +132,25 @@ class GroupNorm(_F32Norm):
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over a process group, on every rank; its
+    gradient is the sum of the ranks' output gradients (each rank's
+    input reaches every rank's output)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
 class BatchNorm(_F32Norm):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NHWC, with its
     running statistics as buffers (``running_mean``, ``running_var``: the
@@ -143,21 +162,49 @@ class BatchNorm(_F32Norm):
     BIASED batch variance E[x^2] - E[x]^2 (flax; ``nn.BatchNorm2d`` would
     take the unbiased one). Without it, the running statistics normalise
     x. ``nn.Module.train()`` changes neither: only the argument does, as
-    JAX's ``use_running_average=not train``."""
+    JAX's ``use_running_average=not train``.
+
+    ``group`` (a ``torch.distributed`` process group, set by
+    ``sync_batchnorm``; None: this process alone): the batch statistics
+    are those of the group's global batch, as a BatchNorm under JAX's
+    data-sharded step takes them. Each rank's f32 E[x] and E[x^2] are
+    averaged over the group by one differentiable all-reduce, then the
+    biased variance and the running statistics are taken from the global
+    values. Every rank must hold as many rows (N H W) as the others; a
+    group of one gives the unsynced statistics bit for bit."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _group_stats(self, xf: torch.Tensor, dims):
+        """``_flax_stats`` over the group's global batch."""
+        import torch.distributed as dist
+
+        world = dist.get_world_size(self.group)
+        c = xf.shape[-1]
+        rows = xf.numel() // c
+        local = torch.cat([xf.mean(dims), xf.square().mean(dims),
+                           xf.new_full((1,), float(rows))])
+        total = _AllReduceSum.apply(local, self.group)
+        torch._assert_async(total[-1] == rows * world,
+                            "BatchNorm: the ranks hold different numbers "
+                            "of rows")
+        mean = total[:c] / world
+        return mean, (total[c:2 * c] / world - mean.square()).clamp(min=0.0)
+
     def forward(self, x, train: bool = False):
         xf = x.float()
         if train:
-            mean, var = _flax_stats(xf, tuple(range(x.ndim - 1)))
+            dims = tuple(range(x.ndim - 1))
+            mean, var = (_flax_stats(xf, dims) if self.group is None
+                         else self._group_stats(xf, dims))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean.detach())
@@ -166,3 +213,12 @@ class BatchNorm(_F32Norm):
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Set ``group`` on every BatchNorm of ``model`` (None: each process
+    alone again) and return the model."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model

@@ -15,8 +15,25 @@ scripts/train_things.sh, train_sintel_kitti.sh, train_spring.sh:
       --restore_ckpt output/sintel.npz
 
 Any explicit flag overrides its preset value. The flags are the JAX
-CLI's, with ``--device`` added; its multi-host flags (``--coordinator``,
-``--num_processes``, ``--process_id``) wait for multi-GPU training.
+CLI's, with ``--device`` added.
+
+On N GPUs, one process per GPU (``parallel/``), under torchrun or with
+JAX's multi-host flags (each process given its ``--process_id``):
+
+  torchrun --nproc_per_node=N -m streamflow_tpu_torch.tools.train \
+      --preset sintel_kitti
+  python -m streamflow_tpu_torch.tools.train --preset sintel_kitti \
+      --coordinator HOST:PORT --num_processes N --process_id I
+
+``--batch_size`` is the global batch, as JAX's (tools/train.py:173-184):
+it must divide by the number of processes, each of which loads and
+trains on its own rows (``DataLoader(process_index, process_count)``)
+with ``parallel.shard_train_step``; the model is replicated from rank 0
+after its weights are set, and every rank resumes from the same
+checkpoint. Rank 0 alone prints, writes ``log.txt`` and
+``metrics.jsonl``, saves the checkpoints (the others wait at a barrier
+until the file is complete) and validates (the eval model, its
+GraphedForward and ``best.npz`` live on rank 0; the others wait).
 
 What the loop does as the JAX CLI does:
 - weights from ``--seed`` (``tools/common.py::init_weights``), or from
@@ -42,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import os
 import sys
 import time
 from pathlib import Path
@@ -99,6 +117,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--val_iters", type=int, default=15)
     p.add_argument("--print_freq", type=int, default=100)
     p.add_argument("--num_workers", type=int, default=8)
+    # multi-process (one per GPU): all three, or the environment that
+    # torchrun sets
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port (process 0's)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--mixed_precision", action="store_true", default=True)
     p.add_argument("--no_mixed_precision", dest="mixed_precision",
                    action="store_false")
@@ -167,25 +191,40 @@ class Run:
 
 @contextlib.contextmanager
 def session(args):
-    """``<output>/<name>`` and the device, with the run's prints teed into
-    its ``log.txt`` while open: the set-up of both trainers (this one and
-    tools/train_2f.py)."""
+    """``<output>/<name>`` and this process's device, with the process
+    group joined (``parallel.initialize``, from ``args.coordinator``,
+    ``args.num_processes`` and ``args.process_id`` where the parser has
+    them, or from torchrun's environment) and, on the primary, the run's
+    prints teed into its ``log.txt`` while open; the other ranks print
+    nothing. A group joined here is left at the end. The set-up of both
+    trainers (this one and tools/train_2f.py)."""
     import torch
 
+    from streamflow_tpu_torch.parallel import multihost
     from streamflow_tpu_torch.utils.logger import Tee
 
+    owned = not multihost.is_initialized()
+    rank, world = multihost.initialize(
+        getattr(args, "coordinator", None),
+        getattr(args, "num_processes", None),
+        getattr(args, "process_id", None), device=args.device)
     out = Path(args.output) / args.name
     out.mkdir(parents=True, exist_ok=True)
-    tee = Tee(out / "log.txt").install()
-    try:
-        device = torch.device(args.device)
+    with contextlib.ExitStack() as stack:
+        if rank == 0:
+            stack.callback(Tee(out / "log.txt").install().close)
+        else:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        if owned:
+            stack.callback(multihost.shutdown)
+        device = multihost.local_device(args.device)
         print(f"device: {device}"
               + (f" ({torch.cuda.get_device_name(device)})"
-                 if device.type == "cuda" else ""))
+                 if device.type == "cuda" else "")
+              + (f"; process {rank} of {world}" if world > 1 else ""))
         print(vars(args))
         yield out, device
-    finally:
-        tee.close()
 
 
 def run_loop(args, out, device, state, step_fn, dataset, unit: str,
@@ -197,25 +236,55 @@ def run_loop(args, out, device, state, step_fn, dataset, unit: str,
     device and are read every ``args.print_freq`` steps; every
     ``args.val_freq`` steps a checkpoint, then ``on_checkpoint(step,
     logger)``; at the end a save, waited for. Returns ``Run``'s
-    ``step_t`` and ``save_s``."""
+    ``step_t`` and ``save_s``.
+
+    In a process group of ``world`` ranks: ``args.batch_size`` is the
+    global batch, each rank loads its ``batch_size // world`` rows, the
+    model is replicated from rank 0 and ``step_fn`` runs as
+    ``shard_train_step(step_fn)``; every rank resumes from the same
+    checkpoint; rank 0 alone logs, saves (the save waited for, then a
+    barrier) and calls ``on_checkpoint`` (the others wait at a
+    barrier)."""
     from streamflow_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from streamflow_tpu_torch.parallel import (barrier, multihost,
+                                               replicate, shard_train_step)
     from streamflow_tpu_torch.training.checkpoint import CheckpointManager
     from streamflow_tpu_torch.utils.logger import MetricsLogger
 
+    rank, world = multihost.process_index(), multihost.process_count()
+    dist = multihost.is_initialized()
+    if args.batch_size % world:
+        raise ValueError(f"global batch {args.batch_size} does not divide "
+                         f"over {world} processes")
     print(f"training with {len(dataset)} {unit}")
-    loader = DataLoader(dataset, args.batch_size,
-                        num_workers=args.num_workers, seed=args.seed)
+    loader = DataLoader(dataset, args.batch_size // world,
+                        num_workers=args.num_workers, seed=args.seed,
+                        process_index=rank, process_count=world)
     if not len(loader):
         raise ValueError(f"{len(dataset)} {unit} make no batch of "
                          f"{args.batch_size}")
+    if dist:
+        replicate(state.model)
+        step_fn = shard_train_step(step_fn)
     ckpt = CheckpointManager(str(out / "ckpts"), max_to_keep=5)
     if ckpt.latest_step() is not None:
         ckpt.restore(state)
         print(f"resumed from step {state.step}")
-
-    logger = MetricsLogger(str(out), args.num_steps, args.print_freq)
-    cur = logger.step = state.step
+    barrier("pre_train")
     step_t, save_s = [], []
+
+    def save(wait):
+        t0 = time.perf_counter()
+        if rank == 0:
+            ckpt.save(state, wait=wait or dist)
+        barrier(f"saved@{state.step}")
+        save_s.append(time.perf_counter() - t0)
+
+    logger = (MetricsLogger(str(out), args.num_steps, args.print_freq)
+              if rank == 0 else None)
+    cur = state.step
+    if logger is not None:
+        logger.step = cur
     epoch = 0
     pending = []  # (metrics on the device, lr): read at print_freq
     while cur < args.num_steps:
@@ -224,29 +293,30 @@ def run_loop(args, out, device, state, step_fn, dataset, unit: str,
             cur = state.step
             # no per-step host sync: the metrics wait on the device
             # until the logger prints, by which time they are computed
-            pending.append((metrics, state.lr))
+            if logger is not None:
+                pending.append((metrics, state.lr))
             if cur % args.print_freq == 0:
                 for m, lr in pending:
                     logger.push({k: float(v) for k, v in m.items()}, lr=lr)
                 pending.clear()
             if cur % args.val_freq == 0:
-                t0 = time.perf_counter()
-                ckpt.save(state)
-                save_s.append(time.perf_counter() - t0)
+                save(False)
                 print(f"checkpointed at step {cur}")
                 if on_checkpoint is not None:
-                    on_checkpoint(cur, logger)
+                    if rank == 0:
+                        on_checkpoint(cur, logger)
+                    # as long as rank 0's validation may take
+                    barrier(f"validated@{cur}", timeout_s=86400)
             step_t.append(time.perf_counter())
             if cur >= args.num_steps:
                 break
         epoch += 1
     for m, lr in pending:
         logger.push({k: float(v) for k, v in m.items()}, lr=lr)
-    t0 = time.perf_counter()
-    ckpt.save(state, wait=True)
+    save(True)
     ckpt.close()
-    save_s.append(time.perf_counter() - t0)
-    logger.close()
+    if logger is not None:
+        logger.close()
     print("training complete")
     return step_t, save_s
 
@@ -257,12 +327,15 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
     StreamFlow's train step and, when ``validate`` is given,
     ``validate(fwd) -> results`` after every checkpoint, ``fwd`` the
     run's GraphedForward of the eval model; ``VAL_KEY[args.validation]``
-    of the results picks ``best.npz``."""
+    of the results picks ``best.npz``. In a process group, the eval
+    model, its GraphedForward, the validation and ``best.npz`` are rank
+    0's alone (``fwd`` is None on the other ranks)."""
     import math
 
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.evaluation import GraphedForward
     from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.parallel import is_primary
     from streamflow_tpu_torch.params import load_jax, to_jax
     from streamflow_tpu_torch.tools.common import init_weights
     from streamflow_tpu_torch.training.checkpoint import (load_variables_npz,
@@ -290,14 +363,14 @@ def train(args, dataset, validate: Optional[Callable] = None) -> Run:
             kitti_last_pair_only=args.stage == "kitti",
             bidirectional=args.stage == "bithings")
         fwd = None
-        if validate is not None:
+        if validate is not None and is_primary():
             fwd = GraphedForward(create_model("streamflow", cfg=cfg,
                                               device=device), args.val_iters)
         val, best_val, val_s = {}, math.inf, []
 
         def on_checkpoint(cur, logger):
             nonlocal val, best_val
-            if validate is None:
+            if fwd is None:
                 return
             t0 = time.perf_counter()
             # in place (load_state_dict copies into the eval model's

@@ -7,10 +7,17 @@ card unless ``--device cpu``:
       --image_size 368 496
 
 The flags are the JAX CLI's (tools/train_2f.py:21-50), with ``--device``
-added. What the loop does as the JAX CLI's (:107-142): the two-frame
-dataset of the stage (``data/datasets.py::fetch_dataset_2f``) ->
-``DataLoader`` -> ``prefetch_to_device`` -> ``make_train_step_2f``
-(AdamW + OneCycle + clip); metrics stay on the device and are read every
+added. On N GPUs it runs under torchrun, one process per GPU, with
+``--batch_size`` the global batch, as JAX's shards its step over every
+device (:93-120); see tools/train.py's ``run_loop``:
+
+  torchrun --nproc_per_node=N -m streamflow_tpu_torch.tools.train_2f \\
+      --stage chairs --model raft --batch_size 8
+
+What the loop does as the JAX CLI's (:107-142): the two-frame dataset
+of the stage (``data/datasets.py::fetch_dataset_2f``) -> ``DataLoader``
+-> ``prefetch_to_device`` -> ``make_train_step_2f`` (AdamW + OneCycle +
+clip); metrics stay on the device and are read every
 ``--print_freq`` steps; a checkpoint every ``--val_freq`` steps and at
 the end, keep 5, in ``<output>/<name>/ckpts``; resume from the latest one
 (the loader starts again at epoch 0, as JAX's). ``--restore_ckpt`` (an

@@ -21,6 +21,11 @@ first direction's update is dropped).
 
 The forward runs with ``train=True`` (JAX's ``train``): BatchNorm on batch
 statistics, updating its running statistics, and remat in force.
+
+``shard_train_step`` (JAX's, :167-177) makes the same step data-parallel
+over a ``torch.distributed`` group: each rank runs it on its own rows of
+the global batch, the gradients and the metrics are summed over the
+group in one all-reduce, and every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from typing import Callable, Dict, List
 
 import torch
 
-from streamflow_tpu_torch.layers.common import BatchNorm
-from streamflow_tpu_torch.training.loss import sequence_loss
+from streamflow_tpu_torch.layers.common import BatchNorm, sync_batchnorm
+from streamflow_tpu_torch.training.loss import masked_means, sequence_loss
 from streamflow_tpu_torch.training.optim import (clip_by_global_norm,
                                                  global_norm)
 from streamflow_tpu_torch.training.state import TrainState
@@ -46,17 +51,18 @@ def batch_stats(model) -> List[torch.Tensor]:
 def make_loss_fn(gamma: float = 0.8, iters: int = 12,
                  kitti_last_pair_only: bool = False,
                  bidirectional: bool = False):
-    """Returns loss_fn(model, batch) -> (loss, metrics): the train-mode
-    forward and the per-frame-pair sequence losses, summed."""
+    """Returns loss_fn(model, batch, sums=False) -> (loss, metrics): the
+    train-mode forward and the per-frame-pair sequence losses, summed;
+    ``sums`` as ``sequence_loss``'s."""
 
-    def supervise(preds, flows, valids):
+    def supervise(preds, flows, valids, sums):
         if kitti_last_pair_only:
             preds, flows, valids = (preds[:, :, -1:], flows[:, -1:],
                                     valids[:, -1:])
         total, metrics = 0.0, {}
         for i in range(flows.shape[1]):
             li, mi = sequence_loss(preds[:, :, i], flows[:, i], valids[:, i],
-                                   gamma)
+                                   gamma, sums=sums)
             total = total + li
             if i == 0:
                 metrics = mi
@@ -65,20 +71,20 @@ def make_loss_fn(gamma: float = 0.8, iters: int = 12,
     def apply(model, images):
         return model(images, iters=iters, test_mode=False, train=True)
 
-    def loss_fn(model, batch):
+    def loss_fn(model, batch, sums=False):
         images = batch["images"]
         stats = batch_stats(model)
         if bidirectional and not stats:
             b = images.shape[0]
             preds = apply(model, torch.cat([images, images.flip(1)]))
             total, metrics = supervise(preds[:, :b], batch["flows"],
-                                       batch["valids"])
+                                       batch["valids"], sums)
             bt, mb = supervise(preds[:, b:], batch["flows_bw"].flip(1),
-                               batch["valids_bw"].flip(1))
+                               batch["valids_bw"].flip(1), sums)
             return total + bt, dict(metrics, epe_bw=mb["epe"])
         before = [s.clone() for s in stats] if bidirectional else []
         total, metrics = supervise(apply(model, images), batch["flows"],
-                                   batch["valids"])
+                                   batch["valids"], sums)
         if not bidirectional:
             return total, metrics
         with torch.no_grad():     # the second application starts from
@@ -86,7 +92,7 @@ def make_loss_fn(gamma: float = 0.8, iters: int = 12,
                 s.copy_(s0)
         bt, mb = supervise(apply(model, images.flip(1)),
                            batch["flows_bw"].flip(1),
-                           batch["valids_bw"].flip(1))
+                           batch["valids_bw"].flip(1), sums)
         return total + bt, dict(metrics, epe_bw=mb["epe"])
 
     return loss_fn
@@ -107,41 +113,117 @@ def make_train_step(gamma: float = 0.8, iters: int = 12,
                                  bidirectional))
 
 
-def _stepper(loss_fn) -> Callable[[TrainState, Dict], Dict]:
+def _stepper(loss_fn, group=None) -> Callable[[TrainState, Dict], Dict]:
     """step(state, batch): loss_fn(model, batch), backward, the global
-    gradient norm, clipping, AdamW and the schedule."""
+    gradient norm, clipping, AdamW and the schedule; with ``group``, the
+    gradients, loss and metrics reduced over it first (``_all_reduce``)
+    and the model's BatchNorms synced over it."""
+
+    buf = {}     # the all-reduce's flat buffer, kept from step to step
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
+        if group is not None:
+            sync_batchnorm(model, group)
         opt.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, batch)
+        loss, sums = loss_fn(model, batch, sums=True)
         loss.backward()
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:   # a parameter the loss misses still decays
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        loss = loss.detach()
+        if group is not None:
+            loss, sums = _all_reduce(grads, loss, sums, group, buf)
         norm = global_norm(grads)
         clip_by_global_norm(grads, state.clip, norm)
         opt.step()
         state.scheduler.step()
         state.step += 1
-        return dict(metrics, loss=loss.detach(), grad_norm=norm)
+        return dict(masked_means(sums), loss=loss, grad_norm=norm)
 
+    step.loss_fn = loss_fn
     return step
 
 
-def make_loss_fn_2f(gamma: float = 0.8, iters: int = 12):
-    """Returns loss_fn(model, batch) -> (loss, metrics) of a two-frame
-    model: one train-mode application on the pair (BatchNorm's statistics
-    updated once, from this batch), the sequence loss on pair 0."""
+def _all_reduce(grads, loss, sums, group, buf=None):
+    """One f32 all-reduce over ``group`` of every gradient, the loss and
+    the metrics' (sum, count) pairs, in one flat buffer (``buf``, a dict,
+    keeps it for the next call of the same sizes). The gradients
+    (in place) and the loss become their means over the ranks: with as
+    many rows on every rank, the mean of the ranks' mean losses is the
+    global batch's, and the mean of their gradients its gradient. The
+    pairs are summed, so that ``masked_means`` divides the global sum by
+    the global count, as a masked mean of the global batch does (a mean of
+    the ranks' means would weigh the ranks alike whatever their
+    counts). Returns (loss, sums)."""
+    import torch.distributed as dist
 
-    def loss_fn(model, batch):
+    world = dist.get_world_size(group)
+    keys = sorted(sums)
+    parts = ([g.reshape(-1).float() for g in grads]
+             + [loss.float().reshape(1)]
+             + [torch.stack(sums[k]).float() for k in keys])
+    size = sum(t.numel() for t in parts)
+    buf = {} if buf is None else buf
+    flat = buf.get("flat")
+    if flat is None or flat.numel() != size or flat.device != loss.device:
+        flat = buf["flat"] = torch.empty(size, device=loss.device)
+    torch.cat(parts, out=flat)
+    dist.all_reduce(flat, group=group)
+    n = sum(g.numel() for g in grads)
+    flat[:n + 1].div_(world)
+    for g, r in zip(grads, flat[:n].split([g.numel() for g in grads])):
+        g.copy_(r.view_as(g))
+    pairs = flat[n + 1:].view(-1, 2)
+    return flat[n].clone(), {k: (pairs[i, 0].clone(), pairs[i, 1].clone())
+                             for i, k in enumerate(keys)}
+
+
+def shard_train_step(step_fn, group=None) -> Callable[[TrainState, Dict],
+                                                      Dict]:
+    """``step_fn`` (from ``make_train_step`` or ``make_train_step_2f``)
+    data-parallel over ``group`` (the default group when None; JAX's
+    ``shard_train_step``, :167-177): each rank calls it with the same
+    TrainState (``parallel.replicate``) and its own rows of the global
+    batch, as many as every other rank. The gradients and metrics are
+    reduced over the group in one all-reduce (``_all_reduce``) before the
+    gradients' norm, so the norm, clipping, AdamW and the schedule run on
+    the same gradients on every rank and the parameters stay equal bit
+    for bit; the model's BatchNorms take their statistics over the group
+    (``layers/common.py::BatchNorm``). The loss and metrics are the global
+    batch's, on every rank. A group of one gives ``step_fn``'s step bit
+    for bit.
+
+    An explicit all-reduce rather than DistributedDataParallel: remat
+    re-enters the forward in the backward, the bidirectional BatchNorm
+    step applies the model twice before one backward, and a parameter
+    the loss misses has a gradient of zeros here. Only ``all_reduce`` is
+    used (and ``broadcast`` by ``replicate``), the collectives that gloo
+    runs on CUDA tensors too."""
+    import torch.distributed as dist
+
+    if group is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("shard_train_step: no process group "
+                               "(parallel.initialize first)")
+        group = dist.group.WORLD
+    return _stepper(step_fn.loss_fn, group)
+
+
+def make_loss_fn_2f(gamma: float = 0.8, iters: int = 12):
+    """Returns loss_fn(model, batch, sums=False) -> (loss, metrics) of a
+    two-frame model: one train-mode application on the pair (BatchNorm's
+    statistics updated once, from this batch), the sequence loss on pair
+    0."""
+
+    def loss_fn(model, batch, sums=False):
         images = batch["images"]
         preds = model(images[:, 0], images[:, 1], iters=iters,
                       test_mode=False, train=True)
         return sequence_loss(preds, batch["flows"][:, 0],
-                             batch["valids"][:, 0], gamma)
+                             batch["valids"][:, 0], gamma, sums=sums)
 
     return loss_fn
 

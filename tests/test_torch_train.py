@@ -230,6 +230,10 @@ from streamflow_tpu_torch.params import from_jax, to_jax
 import streamflow_tpu_torch.layers.basic_encoder
 import streamflow_tpu_torch.layers.twins
 import streamflow_tpu_torch.models.raft
+import streamflow_tpu_torch.parallel
+import streamflow_tpu_torch.parallel.mesh
+import streamflow_tpu_torch.parallel.multihost
+import streamflow_tpu_torch.tools.dryrun_multichip
 import streamflow_tpu_torch.training.step
 from streamflow_tpu_torch.config import RAFTConfig
 from streamflow_tpu_torch.params import to_jax_variables

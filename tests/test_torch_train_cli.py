@@ -3,9 +3,9 @@ JAX package's tools/train.py, and the port's eval_all_ckpts, on the CPU
 at a tiny size (64x96, 1 iteration, f32) over the synthetic FlyingThings
 (TRAIN) and Sintel trees of tests/_torch_serving.py:
 
-- PRESETS and every flag default equal the JAX CLI's, but for its three
-  multi-host flags, which the port leaves for multi-GPU training, and the
-  port's ``--device``; a preset fills the flags not given, in both;
+- PRESETS and every flag default equal the JAX CLI's (its three
+  multi-host flags included), but for the port's ``--device``; a preset
+  fills the flags not given, in both;
 - a 2-step run with ``--validation sintel`` writes metrics.jsonl, ckpts/
   and best.npz, whose paths and shapes are the JAX model's param tree;
   a second run with a larger ``--num_steps`` resumes from the saved step;
@@ -36,7 +36,6 @@ from streamflow_tpu_torch.tools import train as port_train
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(4)
-JAX_ONLY = {"coordinator", "num_processes", "process_id"}
 PORT_ONLY = {"device"}
 
 
@@ -61,9 +60,9 @@ def test_presets_and_flags_match_the_jax_cli(jax_train, monkeypatch, argv):
     monkeypatch.setattr(sys, "argv", ["train.py", *argv])
     want = vars(jax_train.parse_args())
     got = vars(port_train.parse_args(argv))
-    assert set(want) - set(got) == JAX_ONLY
+    assert set(want) <= set(got)
     assert set(got) - set(want) == PORT_ONLY and got["device"] == "cuda"
-    for k in want.keys() - JAX_ONLY:
+    for k in want:
         assert got[k] == want[k], (k, got[k], want[k])
 
 
