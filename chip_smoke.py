@@ -32,7 +32,13 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      its residual at the Twins MLP widths (Twins1DConv), the K2 forms of
      TAM v1's per-frame flow head (128 -> 2), K3 at d=32 over the B*T
      per-frame GSA images of stage 0 and K4 over the B*T per-frame LGA
-     grids;
+     grids; and phase 35's UMT shapes (umt_cases: K3 at d=64 over the ViT
+     blocks' 12 heads and at d=384 over GMA's frame pairs, with SDPA
+     beside each and at the tails of their tiles; K1 at C=768 under the
+     three traffics and at its bf16 body's branches; K2's forms at the
+     six SK blocks' widths, the 1920-wide gru's and the 1152-wide flow
+     head's on K2's wide path, also at 1, 65 and 5377 rows; K5-K8 at the
+     gru's and flow head's dw stages, checked only);
   4. the full forward: StreamFlow, seeded random weights, 436x1024 padded
      to 440x1024, B=1, T=4, 12 iterations, bf16, test mode; launch counts
      of every kernel checked exactly; ms/clip, frames/s, peak memory; a
@@ -58,7 +64,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
      place of K5), 'banded_chain' (17-20: K8) and 'banded_mxu_t' (21-24:
      K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
-     kernel);
+     kernel); their train steps' profiles record the card's activity
+     alone (phase 7's keeps the host ops);
   27. the graphed forward (evaluation.GraphedForward: one CUDA graph per
      input shape) of phase 4's clip in 'auto', 'banded_chain' and
      'banded_mxu_t' (K7's persistent kernel under replay): the replay's
@@ -144,7 +151,17 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      (c) tools/train.py::train on two ranks over gloo (global batch 2,
      4 steps, a checkpoint and a validation every 2): checkpoints written
      by rank 0 alone, validations and best.npz on rank 0 alone, each rank
-     resuming the last checkpoint bit for bit, the ranks' states equal.
+     resuming the last checkpoint bit for bit, the ranks' states equal;
+  35. StreamFlow with the UMT video-ViT encoder at decoder_dim=768 (the one
+     width at which JAX's model runs), served: seeded random weights,
+     436x1024 padded to 448x1024 (a multiple of its ratio, 16), B=1, T=4,
+     12 iterations, bf16, test mode: the eager forward with exact launches
+     (umt_launches: K1 12, K3 20 (8 at d=64, 12 at d=384), K2 240: 2 per SK
+     block and iteration, the gru's and the flow head's calls on K2's wide
+     path, 2 and 4 launches each), finite flows; GraphedForward's flows
+     against the eager ones, a second replay the same, its replay's
+     kernel nodes; ms/clip eager and graphed, device time by op group,
+     idle share, peak memory; phase 5's accuracy guards at 224x512.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -155,7 +172,8 @@ and that layout's forward and train step; "inference_<config>" and
 32, a bidirectional BatchNorm step's numbers for its two applications;
 "inference_<model>" and "train_step_<model>": the same for each
 two-frame model, phases 3, 6 and 33, per 440x1024 pair of 32
-iterations and per B=8 step;
+iterations and per B=8 step; "inference_umt": phases 3 and 35, per
+448x1024 clip of the UMT model;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
@@ -413,6 +431,38 @@ def raft_launches(name: str, train: bool = False, iters=None) -> dict:
     if train:
         out["flash_attention_bwd"] = 2 * gma
     return out
+
+
+# phase 35: StreamFlow with the UMT video-ViT encoder at decoder_dim=768
+# (the one width at which JAX's model runs), served: 436x1024 padded to a
+# multiple of 16 (its ratio), 448x1024, a 28x64 grid; its path in the
+# kernels line is "inference_umt"
+UMT_KW = dict(encoder="umt", decoder_dim=768)
+UMT_DEPTH = 4                      # ViT blocks in each of fnet and cnet
+UMT_H, UMT_W = 448, 1024
+UMT_GUARD_H, UMT_GUARD_W = 224, 512
+# its six SK blocks (c_in, out_dim): the motion encoder's canonical widths
+# (its last block 382 wide, the 384-wide hidden state less the flow), the
+# 1920-wide gru and the 1152-wide joint flow head
+UMT_SK = [(324, 256), (256, 192), (128, 64), (256, 382), (1920, 384),
+          (1152, 6)]
+
+
+def umt_launches(iters: int = ITERS) -> dict:
+    """Launches of each kernel in one UMT forward: K1 once per iteration;
+    K3 once per ViT block in fnet and cnet (d=64) and once per iteration
+    (GMA, d=384); K2 twice per SK block per iteration (ffn_pair_k1,
+    dwres_pw_ffn_pair), each call one launch where the fused plan holds its
+    widths and one per stage on the wide path (the gru's and the flow
+    head's: 2 and 4, ops/kernels/ffn_pair.py::wide_launches)."""
+    from streamflow_tpu_torch.ops.kernels.ffn_pair import wide_launches
+
+    k2 = sum(wide_launches(c, int(1.5 * c), c, False, False)
+             + wide_launches(c, int(1.5 * c), co, True, True)
+             for c, co in UMT_SK)
+    return dict(dict.fromkeys(KERNELS, 0), corr_lookup=iters,
+                ffn_pair=iters * k2,
+                flash_attention=iters + 2 * UMT_DEPTH)
 
 
 # the training shapes (tools/train.py's sintel_kitti stage)
@@ -1030,6 +1080,10 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
                       flash_case((nb, 1), n2, n2, 128), calls2,
                       tuple(m for m in two if m != "raft")))
 
+    if "umt" in summaries and not train:
+        cases += umt_cases(ffn_case, flash_case, corr_traffic_case,
+                           mixed_tiles, edge_case)
+
     for kernel, label, make, calls, layouts, *traffic in cases:
         traffic = traffic[0] if traffic else None
         timed_only = "timed" in layouts
@@ -1090,17 +1144,88 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
         f"the six SK blocks' {path} shapes")
 
 
+def umt_cases(ffn_case, flash_case, corr_traffic_case, mixed_tiles,
+              edge_case) -> list:
+    """Phase 3's cases at the UMT model's shapes (phase 35: a 448x1024 clip,
+    a 28x64 grid of 1792 tokens, B=1), kernel_checks' case tuples for its
+    "umt" path: K3 in the ViT blocks (12 heads of d=64 over fnet's 4 x
+    1792 tokens and cnet's 3 x 1792, 4 calls each) and in GMA (d=384 over
+    each of the 3 frame pairs' 1792, once per iteration), with SDPA as its
+    yardstick, and at the tails of its tiles at both dims (one query row;
+    fewer keys than a tile: 128 at d=64, 32 at d=384); K1 at C=768 under
+    the three traffics (jitter30 timed into the path), and at its bf16
+    body's branches at C=768 (mixed tiles, a smaller radius and fewer
+    levels); K2's two default forms at the six SK blocks' widths (the
+    gru's and the flow head's on the wide path), the pair layouts' two
+    forms at the gru's and flow head's widths (timed, on no path of this
+    run), and all four at ragged row counts 1, 65 and 5377; K5-K8 at the
+    gru's dw stage (1920 channels, k=7) and the flow head's (1152, k=15),
+    checked only."""
+    gh, gw = UMT_H // 16, UMT_W // 16
+    n = gh * gw
+    path, timed, cases = ("umt",), ("timed",), []
+    for enc, t in (("fnet", T), ("cnet", T - 1)):
+        cases.append(("flash_attention", f"umt {enc} bh12 n{t * n} d64",
+                      flash_case((B, 12), t * n, t * n, 64), UMT_DEPTH,
+                      path))
+    cases.append(("flash_attention", f"umt gma bh3 n{n} d384",
+                  flash_case((3, 1), n, n, 384), ITERS, path))
+    for bh_shape, nq, m, d in (((1, 12), 1, 1000, 64), ((1, 12), 300, 100, 64),
+                               ((2, 3), 129, 1311, 64), ((1, 1), 1, 20, 384),
+                               ((2, 1), 100, 45, 384), ((3, 1), 65, 31, 384)):
+        cases.append(("flash_attention",
+                      f"umt tail bh{math.prod(bh_shape)} n{nq} m{m} d{d}",
+                      flash_case(bh_shape, nq, m, d), 0, timed))
+    shape = (3, gh, gw, 768, 4, 4)
+    for traffic in ("jitter30", "smooth", "uniform"):
+        cases.append(("corr_lookup", f"umt {traffic} 3x{gh}x{gw}x768 4 "
+                      f"levels r4", corr_traffic_case(traffic, *shape), ITERS,
+                      path, traffic))
+    for label, args in (
+            ("mixed tiles 3x45x150x768 4 levels r4",
+             ("smooth", 3, 45, 150, 768, 4, 4, mixed_tiles)),
+            ("uniform 1x20x40x768 3 levels r3",
+             ("uniform", 1, 20, 40, 768, 3, 3))):
+        cases.append(("corr_lookup", f"umt tail {label}",
+                      corr_traffic_case(*args), 0, timed))
+    for i, (c, co) in enumerate(UMT_SK):
+        ch = int(1.5 * c)
+        rows = B * n if i == len(UMT_SK) - 1 else 3 * B * n
+        wide = c > 640
+        for form, out in (("ffn_pair_k1", c), ("dwres_pw_ffn_pair", co),
+                          ("ffn_pair", c), ("pw_ffn_pair", co)):
+            pair = form in ("ffn_pair", "pw_ffn_pair")
+            if pair and not wide:
+                continue
+            cases.append(("ffn_pair", f"umt {form} {rows}x{c}-{ch}-{out}",
+                          ffn_case(form, rows, c, ch, out), ITERS,
+                          timed if pair else path))
+            if wide:
+                for r in (1, 65, 3 * n + 1):
+                    cases.append(("ffn_pair",
+                                  f"umt tail {form} {r}x{c}-{ch}-{out}",
+                                  ffn_case(form, r, c, ch, out), 0, timed))
+    for kind in ("sk_chain_banded", "dw_chain", "dw_banded_mxu",
+                 "dw_banded_mxu_t"):
+        for nb, c, k in ((3 * B, 1920, 7), (B, 1152, 15)):
+            ks = (k,) if kind.startswith("dw_banded") else (1, k)
+            cases.append((kind, f"umt {nb}x{gh}x{gw}x{c} ks {ks}",
+                          edge_case(kind, nb, gh, gw, c, ks), 0, timed))
+    return cases
+
+
 # ---------------------------------------------------------------- phase 4/5
-def make_clip(dev, h=H, w=W, mode="sintel", seed=SEED):
+def make_clip(dev, h=H, w=W, mode="sintel", seed=SEED, factor=8):
     """A seeded B x T x h x w clip of uint8-range values, padded in
-    ``mode``, on ``dev``."""
+    ``mode`` to a multiple of ``factor`` (the model's ratio), on
+    ``dev``."""
     import torch
 
     from streamflow_tpu_torch.ops.padding import InputPadder
 
     g = torch.Generator().manual_seed(seed)
     imgs = torch.randint(0, 256, (B, T, h, w, 3), generator=g).float()
-    padder = InputPadder((h, w, 3), mode=mode)
+    padder = InputPadder((h, w, 3), mode=mode, factor=factor)
     imgs = padder.pad(imgs.reshape(B * T, h, w, 3))
     return imgs.reshape(B, T, *padder.padded_shape, 3).to(dev)
 
@@ -1192,13 +1317,15 @@ def full_forward(dev, dw_impl, zoo=None):
     return counts, ms
 
 
-def profile_device(fn, wall_ms: float, name: str) -> dict:
+def profile_device(fn, wall_ms: float, name: str, host: bool = True
+                   ) -> dict:
     """Device time of one call of ``fn`` by kernel group (profiled after a
-    traced warm-up call, tools/common.py::profiled); the idle share
+    traced warm-up call, tools/common.py::profiled; ``host=False``: the
+    card's activity alone, no host ops in the table); the idle share
     compares the summed device time with the unprofiled wall time."""
     from streamflow_tpu_torch.tools.common import device_events, profiled
 
-    prof = profiled(fn)
+    prof = profiled(fn, host)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1239,9 +1366,11 @@ def profile_device(fn, wall_ms: float, name: str) -> dict:
     return {"total_ms": total / 1e3, "idle": idle}
 
 
-def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W) -> None:
-    """iters=1, one h x w clip, the same weights, the SK layout
-    ``dw_impl`` (and the ZOO config ``zoo``): the kernel path on the card
+def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W, fields=None,
+                    factor=8) -> None:
+    """iters=1, one h x w clip (padded to a multiple of ``factor``), the
+    same weights, the SK layout ``dw_impl`` (and the ZOO config ``zoo``,
+    or the config ``fields`` named ``zoo``): the kernel path on the card
     and the plain path on the CPU, each in f32 and bf16, against the f32
     plain path. Every layout computes the same function in f32, so that
     reference is made once, by the first call, and kept in ``refs`` (a
@@ -1253,12 +1382,13 @@ def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W) -> None:
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
 
-    imgs = make_clip("cpu", h, w)
+    imgs = make_clip("cpu", h, w, factor=factor)
+    fields = ZOO.get(zoo, {}) if fields is None else fields
     flows = {}
     for dtype in ("float32", "bfloat16"):
         cfg = StreamFlowConfig(T=T, iters=1,
                                mixed_precision=dtype == "bfloat16",
-                               dw_impl=dw_impl, **ZOO.get(zoo, {}))
+                               dw_impl=dw_impl, **fields)
         cpu_model = create_model("streamflow", cfg=cfg, device="cpu")
         init_weights(cpu_model, SEED + 1)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
@@ -1558,7 +1688,10 @@ def train_step_phase(dev, dw_impl) -> dict:
         f"{1e3 / ms:.4f}; max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
         f"loss {loss:.6g} grad_norm {norm:.6g} epe {float(m['epe']):.6g}; "
         f"all {len(before)} parameters moved")
-    profile_device(lambda: step(state, batch), ms, "train_step" + suffix)
+    # the other layouts' steps: the card's activity alone (the host ops'
+    # trace of a step costs ~20 s; the default layout's table keeps them)
+    profile_device(lambda: step(state, batch), ms, "train_step" + suffix,
+                   host=dw_impl == "auto")
     return counts
 
 
@@ -1713,7 +1846,8 @@ def eager_then_graph(model, imgs, label):
     (device time, idle share; OUT_DIR/profile_{eager,graph}_<label>.txt)
     and its peak memory (the graph's over its capture and replays).
     Returns (the GraphedForward, its flows, the eager flows, ms/clip
-    graph)."""
+    graph, {path: (ms/clip, device ms, idle share, peak GiB)} for
+    "eager" and "graph")."""
     import torch
 
     from streamflow_tpu_torch.evaluation import GraphedForward
@@ -1746,7 +1880,9 @@ def eager_then_graph(model, imgs, label):
         f"graph {prof_g['idle']:.4f}; max_memory_allocated eager "
         f"{peak_e:.3f} GiB, graph {peak_g:.3f} GiB; first graphed call (2 "
         f"warm-ups + capture) {capture_s:.2f} s")
-    return fwd, got, want, ms_g[0]
+    nums = {"eager": (ms_e[0], prof_e["total_ms"], prof_e["idle"], peak_e),
+            "graph": (ms_g[0], prof_g["total_ms"], prof_g["idle"], peak_g)}
+    return fwd, got, want, ms_g[0], nums
 
 
 def check_nodes(fwd, imgs, dw_impl, expected=None) -> None:
@@ -1782,8 +1918,8 @@ def graph_phase(dev) -> float:
             T=T, iters=ITERS, mixed_precision=True, dw_impl=dw_impl),
             device=dev)
         init_weights(model, SEED)
-        fwd, got, want, ms_g = eager_then_graph(model, imgs,
-                                                f"{dw_impl}_440x1024")
+        fwd, got, want, ms_g, _ = eager_then_graph(model, imgs,
+                                                   f"{dw_impl}_440x1024")
         tag = f"graph dw_impl={dw_impl!r}"
         check_close(f"{tag} 440x1024 flows vs eager", got, want,
                     torch.bfloat16)
@@ -1973,7 +2109,7 @@ def high_res_phase(dev) -> None:
     init_weights(model, SEED)
     for h, w in HIGH_RES:
         imgs = make_clip(dev, h, w)
-        fwd, got, want, _ = eager_then_graph(model, imgs, f"{h}x{w}")
+        fwd, got, want, _, _ = eager_then_graph(model, imgs, f"{h}x{w}")
         assert got.shape == (B, T - 1, h, w, 2), got.shape
         assert bool(torch.isfinite(got).all()), "non-finite flows"
         check_close(f"graph {h}x{w} flows vs eager", got, want,
@@ -2327,8 +2463,8 @@ def zoo_phase(dev) -> dict:
             init_weights(model, SEED)
             stats = [t.clone() for t in batch_stats(model)]
             imgs = make_clip(dev)
-            fwd, got, want, _ = eager_then_graph(model, imgs,
-                                                 f"{name}_440x1024")
+            fwd, got, want, _, _ = eager_then_graph(model, imgs,
+                                                    f"{name}_440x1024")
             assert torch.equal(got, want), "the graph's flows differ"
             check_nodes(fwd, imgs, "auto", zoo_launches(name))
             assert all(torch.equal(a, b) for a, b in
@@ -2734,6 +2870,65 @@ def raft_phase(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 35
+def umt_phase(dev) -> dict:
+    """StreamFlow with the UMT encoder at decoder_dim=768, served: seeded
+    random weights, a 436x1024 clip padded to 448x1024, B=1, T=4, 12
+    iterations, bf16, test mode. The eager forward with exact launches
+    (umt_launches), finite flows of the padded shape, ms/clip, device
+    time by op group, idle share and peak memory; then GraphedForward:
+    its flows against the eager ones (logged whether bit for bit), a
+    second replay the same, one replay's kernel nodes against the eager
+    launches, ms/clip, device time, idle share, peak memory; phase 5's
+    accuracy guards at UMT_GUARD_H x UMT_GUARD_W. Returns the
+    launches."""
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    held = torch.cuda.memory_allocated()
+    model = create_model("streamflow", cfg=StreamFlowConfig(
+        T=T, iters=ITERS, mixed_precision=True, **UMT_KW), device=dev)
+    init_weights(model, SEED)
+    imgs = make_clip(dev, factor=16)
+    assert imgs.shape[2:4] == (UMT_H, UMT_W), imgs.shape
+    model(imgs, test_mode=True)                 # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    flows = model(imgs, test_mode=True)
+    torch.cuda.synchronize()
+    counts, expected = dict(LAUNCHES), umt_launches()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    log(f"forward umt launches {json.dumps(counts)} expected "
+        f"{json.dumps(expected)}")
+    assert counts == expected, "launch counts differ"
+    assert flows.shape == (B, T - 1, UMT_H, UMT_W, 2), flows.shape
+    assert bool(torch.isfinite(flows).all()), "non-finite flows"
+    mag = flows.norm(dim=-1)
+    fwd, got, want, _, nums = eager_then_graph(model, imgs,
+                                               f"umt_{UMT_H}x{UMT_W}")
+    check_close("graph umt flows vs eager", got, want, torch.bfloat16)
+    same = bool(torch.equal(got, want))
+    assert torch.equal(fwd(imgs), got), "a second replay differs"
+    check_nodes(fwd, imgs, "auto", expected)
+    log(f"forward umt {tuple(imgs.shape)} {ITERS} iterations bf16, eager / "
+        f"graph: ms/clip, device ms, idle share, peak GiB "
+        + json.dumps({k: [round(v, 4) for v in n] for k, n in nums.items()})
+        + f"; the counted eager forward's peak above what the process held "
+        f"{peak:.3f} GiB; the graph's flows equal eager "
+        + ("bit for bit" if same else "within the bf16 rule, not bit for "
+           "bit") + f"; |flow| px mean {float(mag.mean()):.4g} max "
+        f"{float(mag.max()):.4g}")
+    del model, fwd
+    torch.cuda.empty_cache()
+    accuracy_guards(dev, "auto", {}, "umt", UMT_GUARD_H, UMT_GUARD_W,
+                    fields=UMT_KW, factor=16)
+    return counts
+
+
 # ---------------------------------------------------------------- phase 34
 # data-parallel training (streamflow_tpu_torch/parallel/), in processes of
 # its own (``python chip_smoke.py --dp PART RANK WORLD BACKEND STORE``), so
@@ -2844,18 +3039,9 @@ def device_ms(fn) -> float:
     ``fn``, from a profile that records the card's activity alone (a
     traced warm-up call first, as tools/common.py::profiled): a cheaper
     trace than profile_device's, which records the host's ops too."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from streamflow_tpu_torch.tools.common import device_events, profiled
 
-    from streamflow_tpu_torch.tools.common import device_events
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 acc_events=True) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    prof = profiled(fn, host=False)
     return sum(t for _, _, t in device_events(prof) if t > 0) / 1e3
 
 
@@ -3406,10 +3592,12 @@ def main() -> None:
     for name in RAFT_MODELS:
         summary["inference_" + name] = new_summary()
         summary["train_step_" + name] = new_summary()
+    summary["inference_umt"] = new_summary()
 
     phase(3, "kernels", kernel_checks, dev,
           {**per_layout("inference"), **per_zoo("inference", ZOO),
-           **per_zoo("inference", RAFT_MODELS)}, 440, 1024, False)
+           **per_zoo("inference", RAFT_MODELS),
+           "umt": summary["inference_umt"]}, 440, 1024, False)
     refs, ms_clip = {}, {}
     counts["inference"], ms_clip["auto"] = phase(4, "forward", full_forward,
                                                  dev, "auto")
@@ -3463,7 +3651,8 @@ def main() -> None:
     summary["train_step_dp"] = summary["train_step"]
     summary["trainer_dp"] = scaled_summary(summary["train_step"],
                                            DP_TRAINER_STEPS)
-    log(f"phases 3-34: {time.perf_counter() - t_start:.1f} s after the "
+    counts["inference_umt"] = phase(35, "UMT served", umt_phase, dev)
+    log(f"phases 3-35: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

@@ -37,6 +37,8 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sf_ffn_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
+    "sf_ffn_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sf_ffn_prologue": [_P, _P, _P, _P, _I, _I, _I, _P],
     "sf_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sf_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],

@@ -38,11 +38,12 @@ import dataclasses
 from typing import Optional, Sequence
 
 
-# the encoders the port runs (every one of the JAX config's but "umt"):
-# the Twins family by name -> (one token grid over the T frames, the
-# blocks' temporal hook, a final 3x3x3 conv over (T, H, W)), and the RAFT
-# CNN per frame ("basic", "resnet18" and "mf_basic" are one module, as in
-# JAX) or with temporal hooks ("res18_3d")
+# the encoders the port runs (every one of the JAX config's): the Twins
+# family by name -> (one token grid over the T frames, the blocks'
+# temporal hook, a final 3x3x3 conv over (T, H, W)), the RAFT CNN per
+# frame ("basic", "resnet18" and "mf_basic" are one module, as in JAX) or
+# with temporal hooks ("res18_3d"), and "umt" (the video ViT, at
+# decoder_dim=768 only: models/streamflow.py)
 TWINS_ENCODERS = {"twins_csc": (True, "none", False),
                   "twins": (False, "none", False),
                   "twins_1dconv": (False, "1dconv", False),

@@ -5,9 +5,10 @@ reference ``.pth`` into flax variables (``tools/convert.py``).
 
 The port's own copy of ``build_mapping``, ``_bn``, ``_basic_encoder``,
 ``build_raft_mapping``, ``convert_raft_checkpoint``,
-``convert_streamflow_checkpoint``, ``load_torch_checkpoint`` and
-``torch_shape_for`` from ``streamflow_tpu/convert/torch_import.py``
-(no JAX), widened to the ablation configs: the port names its parameters
+``convert_streamflow_checkpoint``, ``build_umt_mapping``,
+``convert_umt_params``, ``load_torch_checkpoint`` and ``torch_shape_for``
+from ``streamflow_tpu/convert/torch_import.py`` (no JAX), widened to the
+ablation configs: the port names its parameters
 after the torch keys, so these tables are what move weights (and
 gradients, and BatchNorm statistics) between the two packages.
 
@@ -19,13 +20,18 @@ are named after the flax modules: the per-frame Twins hooks
 ``.temporal_conv``), Twins3DConv's final ``temporal_conv``, and Res18_3D
 (``layer1.0.norm0``, ``.temporal_attn``, ``.temporal_fc``, ``.spatial``).
 The CNN encoders sit under flax's ``enc`` (``_PerFrameBasicEncoder``) at
-the reference's ``fnet.`` / ``cnet.`` keys.
+the reference's ``fnet.`` / ``cnet.`` keys. The UMT encoder's table is the
+reference's keys (``build_umt_mapping``) under ``fnet.`` / ``cnet.``, and
+the port's one qkv bias (``blocks.i.attn.qkv.bias``) for flax's, which a
+reference checkpoint holds as ``q_bias`` and ``v_bias``
+(``convert_umt_params`` assembles [q_bias, 0, v_bias]).
 
 Each rule is (flax path, torch key, kind); kind is the layout rule:
 
   conv    Conv2d (O, I, kh, kw)      <-> flax kernel (kh, kw, I, O)
   conv1d  Conv1d (O, I, k)           <-> flax kernel (k, I, O)
   conv3d  Conv3d (O, I, kt, kh, kw)  <-> flax kernel (kt, kh, kw, I, O)
+  conv3d_t1  Conv3d (O, I, 1, kh, kw) <-> flax 2-D kernel (kh, kw, I, O)
   linear  Linear (O, I)              <-> flax kernel (I, O)
   raw     copied as-is (biases, norm scale/bias, gamma, running stats)
 
@@ -180,8 +186,66 @@ def _basic_encoder(dst, src, norm_fn: str, temporal: bool = False
     return rules, stats
 
 
+def build_umt_mapping(depth: int = 4) -> List[Rule]:
+    """UMT video ViT encoder (reference core/encoders/umt.py:209-368, the
+    4-block ViT-B/16 surgery) -> layers/umt.py::UMT. The reference's
+    Attention keeps separate q_bias/v_bias with k pinned to zero
+    (umt.py:69-85); the flax qkv bias is assembled from them by
+    convert_umt_params."""
+    rules: List[Rule] = [
+        ("patch_embed/kernel", "patch_embed.proj.weight", "conv3d_t1"),
+        ("patch_embed/bias", "patch_embed.proj.bias", "raw?"),
+    ]
+    for i in range(depth):
+        bs, bd = f"blocks.{i}", f"block{i}"
+        rules += _ln(f"{bd}/norm1", f"{bs}.norm1")
+        rules += _ln(f"{bd}/norm2", f"{bs}.norm2")
+        rules += [(f"{bd}/qkv/kernel", f"{bs}.attn.qkv.weight", "linear")]
+        rules += _linear(f"{bd}/proj", f"{bs}.attn.proj")
+        rules += _linear(f"{bd}/mlp/fc1", f"{bs}.mlp.fc1")
+        rules += _linear(f"{bd}/mlp/fc2", f"{bs}.mlp.fc2")
+    return rules
+
+
+def convert_umt_params(state_dict: Dict[str, np.ndarray], depth: int = 4,
+                       prefix: str = "", strict: bool = True) -> dict:
+    """Torch UMT/VideoMAE state-dict -> flax params tree for layers/umt.py.
+    ``prefix`` addresses a sub-module (e.g. 'fnet.' inside a full model)."""
+    sd = _strip_wrappers(state_dict)
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items()
+              if k.startswith(prefix)}
+    tree: dict = {}
+    _apply_table(tree, sd, build_umt_mapping(depth), strict)
+    # qkv bias = [q_bias, zeros, v_bias] (k bias is a softmax no-op, pinned
+    # to zero by the reference)
+    for i in range(depth):
+        qb = sd.get(f"blocks.{i}.attn.q_bias")
+        vb = sd.get(f"blocks.{i}.attn.v_bias")
+        if qb is None or vb is None:
+            if strict:
+                raise KeyError(f"checkpoint missing q/v bias for block {i}")
+            continue
+        qb = np.asarray(qb)
+        _set(tree, f"block{i}/qkv/bias",
+             np.concatenate([qb, np.zeros_like(qb), np.asarray(vb)]))
+    return {"params": tree}
+
+
+def _umt(dst, src, depth: int = 4) -> List[Rule]:
+    """The UMT table under a model's fnet / cnet, with the port's one qkv
+    bias for flax's."""
+    rules = [(f"{dst}/{d}", f"{src}.{s}", k)
+             for d, s, k in build_umt_mapping(depth)]
+    return rules + [(f"{dst}/block{i}/qkv/bias",
+                     f"{src}.blocks.{i}.attn.qkv.bias", "raw")
+                    for i in range(depth)]
+
+
 def _encoder(dst, src, encoder: str, norm_fn: str
              ) -> Tuple[List[Rule], List[Rule]]:
+    if encoder == "umt":
+        return _umt(dst, src), []
     if encoder in TWINS_ENCODERS:
         _, hook, conv3d = TWINS_ENCODERS[encoder]
         return _twins(dst, src, hook=hook, conv3d=conv3d), []
@@ -325,7 +389,21 @@ def apply_rule(kind: str, value: np.ndarray) -> np.ndarray:
     """A torch tensor in the flax layout of its rule's kind."""
     value = np.asarray(value)
     kind = kind.rstrip("?")
+    if kind == "conv3d_t1":
+        # Conv3d with tubelet size 1 (a time extent of 1) -> 2-D kernel
+        return np.transpose(value[:, :, 0], TO_FLAX["conv"])
     return np.transpose(value, TO_FLAX[kind]) if kind in TO_FLAX else value
+
+
+def from_flax_layout(kind: str, value: np.ndarray) -> np.ndarray:
+    """A flax leaf in the torch layout of its rule's kind (the inverse of
+    ``apply_rule``)."""
+    kind = kind.rstrip("?")
+    if kind == "conv3d_t1":
+        return np.transpose(value, np.argsort(TO_FLAX["conv"]))[:, :, None]
+    if kind not in TO_FLAX:
+        return value
+    return np.transpose(value, np.argsort(TO_FLAX[kind]))
 
 
 def _set(tree: dict, path: str, value) -> None:
@@ -406,6 +484,9 @@ TO_FLAX = {"conv": (2, 3, 1, 0), "conv1d": (2, 1, 0),
 
 def torch_shape_for(kind: str, flax_shape) -> tuple:
     """The torch shape of a leaf of flax shape ``flax_shape``."""
+    if kind == "conv3d_t1":
+        kh, kw, i, o = flax_shape
+        return (o, i, 1, kh, kw)
     if kind not in TO_FLAX:
         return tuple(flax_shape)
     to_torch = sorted(range(len(flax_shape)),

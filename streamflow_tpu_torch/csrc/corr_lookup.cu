@@ -37,8 +37,11 @@
 // the whole level), narrow ones pay each block's setup and combine.
 //
 // f32 (f32 models only): one warp per query; each lane keeps C/32 features
-// of f1 in registers, a tap is one coalesced read of the f2 feature row
-// plus a warp reduction; whole tap rows out of range are skipped.
+// of f1 in registers (16 at most up to C = 512, 24 for the UMT encoder's
+// C = 768), a tap is one coalesced read of the f2 feature row plus a warp
+// reduction; whole tap rows out of range are skipped. At C = 768 the bf16
+// body's f1 tile (12 panels, 96 KB) leaves room for one block an SM
+// (~175 KB of shared memory in all).
 
 #include <limits.h>
 
@@ -50,7 +53,7 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int MAXL = 4;    // pyramid levels
-constexpr int MAXCPL = 16; // channels per lane (C <= 512)
+constexpr int MAXCPL = 24; // channels per lane (C <= 768)
 constexpr int MAXR = 4;    // radius
 constexpr int KT = 2 * MAXR + 2;
 
@@ -60,6 +63,9 @@ struct Levels {
   int w[MAXL];
 };
 
+// CPL: f1 registers a lane, 16 up to C = 512 (the canonical widths' body
+// as it was) or MAXCPL
+template <int CPL>
 __global__ void __launch_bounds__(WARPS * 32)
     corr_lookup_kernel(const float* __restrict__ f1, Levels lv,
                        const float* __restrict__ coords,
@@ -74,9 +80,9 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int k = 2 * r + 1, kt = 2 * r + 2;
   const int nout = nl * k * k;
 
-  float f1r[MAXCPL];
+  float f1r[CPL];
 #pragma unroll
-  for (int i = 0; i < MAXCPL; ++i)
+  for (int i = 0; i < CPL; ++i)
     f1r[i] = i < cpl ? f1[(size_t)qg * c + lane + 32 * i] : 0.f;
   const float px = coords[(size_t)qg * 2], py = coords[(size_t)qg * 2 + 1];
   float* tp = taps[warp];
@@ -99,7 +105,7 @@ __global__ void __launch_bounds__(WARPS * 32)
         if (row_in && xx >= 0 && xx < wl) {
           const float* row = f2 + ((size_t)yy * wl + xx) * c;
 #pragma unroll
-          for (int i = 0; i < MAXCPL; ++i)
+          for (int i = 0; i < CPL; ++i)
             if (i < cpl) a = fmaf(f1r[i], row[lane + 32 * i], a);
           a = warp_sum(a);
         }
@@ -456,7 +462,12 @@ extern "C" int sf_corr_lookup(const void* f1, const void* f2_0,
   Levels lv = {{f2_0, f2_1, f2_2, f2_3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   if (dtype == sf::kBF16)
     return launch_bf16(f1, lv, coords, out, b, n, c, nl, r, scale, s);
-  corr_lookup_kernel<<<(b * n + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-      (const float*)f1, lv, coords, (float*)out, b, n, c, nl, r, scale);
+  const int grid = (b * n + WARPS - 1) / WARPS;
+  if (c <= 512)
+    corr_lookup_kernel<16><<<grid, WARPS * 32, 0, s>>>(
+        (const float*)f1, lv, coords, (float*)out, b, n, c, nl, r, scale);
+  else
+    corr_lookup_kernel<MAXCPL><<<grid, WARPS * 32, 0, s>>>(
+        (const float*)f1, lv, coords, (float*)out, b, n, c, nl, r, scale);
   return (int)cudaGetLastError();
 }

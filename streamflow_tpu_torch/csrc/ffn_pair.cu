@@ -55,6 +55,29 @@
 // and are masked in the stores. The f32 kernel (used by f32 models only)
 // runs the GEMMs on the CUDA cores, 16 rows per block.
 //
+// Wide path (ffn_pair_gemm_kernel, ffn_pair_gemm_f32_kernel,
+// ffn_pair_prologue_kernel; the wrapper picks it where the fused plan
+// cannot hold the widths: the UMT decoder's gru, 1920 -> 2880 -> 1920 /
+// 384 with a 1920-wide pw stage, and joint flow head, 1152 -> 1728 ->
+// 1152 / 6). There a 64-row x tile (240 KB at 1920 columns, twice that
+// with the pw stage's output) no longer fits shared memory, nor y's f32
+// accumulators a warpgroup's registers. The pair runs as its stages in
+// separate launches, each intermediate rounded to the io type exactly
+// where ffn_pair_xla rounds it and kept in device memory between them
+// (the TPU kernel keeps the hidden activation in VMEM; at 5376 rows it is
+// 31 MB of bf16, inside the 50 MB L2): [x = gelu(x + y_dw + b_dw), an
+// elementwise launch], [x = gelu(x + x Wp + bp)], h = gelu(x W1 + b1),
+// y = h W2 + b2 with the pair's epilogue ([gelu(x +)], [k1]). Each
+// product is one launch of ffn_pair_gemm_kernel: C = A W^T + bias and an
+// elementwise epilogue, a block per 128 x 128 output tile, the A and W
+// boxes (128 rows x 64 k, 128-byte swizzle) streamed by TMA from a
+// producer warp through a ring of four 32 KB stages, two consumer
+// warpgroups of 64 rows each on m64n128k16 wgmma, the epilogue from the
+// accumulators straight to device memory. Bound: the products (about 160
+// GFLOP a gru call at 5376 rows; the intermediates add ~0.15 GB of
+// traffic). f32: the same stages, the products on the CUDA cores (64 x 64
+// tiles, 4 x 4 a thread).
+//
 // Layout: x (n, c) row-major; weights in nn.Linear layout (out, in), rows
 // K-major as wgmma's B operand wants them.
 
@@ -769,7 +792,222 @@ int launch_f32(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------- wide path
+struct GemmArgs {
+  const void *bias, *res, *kw, *kb;  // res, kw/kb: or null
+  void* out;
+  int n, N, K, act;
+};
+
+// the elementwise epilogue of one output: + bias, [gelu], [gelu(res +)],
+// [k1], in f32
+template <typename T>
+__device__ __forceinline__ float gemm_epilogue(float v, const GemmArgs& g,
+                                               int row, int col) {
+  const size_t at = (size_t)row * g.N + col;
+  v += to_f(((const T*)g.bias)[col]);
+  if (g.act) v = gelu(v);
+  if (g.res != nullptr) v = gelu(to_f(((const T*)g.res)[at]) + v);
+  if (g.kw != nullptr)
+    v = gelu(v + v * to_f(((const T*)g.kw)[col]) +
+             to_f(((const T*)g.kb)[col]));
+  return v;
+}
+
+constexpr int GM = 128, GN = 128, GK = 64;  // output tile, k panel
+constexpr int G_NS = 4;                     // ring stages
+constexpr int G_ABYTES = GM * GK * 2;       // A box (16 KB)
+constexpr int G_STAGE = G_ABYTES + GN * GK * 2;
+constexpr int G_SMEM = G_NS * G_STAGE + 2 * G_NS * 8 + 1024;
+
+__global__ void __launch_bounds__(288, 1)
+    ffn_pair_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tw,
+                         const GemmArgs g) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G_NS * G_STAGE);
+  uint64_t* empty = full + G_NS;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int nk = cdiv(g.K, GK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // producer: one thread streams the k panels of A and W
+    if (threadIdx.x == 256)
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % G_NS;
+        mbar_wait(&empty[s], ((kt / G_NS) & 1) ^ 1);
+        mbar_expect_tx(&full[s], G_STAGE);
+        uint8_t* st = sm + s * G_STAGE;
+        tma_load_2d(st, &ta, &full[s], kt * GK, m0);
+        tma_load_2d(st + G_ABYTES, &tw, &full[s], kt * GK, n0);
+      }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows m0 + 64 wg .. + 63 of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % G_NS;
+    mbar_wait(&full[s], (kt / G_NS) & 1);
+    const uint8_t* st = sm + s * G_STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GK / 16; ++kk)
+      wgmma_ss_n128(acc, desc128(st + wg * 8192 + kk * 32),
+                    desc128(st + G_ABYTES + kk * 32), kt > 0 || kk > 0);
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      mbar_arrive(&empty[prev]);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4i + e]: row g + 8 (e / 2) of the warp's 16, column 8i + 2t + e % 2
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  bf16* out = (bf16*)g.out;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + wg * 64 + warp * 16 + gq + 8 * r;
+    if (row >= g.n) continue;
+#pragma unroll
+    for (int i = 0; i < GN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t;  // N is even: col + 1 < N too
+      if (col >= g.N) continue;
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * g.N + col) =
+          pack_bf16(gemm_epilogue<bf16>(acc[4 * i + 2 * r], g, row, col),
+                    gemm_epilogue<bf16>(acc[4 * i + 2 * r + 1], g, row,
+                                        col + 1));
+    }
+  }
+}
+
+constexpr int FM = 64, FN = 64, FK = 16;  // f32: tile rows, columns, k
+static_assert(FM == FN, "one loop stages the A and W tiles");
+
+__global__ void __launch_bounds__(256)
+    ffn_pair_gemm_f32_kernel(const float* __restrict__ A,
+                             const float* __restrict__ Wt, const GemmArgs g) {
+  __shared__ float as[FK][FM + 4], ws[FK][FN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < g.K; k0 += FK) {
+    for (int e = tid; e < FM * FK; e += 256) {
+      const int r = e / FK, kk = e % FK;
+      as[kk][r] = (m0 + r < g.n && k0 + kk < g.K)
+                      ? A[(size_t)(m0 + r) * g.K + k0 + kk] : 0.f;
+      ws[kk][r] = (n0 + r < g.N && k0 + kk < g.K)
+                      ? Wt[(size_t)(n0 + r) * g.K + k0 + kk] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = as[kk][ty * 4 + i];
+        b[i] = ws[kk][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = (float*)g.out;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = m0 + ty * 4 + i, col = n0 + tx * 4 + j;
+      if (row < g.n && col < g.N)
+        out[(size_t)row * g.N + col] =
+            gemm_epilogue<float>(acc[i][j], g, row, col);
+    }
+}
+
+// x' = gelu(x + y_dw + b_dw), rounded to the io type
+template <typename T>
+__global__ void ffn_pair_prologue_kernel(const T* __restrict__ x,
+                                         const T* __restrict__ y,
+                                         const T* __restrict__ db,
+                                         T* __restrict__ out, size_t total,
+                                         int c) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = from_f<T>(gelu(to_f(x[i]) + to_f(y[i]) + to_f(db[i % c])));
+}
+
 }  // namespace
+
+// C (n x N) = A (n x K) . W (N x K)^T + bias with the epilogue (act: gelu;
+// res, kw/kb: the pair's residual and k1), bf16 (K a multiple of 8, N
+// even) or f32
+extern "C" int sf_ffn_gemm(const void* a, const void* w, const void* bias,
+                           const void* res, const void* kw, const void* kb,
+                           void* out, int n, int N, int K, int act,
+                           int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 0 || N == 0) return 0;
+  const GemmArgs g{bias, res, kw, kb, out, n, N, K, act};
+  if (dtype != sf::kBF16) {
+    ffn_pair_gemm_f32_kernel<<<dim3(cdiv(N, FN), cdiv(n, FM)), 256, 0, s>>>(
+        (const float*)a, (const float*)w, g);
+    return (int)cudaGetLastError();
+  }
+  if (K % 8 || N % 2 || K == 0) return (int)cudaErrorInvalidValue;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap ta, tw;
+  const uint64_t da[2] = {(uint64_t)K, (uint64_t)n};
+  const uint64_t dw[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t box[2] = {GK, GM};
+  if (!tensor_map(&ta, a, 2, da, box) || !tensor_map(&tw, w, 2, dw, box))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      ffn_pair_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  ffn_pair_gemm_kernel<<<dim3(cdiv(N, GN), cdiv(n, GM)), 288, G_SMEM, s>>>(
+      ta, tw, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sf_ffn_prologue(const void* x, const void* y, const void* db,
+                               void* out, int n, int c, int dtype,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t total = (size_t)n * c;
+  if (total == 0) return 0;
+  const int grid = (int)((total + 255) / 256 < 8192 ? (total + 255) / 256
+                                                    : 8192);
+  if (dtype == sf::kBF16)
+    ffn_pair_prologue_kernel<bf16><<<grid, 256, 0, s>>>(
+        (const bf16*)x, (const bf16*)y, (const bf16*)db, (bf16*)out, total,
+        c);
+  else
+    ffn_pair_prologue_kernel<float><<<grid, 256, 0, s>>>(
+        (const float*)x, (const float*)y, (const float*)db, (float*)out,
+        total, c);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int sf_ffn_pair(const void* x, const void* yres, const void* db,
                            const void* ln_g, const void* ln_b, const void* wp,

@@ -14,7 +14,8 @@
 //
 // Bound on the H100: the two products at d=128 (4 d FLOP per score); at
 // d=32 the exp per score (MUFU, 16 per clock per SM) before the tensor
-// cores. Design: one block walks all kv tiles for its query tile (the
+// cores; at d=64 (UMT's ViT, 12 heads) and d=384 (UMT's GMA aggregate)
+// the products. Design: one block walks all kv tiles for its query tile (the
 // TPU's sequential kv grid axis becomes a loop) and the (n, m) scores never
 // leave registers. bf16: warp-specialised wgmma. One producer warp keeps a
 // ring of K/V tile stages (128 keys at d=128, 64 at d=32) filled by TMA
@@ -22,9 +23,16 @@
 // warpgroups of 64 query rows each run S = Q.K^T as wgmma from shared
 // memory, the online softmax in f32 registers (exp2 with log2 e folded
 // into its argument), and O += P.V with P as bf16 register fragments and V
-// read MN-major; the next tile's Q.K^T is issued behind P.V. f32 (f32
-// models only): CUDA cores, K/V tiles staged as f32 with a padded row;
-// D/32 threads share a query.
+// read MN-major; the next tile's Q.K^T is issued behind P.V. At d=384 a
+// 64 x 384 f32 O accumulator would take 192 registers a thread of one
+// warpgroup before S and P, and Q with a two-stage ring of 64-key K/V
+// tiles 240 KB: there the two consumer warpgroups share one 64-row query
+// tile and split O's columns (192 each, as three 64-column wgmmas), each
+// computing the same S = Q.K^T (1.5x the tile's operations), over 32-key
+// K/V tiles in a ring of three stages (192 KB in all). f32 (f32 models
+// only): CUDA cores, K/V tiles staged as f32 with a padded row; D/32
+// threads share a query (D/48 at d=384, over 8-key tiles, so that the
+// padded tiles fit the 48 KB of static shared memory).
 
 #include "common.cuh"
 
@@ -33,16 +41,23 @@ using namespace sf;
 namespace {
 
 constexpr int NT = 256;
-constexpr int BK = 32;       // kv rows per tile
-constexpr int DQ = 32;       // dims per thread
-constexpr int CH = DQ + 4;   // padded sub-row stride (floats)
 constexpr float NEG = -0.7f * 3.4028234663852886e38f;
+
+// the f32 body's tile at head dim D: dims per thread, kv rows per tile
+template <int D>
+struct F32Tile {
+  static constexpr int DQ = D == 384 ? 48 : 32;
+  static constexpr int BK = D == 384 ? 8 : 32;
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int nq, int nk) {
+  constexpr int DQ = F32Tile<D>::DQ;  // dims per thread
+  constexpr int BK = F32Tile<D>::BK;  // kv rows per tile
+  constexpr int CH = DQ + 4;         // padded sub-row stride (floats)
   constexpr int TPQ = D / DQ;        // threads per query
   constexpr int BQ = NT / TPQ;       // queries per block
   constexpr int ROW = TPQ * CH;      // padded kv row (floats)
@@ -133,7 +148,7 @@ __global__ void __launch_bounds__(NT)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int bh, int nq, int nk, cudaStream_t s) {
-  constexpr int BQ = NT / (D / DQ);
+  constexpr int BQ = NT / (D / F32Tile<D>::DQ);
   dim3 grid((nq + BQ - 1) / BQ, bh);
   flash_fwd_kernel<T, D><<<grid, NT, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, nq, nk);
@@ -145,7 +160,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
              float* lse, int bh, int nq, int nk, int d, cudaStream_t s) {
   switch (d) {
     case 32: return launch<T, 32>(q, k, v, out, lse, bh, nq, nk, s);
+    case 64: return launch<T, 64>(q, k, v, out, lse, bh, nq, nk, s);
     case 128: return launch<T, 128>(q, k, v, out, lse, bh, nq, nk, s);
+    case 384: return launch<T, 384>(q, k, v, out, lse, bh, nq, nk, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -155,17 +172,22 @@ typedef __nv_bfloat16 bf16;
 
 // Tiles of the bf16 kernel at head dim D. Q, K and V tiles are stored as
 // they arrive from TMA: PANEL-wide column panels of row-major rows (128 B
-// rows with the 128-byte swizzle at D=128, two panels; 64 B rows with the
-// 64-byte swizzle at D=32), the layouts the wgmma descriptors name.
+// rows with the 128-byte swizzle at D=64, 128 and 384: one, two and six
+// panels; 64 B rows with the 64-byte swizzle at D=32), the layouts the
+// wgmma descriptors name.
 template <int D>
 struct Tiles {
   static constexpr int NWG = 2;                  // consumer warpgroups
-  static constexpr int BM = 64 * NWG;            // query rows per block
-  // keys per tile: 128 at d=128; 64 at d=32, where a key costs little and
-  // fewer registers let two blocks share an SM
-  static constexpr int BN = D == 128 ? 128 : 64;
-  static constexpr int NS = D == 128 ? 2 : 4;    // K/V stages in the ring
-  static constexpr int MINB = D == 128 ? 1 : 2;  // blocks per SM
+  // d=384: both warpgroups on one 64-row query tile, O's columns split
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int BM = SPLIT ? 64 : 64 * NWG;  // query rows per block
+  static constexpr int DW = SPLIT ? D / NWG : D;    // O columns per wg
+  // keys per tile: 128 at d=64 and 128; 64 at d=32, where a key costs
+  // little and fewer registers let two blocks share an SM; 32 at d=384,
+  // where a K/V tile pair is 48 KB
+  static constexpr int BN = D == 32 ? 64 : SPLIT ? 32 : 128;
+  static constexpr int NS = D == 128 ? 2 : D == 32 ? 4 : 3;  // ring stages
+  static constexpr int MINB = D == 32 ? 2 : 1;   // blocks per SM
   static constexpr int PANEL = D < 64 ? D : 64;  // columns per panel
   static constexpr int ROWB = PANEL * 2;         // bytes per panel row
   static constexpr int SBO = 8 * ROWB;           // bytes per 8-row group
@@ -177,41 +199,60 @@ struct Tiles {
   static constexpr int NTH = NWG * 128 + 32;     // + one producer warp
 };
 
-// S (64 x BN keys) = Q_wg . K_tile^T: D/16 wgmmas, both operands K-major
+// the 32 accumulators at p as an array (a 64-column slice of O)
+__device__ __forceinline__ float (&acc32(float* p))[32] {
+  return *reinterpret_cast<float(*)[32]>(p);
+}
+
+// S (64 x BN keys) = Q rows q0.. of the tile . K_tile^T: D/16 wgmmas,
+// both operands K-major
 template <int D>
 __device__ __forceinline__ void qk_tile(float (&s)[Tiles<D>::BN / 2],
                                         const bf16* qs, const bf16* kt,
-                                        int wg) {
+                                        int q0) {
   using C = Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int p = kk * 16 / C::PANEL, c = kk * 16 % C::PANEL;
-    const uint64_t da = wgmma_desc(qs + (p * C::BM + wg * 64) * C::PANEL + c,
+    const uint64_t da = wgmma_desc(qs + (p * C::BM + q0) * C::PANEL + c,
                                    16, C::SBO, C::SWZ);
     const uint64_t db =
         wgmma_desc(kt + p * C::BN * C::PANEL + c, 16, C::SBO, C::SWZ);
     if constexpr (C::BN == 128)
       wgmma_ss_n128(s, da, db, kk > 0);
-    else
+    else if constexpr (C::BN == 64)
       wgmma_ss_n64(s, da, db, kk > 0);
+    else
+      wgmma_ss_n32(s, da, db, kk > 0);
   }
 }
 
-// O (64 x D) += P (bf16 registers) . V_tile: BN/16 wgmmas, V MN-major
-// (its rows are keys: the transpose flag), panels LBO apart
+// O (64 x DW columns from panel p0) += P (bf16 registers) . V_tile: BN/16
+// k steps, V MN-major (its rows are keys: the transpose flag), panels LBO
+// apart; a DW of 64 or 192 as one wgmma per 64-column panel
 template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 2],
+__device__ __forceinline__ void pv_tile(float (&o)[Tiles<D>::DW / 2],
                                         uint32_t (&pf)[Tiles<D>::BN / 16][4],
-                                        const bf16* vt) {
+                                        const bf16* vt, int p0) {
   using C = Tiles<D>;
 #pragma unroll
   for (int kk = 0; kk < C::BN / 16; ++kk) {
-    const uint64_t db = wgmma_desc(vt + kk * 16 * C::PANEL, C::BN * C::ROWB,
-                                   C::SBO, C::SWZ);
-    if constexpr (D == 128)
-      wgmma_rs_n128_mn(o, pf[kk], db, 1);
-    else
-      wgmma_rs_n32_mn(o, pf[kk], db, 1);
+    if constexpr (C::DW == 128 || C::DW == 32) {
+      const uint64_t db = wgmma_desc(vt + kk * 16 * C::PANEL,
+                                     C::BN * C::ROWB, C::SBO, C::SWZ);
+      if constexpr (C::DW == 128)
+        wgmma_rs_n128_mn(o, pf[kk], db, 1);
+      else
+        wgmma_rs_n32_mn(o, pf[kk], db, 1);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C::DW / 64; ++c) {
+        const uint64_t db =
+            wgmma_desc(vt + ((p0 + c) * C::BN + kk * 16) * C::PANEL,
+                       C::BN * C::ROWB, C::SBO, C::SWZ);
+        wgmma_rs_n64_mn(acc32(o + 32 * c), pf[kk], db, 1);
+      }
+    }
   }
 }
 
@@ -223,7 +264,6 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
                            bf16* __restrict__ out, float* __restrict__ lse,
                            int nq, int nk) {
   using C = Tiles<D>;
-  static_assert(C::BN == 128 || C::BN == 64, "qk_tile: m64n128 or m64n64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* qs = reinterpret_cast<bf16*>(sm);
@@ -269,22 +309,25 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
     return;
   }
 
-  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; this
-  // thread holds rows r = warp*16 + g (+8) of them and columns 8i + 2t (+1)
+  // consumers: warpgroup wg owns query rows q0 + qr .. + 63 (qr = 64 wg,
+  // or 0 where the two split O's columns: wg's are DW wg .. + DW - 1);
+  // this thread holds rows r = warp*16 + g (+8) of them and columns
+  // 8i + 2t (+1)
   const int warp = threadIdx.x / 32 % 4;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int qr = C::SPLIT ? 0 : wg * 64, oc = C::SPLIT ? wg * C::DW : 0;
   constexpr float L2E = 1.4426950408889634f;
-  float o[D / 2], sc[C::BN / 2];
+  float o[C::DW / 2], sc[C::BN / 2];
   uint32_t pf[C::BN / 16][4];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < C::DW / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG, NEG}, l_run[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
   if (ntiles > 0) {
     mbar_wait(&full[0], 0);
     wgmma_fence();
-    qk_tile<D>(sc, qs, ks, wg);
+    qk_tile<D>(sc, qs, ks, qr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -315,7 +358,7 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
       l_run[r] *= alpha[r];  // lane-partial sums, reduced at the end
     }
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < C::DW / 8; ++i) {
       o[4 * i] *= alpha[0];
       o[4 * i + 1] *= alpha[0];
       o[4 * i + 2] *= alpha[1];
@@ -336,12 +379,12 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
 #pragma unroll
     for (int kk = 0; kk < C::BN / 16; ++kk) fence_regs(pf[kk]);
     wgmma_fence();
-    pv_tile<D>(o, pf, vs + s * C::BN * D);
+    pv_tile<D>(o, pf, vs + s * C::BN * D, oc / 64);
     wgmma_commit();
     if (j + 1 < ntiles) {  // the next tile's scores run behind P.V
       const int s1 = (j + 1) % C::NS;
       mbar_wait(&full[s1], ((j + 1) / C::NS) & 1);
-      qk_tile<D>(sc, qs, ks + s1 * C::BN * D, wg);
+      qk_tile<D>(sc, qs, ks + s1 * C::BN * D, qr);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -359,13 +402,14 @@ __global__ void __launch_bounds__(Tiles<D>::NTH, Tiles<D>::MINB)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = (l == 0.f) ? 1.f : 1.f / l;
-    const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+    const int row = q0 + qr + warp * 16 + g + 8 * r;
     if (row >= nq) continue;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + 8 * i + 2 * t) =
+    for (int i = 0; i < C::DW / 8; ++i)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + oc + 8 * i +
+                                   2 * t) =
           pack_bf16(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
-    if (lse != nullptr && t == 0)
+    if (lse != nullptr && t == 0 && oc == 0)
       lse[(size_t)bh * nq + row] = m_run[r] + logf(l == 0.f ? 1.f : l);
   }
 }
@@ -410,7 +454,9 @@ extern "C" int sf_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == sf::kBF16) {
     switch (d) {
       case 32: return launch_bf16<32>(q, k, v, out, lse, bh, nq, nk, s);
+      case 64: return launch_bf16<64>(q, k, v, out, lse, bh, nq, nk, s);
       case 128: return launch_bf16<128>(q, k, v, out, lse, bh, nq, nk, s);
+      case 384: return launch_bf16<384>(q, k, v, out, lse, bh, nq, nk, s);
     }
     return (int)cudaErrorInvalidValue;
   }

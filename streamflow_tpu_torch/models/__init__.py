@@ -24,8 +24,9 @@ def create_model(name: str, cfg=None, device="cuda", train: bool = False,
     """Build a model by name on ``device``: the card unless the caller asks
     for ``device="cpu"``; a CUDA device without a card raises. ``kwargs``
     build the config when ``cfg`` is None: for 'streamflow' every
-    ``encoder``, ``update_block`` and ``use_gma`` of the JAX config but
-    ``encoder="umt"``, which raises NotImplementedError (ROADMAP A11).
+    ``encoder``, ``update_block`` and ``use_gma`` of the JAX config
+    (``encoder="umt"`` at ``decoder_dim=768`` only, as JAX's model runs;
+    another ``decoder_dim`` raises ValueError).
 
     ``train=False``: for inference, parameters in the compute dtype
     (bf16 under ``mixed_precision``; BatchNorm's and GroupNorm's stay f32,

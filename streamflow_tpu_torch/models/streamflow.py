@@ -2,11 +2,15 @@
 ``_make_encoder``, :55-102, 164-270; reference SKFlow_MF8,
 core/models/streamflow.py:30-149).
 
-Every encoder, decoder and ``use_gma`` value of the JAX config but
-``encoder="umt"`` (ROADMAP A11): the Twins family (``twins_csc``, the
-canonical one; ``twins``, ``twins_1dconv``, ``twins_temporal_attention``,
-``twins_3dconv``), the RAFT CNN per frame (``basic``, ``resnet18`` and
-``mf_basic``, one module as in JAX) and ``res18_3d``; the decoders
+Every encoder, decoder and ``use_gma`` value of the JAX config: the
+Twins family (``twins_csc``, the canonical one; ``twins``,
+``twins_1dconv``, ``twins_temporal_attention``, ``twins_3dconv``), the
+RAFT CNN per frame (``basic``, ``resnet18`` and ``mf_basic``, one module
+as in JAX), ``res18_3d``, and the UMT video ViT (``umt``: 768 channels at
+1/16, so the model runs at ratio 16, and only at ``decoder_dim=768``,
+the one width at which JAX's model runs: 384-wide hidden and context
+states, GMA at d=384, a 1920-wide gru and a 1152-wide joint flow head,
+a mask of 9 x 16^2 channels); the decoders
 ``sk_tam_v3``, ``sk_tam_v1`` (per-frame flow head) and
 ``sk_tam_v3_noinit`` (live temporal layer). The CNN encoders' fnet uses
 instance norm and their cnet BatchNorm, whose statistics follow
@@ -45,18 +49,20 @@ from streamflow_tpu_torch.layers.basic_encoder import (PerFrameBasicEncoder,
                                                        Res18_3D)
 from streamflow_tpu_torch.layers.gma import GMAAttention
 from streamflow_tpu_torch.layers.twins import TwinsEncoder
+from streamflow_tpu_torch.layers.umt import UMT
 from streamflow_tpu_torch.layers.update import SKUpdateBlockTAMv3
 from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.kernels.corr_lookup import FusedCorr
 from streamflow_tpu_torch.ops.upsample import convex_upsample
 
 UPDATE_BLOCKS = ("sk_tam_v3", "sk_tam_v1", "sk_tam_v3_noinit")
+UMT_DECODER_DIM = 768
 
 
 def make_encoder(cfg: StreamFlowConfig, norm_fn: str) -> nn.Module:
-    """JAX ``_make_encoder``: (B, T, H, W, 3) -> (B, T, H/8, W/8, 256);
-    ``norm_fn`` reaches the CNN encoders ('instance' for the fnet, 'batch'
-    for the cnet)."""
+    """JAX ``_make_encoder``: (B, T, H, W, 3) -> (B, T, H/8, W/8, 256),
+    or (B, T, H/16, W/16, 768) for UMT; ``norm_fn`` reaches the CNN
+    encoders ('instance' for the fnet, 'batch' for the cnet)."""
     if cfg.encoder in TWINS_ENCODERS:
         return TwinsEncoder(cfg.gsa_flash, *TWINS_ENCODERS[cfg.encoder])
     if cfg.encoder == "res18_3d":
@@ -64,9 +70,7 @@ def make_encoder(cfg: StreamFlowConfig, norm_fn: str) -> nn.Module:
     if cfg.encoder in CNN_ENCODERS:
         return PerFrameBasicEncoder(256, norm_fn)
     if cfg.encoder == "umt":
-        raise NotImplementedError(
-            "encoder='umt' is not ported yet (ROADMAP A11: it needs K1 at "
-            "C=768 and K3/B5 at head dim 64)")
+        return UMT()
     raise ValueError(f"unknown encoder '{cfg.encoder}'")
 
 
@@ -78,6 +82,13 @@ class StreamFlow(nn.Module):
         if cfg.motion_encoder != "sk6":
             raise ValueError(f"unknown motion_encoder "
                              f"'{cfg.motion_encoder}'")
+        if cfg.encoder == "umt" and cfg.decoder_dim != UMT_DECODER_DIM:
+            # JAX's model fails here too, reshaping the 384-wide context
+            # into context_dim channels (models/streamflow.py:230)
+            raise ValueError(
+                f"encoder='umt' runs at decoder_dim={UMT_DECODER_DIM} only "
+                f"(its 768 channels split into 384-wide hidden and "
+                f"context states), got decoder_dim={cfg.decoder_dim}")
         self.cfg = cfg
         self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         self.fnet = make_encoder(cfg, "instance")

@@ -33,6 +33,7 @@ from streamflow_tpu_torch.ops.corr import lookup_level, pool_pyramid
 from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 MAX_LEVELS = 4
+MAX_C = 768  # the UMT encoder's width
 
 
 def corr_lookup_plain(f1, f2_levels, coords, radius: int = 4):
@@ -71,9 +72,9 @@ def _corr_lookup(f1, f2_levels, coords, radius: int):
     _build.require(coords, "coords", torch.float32, 4)
     if coords.shape != (b, h, w, 2):
         raise ValueError(f"coords {tuple(coords.shape)} != {(b, h, w, 2)}")
-    if c % 32 or c > 512:
-        raise ValueError(f"corr_lookup takes C a multiple of 32 up to 512, "
-                         f"got {c}")
+    if c % 32 or c > MAX_C:
+        raise ValueError(f"corr_lookup takes C a multiple of 32 up to "
+                         f"{MAX_C}, got {c}")
     if not 1 <= len(f2_levels) <= MAX_LEVELS or not 0 <= radius <= 4:
         raise ValueError("corr_lookup takes 1..4 levels and radius <= 4")
     dims = []

@@ -14,7 +14,17 @@ _ffn_pair_fwd`` in its five forms:
   pair, no residual).
 
 The first two and the Twins form run in the default layout, the last two
-in the ``dw_impl='pallas'`` layout; all five launch the same kernel.
+in the ``dw_impl='pallas'`` layout; all five launch the same kernel where
+its shared-memory plan holds the widths (every canonical width). Wider
+pairs (the UMT decoder's gru, 1920 -> 2880 -> 1920 / 384 with a 1920-wide
+pw stage, and joint flow head, 1152 -> 1728 -> 1152 / 6) take the
+kernel's wide path in every form but ``ln_ffn_pair``: one launch per
+stage (the dw residual's elementwise prologue, each of the two or three
+products with its epilogue), each intermediate rounded where
+``ffn_pair_xla`` rounds it and kept in device memory between launches.
+``LAUNCHES["ffn_pair"]`` counts every launch: 2 for ``ffn_pair_k1`` and
+``ffn_pair``, 3 for ``pw_ffn_pair``, 4 for ``dwres_pw_ffn_pair`` on the
+wide path (``wide_launches``), 1 otherwise.
 
 On the H100 the bf16 kernel runs its GEMMs on wgmma with the weights
 staged by TMA; the hidden activation never reaches device memory (see the
@@ -63,21 +73,38 @@ def _plan(c: int, pw: bool):
     return off + stages * 16384 + 16 * stages + 16 + 1024, stages
 
 
-def _smem_bytes(dt, c: int, ch: int, co: int, pw: bool) -> int:
-    """Shared memory of csrc/ffn_pair.cu's launch (bf16: at least two
-    weight stages); raises where the widths cannot fit."""
+def _fused_smem(dt, c: int, ch: int, co: int, pw: bool):
+    """Shared memory of csrc/ffn_pair.cu's fused launch (bf16: at least
+    two weight stages and outputs up to _MAX_OUT), or None where the
+    widths cannot fit it."""
     if dt == torch.float32:                        # 16 rows, f32
         smem = 4 * 16 * (2 * ((c + 3) // 4 * 4) + (ch + 3) // 4 * 4)
-        stages = None
-    else:
-        if co > _MAX_OUT:
-            raise ValueError(f"ffn_pair (bf16) takes outputs up to "
-                             f"{_MAX_OUT} wide, got {co}")
-        smem, stages = _plan(c, pw)
-    if smem > _SMEM_MAX or stages is not None and stages < 2:
-        raise ValueError(f"ffn_pair tile needs {smem} B of shared memory "
-                         f"(C={c}, hidden={ch}, out={co})")
+        return smem if smem <= _SMEM_MAX else None
+    smem, stages = _plan(c, pw)
+    if co > _MAX_OUT or smem > _SMEM_MAX or stages < 2:
+        return None
     return smem
+
+
+def _smem_bytes(dt, c: int, ch: int, co: int, pw: bool) -> int:
+    """Shared memory of csrc/ffn_pair.cu's fused launch; raises where the
+    widths cannot fit it."""
+    smem = _fused_smem(dt, c, ch, co, pw)
+    if smem is None:
+        raise ValueError(f"the fused ffn_pair tile cannot hold C={c}, "
+                         f"hidden={ch}, out={co} ({dt}; outputs up to "
+                         f"{_MAX_OUT} wide in bf16)")
+    return smem
+
+
+def wide_launches(c: int, ch: int, co: int, pw: bool, dwres: bool,
+                  dt=torch.bfloat16) -> int:
+    """Launches of one K2 call: 1 where the fused kernel holds the widths,
+    else the wide path's stages (the dw residual, the pw stage, the two
+    products)."""
+    if _fused_smem(dt, c, ch, co, pw) is not None:
+        return 1
+    return 2 + int(pw) + int(dwres)
 
 
 def _tma_rows(w):
@@ -140,7 +167,12 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
     if c % 2 or ch % 2:
         raise ValueError(f"ffn_pair takes even widths, got C={c}, "
                          f"hidden={ch}")
-    _smem_bytes(dt, c, ch, co, wp is not None)
+    if _fused_smem(dt, c, ch, co, wp is not None) is None:
+        if ln_g is not None:
+            raise ValueError(f"ln_ffn_pair takes the fused tile's widths "
+                             f"only, got C={c}, hidden={ch}, out={co}")
+        return _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb,
+                            yres, db)
     if dt == torch.bfloat16:
         w1, w2 = _tma_rows(w1), _tma_rows(w2)
         wp = None if wp is None else _tma_rows(wp)
@@ -158,6 +190,44 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
     _build.check(code, "ffn_pair")
     LAUNCHES["ffn_pair"] += 1
     return out
+
+
+def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db):
+    """The wide path: one launch per stage (csrc/ffn_pair.cu), each
+    intermediate in device memory in the io type."""
+    c = x.shape[-1]
+    ch, co = w1.shape[0], w2.shape[0]
+    n, dt = x.numel() // c, x.dtype
+    if dt == torch.bfloat16 and (c % 8 or ch % 8 or co % 2):
+        raise ValueError(f"the wide ffn_pair takes C and hidden multiples of "
+                         f"8 and an even output, got C={c}, hidden={ch}, "
+                         f"out={co}")
+    if dt == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (x, w1, w2, wp) if t is not None):
+        raise ValueError("ffn_pair needs 16-byte aligned x and weights")
+    lib, p = _build.library(), _build.ptr
+    code, stream = _build.dtype_code(dt), _build.stream_of(x)
+    x2 = x.reshape(n, c)
+
+    def gemm(a, w, bias, act=False, res=None, kwt=None, kbt=None):
+        out = torch.empty(n, w.shape[0], dtype=dt, device=x.device)
+        _build.check(lib.sf_ffn_gemm(
+            p(a), p(w), p(bias), p(res), p(kwt), p(kbt), p(out), n,
+            w.shape[0], w.shape[1], int(act), code, stream), "ffn_pair")
+        LAUNCHES["ffn_pair"] += 1
+        return out
+
+    xs = x2
+    if yres is not None:                 # x = gelu(x + y_dw + b_dw)
+        xs = torch.empty_like(x2)
+        _build.check(lib.sf_ffn_prologue(p(x2), p(yres), p(db), p(xs), n, c,
+                                         code, stream), "ffn_pair")
+        LAUNCHES["ffn_pair"] += 1
+    if wp is not None:                   # x = gelu(x + x Wp + bp)
+        xs = gemm(xs, wp, bp, res=xs)
+    h = gemm(xs, w1, b1, act=True)
+    y = gemm(h, w2, b2, res=xs if residual else None, kwt=kw, kbt=kb)
+    return y.reshape(*x.shape[:-1], co)
 
 
 def _run(x, w1, b1, w2, b2, residual, ln=None, **kw):

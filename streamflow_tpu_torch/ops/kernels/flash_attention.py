@@ -7,8 +7,11 @@ softmax(q k^T) v with q already scaled, f32 softmax, without the (N, M)
 score matrix in device memory, and, for the backward, the per-row
 logsumexp. B5 replaces ``flash_attention_bwd_tpu``: dq, dk, dv with the
 probabilities rebuilt from that logsumexp. Users on the main path: the GMA
-aggregate (1 head, d=128) and the Twins GSA blocks above 16384 tokens
-(d=32).
+aggregate (1 head, d=128; d=384 with the UMT encoder's decoder_dim=768)
+and the Twins GSA blocks above 16384 tokens (d=32); the UMT encoder's ViT
+blocks (12 heads, d=64). B5 takes d=32 and d=128 only, so a UMT model
+trains on the CPU's plain versions alone: on the card its backward
+raises.
 
 ``flash_attention`` is differentiable like the JAX package's custom_vjp
 (ops/pallas/attention.py:89-127): when autograd records, the forward keeps
@@ -28,7 +31,8 @@ import torch
 from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import LAUNCHES
 
-HEAD_DIMS = (32, 128)  # GSA, GMA
+HEAD_DIMS = (32, 64, 128, 384)  # GSA, UMT's ViT, GMA, UMT's GMA
+BWD_HEAD_DIMS = (32, 128)       # B5
 
 
 def flash_attention_plain(q, k, v, return_lse: bool = False,
@@ -81,13 +85,12 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, q_chunk: int = 8192):
     return (torch.cat(dqs, dim=2).to(dt), dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _check(q, k, v):
+def _check(q, k, v, head_dims=HEAD_DIMS, what="flash_attention"):
     b, h, n, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, q.dtype, 4)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+    if d not in head_dims:
+        raise ValueError(f"{what} takes head dims {head_dims}, got {d}")
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
@@ -123,7 +126,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta):
     counts each."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)
-    _check(q, k, v)
+    _check(q, k, v, BWD_HEAD_DIMS, "flash_attention_bwd")
     _build.require(do, "do", q.dtype, 4)
     b, h, n, d = q.shape
     m = k.shape[2]

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from streamflow_tpu_torch.config import StreamFlowConfig
-from streamflow_tpu_torch.convert import TO_FLAX, tables, torch_shape_for
+from streamflow_tpu_torch.convert import (apply_rule, from_flax_layout,
+                                          tables, torch_shape_for)
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -48,10 +49,8 @@ def _tables(cfg, k_conv, pc_updater_conv):
     return tables(cfg)
 
 
-def _to_torch_layout(kind: str, value: np.ndarray) -> np.ndarray:
-    if kind not in TO_FLAX:
-        return value
-    return np.transpose(value, np.argsort(TO_FLAX[kind]))
+# a flax leaf in the torch layout of its kind (tests use it too)
+_to_torch_layout = from_flax_layout
 
 
 def _from_flat(flat, rules, what) -> Dict[str, torch.Tensor]:
@@ -101,10 +100,7 @@ def _to_flat(tensors, rules, strict=True):
                 continue
             raise KeyError(f"port tensors lack '{src}' (for '{dst}')")
         value = tensors[src].detach().float().cpu().numpy()
-        kind = kind.rstrip("?")
-        if kind in TO_FLAX:
-            value = np.transpose(value, TO_FLAX[kind])
-        out[dst] = np.ascontiguousarray(value)
+        out[dst] = np.ascontiguousarray(apply_rule(kind, value))
     return out
 
 

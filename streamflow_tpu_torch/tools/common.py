@@ -112,14 +112,18 @@ def host_ms(fn, reps: int, device) -> Tuple[float, float]:
     return sum(times) / len(times), min(times)
 
 
-def profiled(fn):
+def profiled(fn, host: bool = True):
     """A torch.profiler profile of one call of ``fn`` on the card, taken
     after one traced warm-up call: a window's first kernels can go
     unrecorded (on an H100 an unwarmed profile of the 440x1024 forward
-    missed up to two of its four LGA kernels, its first attention)."""
+    missed up to two of its four LGA kernels, its first attention).
+    ``host=False`` records the card's activity alone: the same device
+    times, without the host ops' trace (~20 s for a train step)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    acts = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
+            else [ProfilerActivity.CUDA])
+    with profile(activities=acts,
                  schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
         for _ in range(2):

@@ -130,6 +130,8 @@ def test_port_never_imports_jax():
             "streamflow_tpu_torch.params, streamflow_tpu_torch.ops.kernels."
             "corr_lookup, streamflow_tpu_torch.ops.kernels.dw_chain, "
             "streamflow_tpu_torch.ops.kernels.dw_banded, "
+            "streamflow_tpu_torch.layers.umt, "
+            "streamflow_tpu_torch.layers.gma, "
             "streamflow_tpu_torch.tools.train_bench; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "bad = [m for m in sys.modules if m.split('.')[0] == "

@@ -20,7 +20,9 @@ end to end, and the weight bridge of every config.
   config's flax tree, ``batch_stats`` included, bit for bit; every
   encoder x decoder x ``use_gma`` builds, and its tensors are exactly the
   ones its tables name.
-- ``encoder="umt"`` raises, naming ROADMAP A11.
+- ``encoder="umt"`` raises at JAX's default ``decoder_dim=256`` (it runs
+  at 768 only: tests/test_torch_umt.py), as an unknown encoder or
+  update block does.
 """
 
 import functools
@@ -212,7 +214,7 @@ def test_umt_raises():
                                        encoder="umt"),
                   lambda: create_model("streamflow", device="cpu",
                                        encoder="umt", train=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        with pytest.raises(ValueError, match="decoder_dim=768"):
             build()
     with pytest.raises(ValueError, match="unknown encoder"):
         create_model("streamflow", device="cpu", encoder="vit")
