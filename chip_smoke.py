@@ -52,7 +52,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      logsumexp), B5 against its plain version (also at the tails of its
      tiles: one query row, fewer keys than a tile, ragged counts at d=128
      and d=32), and each kernel wrapper's forward and gradient against its
-     plain version;
+     plain version; and phase 36's UMT shapes at 432x960 (a 27x60 grid):
+     K3 at d=64 (the ViT's 12 heads over fnet's 6480 and cnet's 4860
+     tokens) and d=384 (GMA, 3 x 1620) with its logsumexp, K1 at C=768,
+     K2's two default forms at the six SK blocks' widths, and B5 at those
+     K3 calls' shapes in f32 and bf16 (bf16 timed beside its bound and
+     SDPA's backward, named by the backend its dispatcher takes) and at the tails of its d=64 and d=384 tiles;
   7. the train step: seeded weights and batch, 432x960, T=4, 12
      iterations, bf16 compute with f32 parameters, remat, AdamW; launch
      counts checked exactly; ms/step, peak memory, every parameter moves,
@@ -161,7 +166,16 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      path, 2 and 4 launches each), finite flows; GraphedForward's flows
      against the eager ones, a second replay the same, its replay's
      kernel nodes; ms/clip eager and graphed, device time by op group,
-     idle share, peak memory; phase 5's accuracy guards at 224x512.
+     idle share, peak memory; phase 5's accuracy guards at 224x512;
+  36. the UMT model trained: phase 7's step (remat, bf16 with f32
+     parameters, AdamW + OneCycle + clip 1.0, gamma 0.85) on the UMT
+     model at the sintel_kitti shape, 432x960 (a multiple of its ratio,
+     16), B=1, T=4, 12 iterations: launches exact (umt_train_launches: K1
+     24, K2 480, K3 32 (24 GMA at d=384 with remat's recompute, 8 ViT at
+     d=64), B5 40), finite loss and gradient norm, every parameter moved,
+     ms/step (mean of 3 after a warm-up), device ms, idle share and
+     groups from a card-only profile, peak memory; then phase 8's
+     training guard on the UMT model at 128x256, T=4, 2 iterations.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -173,7 +187,8 @@ and that layout's forward and train step; "inference_<config>" and
 "inference_<model>" and "train_step_<model>": the same for each
 two-frame model, phases 3, 6 and 33, per 440x1024 pair of 32
 iterations and per B=8 step; "inference_umt": phases 3 and 35, per
-448x1024 clip of the UMT model;
+448x1024 clip of the UMT model; "train_step_umt": phases 6 and 36, per
+432x960 step of it;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
@@ -436,7 +451,8 @@ def raft_launches(name: str, train: bool = False, iters=None) -> dict:
 # phase 35: StreamFlow with the UMT video-ViT encoder at decoder_dim=768
 # (the one width at which JAX's model runs), served: 436x1024 padded to a
 # multiple of 16 (its ratio), 448x1024, a 28x64 grid; its path in the
-# kernels line is "inference_umt"
+# kernels line is "inference_umt"; phase 36 trains it at 432x960 (a 27x60
+# grid; B5 at d=64 and d=384), path "train_step_umt"
 UMT_KW = dict(encoder="umt", decoder_dim=768)
 UMT_DEPTH = 4                      # ViT blocks in each of fnet and cnet
 UMT_H, UMT_W = 448, 1024
@@ -463,6 +479,20 @@ def umt_launches(iters: int = ITERS) -> dict:
     return dict(dict.fromkeys(KERNELS, 0), corr_lookup=iters,
                 ffn_pair=iters * k2,
                 flash_attention=iters + 2 * UMT_DEPTH)
+
+
+def umt_train_launches(iters: int = ITERS) -> dict:
+    """Launches in one UMT train step with remat (phase 36): the refinement
+    kernels (K1, K2 with its wide path's launches, K3 at d=384 in GMA) run
+    in the forward and again in each step's recompute, the ViT blocks' K3
+    (d=64) once each (remat never recomputes the encoders); B5's two
+    kernels once per K3 forward that the loss reaches (12 GMA + 8 ViT).
+    The batch size changes none."""
+    one = umt_launches(iters)
+    vit = 2 * UMT_DEPTH
+    return dict(one, corr_lookup=2 * iters, ffn_pair=2 * one["ffn_pair"],
+                flash_attention=2 * iters + vit,
+                flash_attention_bwd=2 * (iters + vit))
 
 
 # the training shapes (tools/train.py's sintel_kitti stage)
@@ -1080,9 +1110,10 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
                       flash_case((nb, 1), n2, n2, 128), calls2,
                       tuple(m for m in two if m != "raft")))
 
-    if "umt" in summaries and not train:
+    if "umt" in summaries:
         cases += umt_cases(ffn_case, flash_case, corr_traffic_case,
-                           mixed_tiles, edge_case)
+                           mixed_tiles, edge_case,
+                           *((hp, wp) if train else (UMT_H, UMT_W)), train)
 
     for kernel, label, make, calls, layouts, *traffic in cases:
         traffic = traffic[0] if traffic else None
@@ -1145,7 +1176,7 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
 
 
 def umt_cases(ffn_case, flash_case, corr_traffic_case, mixed_tiles,
-              edge_case) -> list:
+              edge_case, hp=UMT_H, wp=UMT_W, train=False) -> list:
     """Phase 3's cases at the UMT model's shapes (phase 35: a 448x1024 clip,
     a 28x64 grid of 1792 tokens, B=1), kernel_checks' case tuples for its
     "umt" path: K3 in the ViT blocks (12 heads of d=64 over fnet's 4 x
@@ -1160,27 +1191,39 @@ def umt_cases(ffn_case, flash_case, corr_traffic_case, mixed_tiles,
     forms at the gru's and flow head's widths (timed, on no path of this
     run), and all four at ragged row counts 1, 65 and 5377; K5-K8 at the
     gru's dw stage (1920 channels, k=7) and the flow head's (1152, k=15),
-    checked only."""
-    gh, gw = UMT_H // 16, UMT_W // 16
+    checked only. With ``train`` (phase 6, the hp x wp step of phase 36:
+    432x960, a 27x60 grid), the path's cases alone, calls per step: K3 in
+    the ViT once a block (with its logsumexp), GMA's K3, K1 and K2 twice
+    an iteration (remat's recompute)."""
+    gh, gw = hp // 16, wp // 16
     n = gh * gw
+    refine = 2 * ITERS if train else ITERS
     path, timed, cases = ("umt",), ("timed",), []
     for enc, t in (("fnet", T), ("cnet", T - 1)):
         cases.append(("flash_attention", f"umt {enc} bh12 n{t * n} d64",
                       flash_case((B, 12), t * n, t * n, 64), UMT_DEPTH,
                       path))
     cases.append(("flash_attention", f"umt gma bh3 n{n} d384",
-                  flash_case((3, 1), n, n, 384), ITERS, path))
+                  flash_case((3, 1), n, n, 384), refine, path))
+    shape = (3, gh, gw, 768, 4, 4)
+    for traffic in ("jitter30", "smooth", "uniform"):
+        cases.append(("corr_lookup", f"umt {traffic} 3x{gh}x{gw}x768 4 "
+                      f"levels r4", corr_traffic_case(traffic, *shape), refine,
+                      path, traffic))
+    for i, (c, co) in enumerate(UMT_SK):
+        ch = int(1.5 * c)
+        rows = B * n if i == len(UMT_SK) - 1 else 3 * B * n
+        for form, out in (("ffn_pair_k1", c), ("dwres_pw_ffn_pair", co)):
+            cases.append(("ffn_pair", f"umt {form} {rows}x{c}-{ch}-{out}",
+                          ffn_case(form, rows, c, ch, out), refine, path))
+    if train:
+        return cases
     for bh_shape, nq, m, d in (((1, 12), 1, 1000, 64), ((1, 12), 300, 100, 64),
                                ((2, 3), 129, 1311, 64), ((1, 1), 1, 20, 384),
                                ((2, 1), 100, 45, 384), ((3, 1), 65, 31, 384)):
         cases.append(("flash_attention",
                       f"umt tail bh{math.prod(bh_shape)} n{nq} m{m} d{d}",
                       flash_case(bh_shape, nq, m, d), 0, timed))
-    shape = (3, gh, gw, 768, 4, 4)
-    for traffic in ("jitter30", "smooth", "uniform"):
-        cases.append(("corr_lookup", f"umt {traffic} 3x{gh}x{gw}x768 4 "
-                      f"levels r4", corr_traffic_case(traffic, *shape), ITERS,
-                      path, traffic))
     for label, args in (
             ("mixed tiles 3x45x150x768 4 levels r4",
              ("smooth", 3, 45, 150, 768, 4, 4, mixed_tiles)),
@@ -1191,20 +1234,17 @@ def umt_cases(ffn_case, flash_case, corr_traffic_case, mixed_tiles,
     for i, (c, co) in enumerate(UMT_SK):
         ch = int(1.5 * c)
         rows = B * n if i == len(UMT_SK) - 1 else 3 * B * n
-        wide = c > 640
+        if c <= 640:
+            continue
         for form, out in (("ffn_pair_k1", c), ("dwres_pw_ffn_pair", co),
                           ("ffn_pair", c), ("pw_ffn_pair", co)):
-            pair = form in ("ffn_pair", "pw_ffn_pair")
-            if pair and not wide:
-                continue
-            cases.append(("ffn_pair", f"umt {form} {rows}x{c}-{ch}-{out}",
-                          ffn_case(form, rows, c, ch, out), ITERS,
-                          timed if pair else path))
-            if wide:
-                for r in (1, 65, 3 * n + 1):
-                    cases.append(("ffn_pair",
-                                  f"umt tail {form} {r}x{c}-{ch}-{out}",
-                                  ffn_case(form, r, c, ch, out), 0, timed))
+            if form in ("ffn_pair", "pw_ffn_pair"):
+                cases.append(("ffn_pair", f"umt {form} {rows}x{c}-{ch}-{out}",
+                              ffn_case(form, rows, c, ch, out), ITERS, timed))
+            for r in (1, 65, 3 * n + 1):
+                cases.append(("ffn_pair",
+                              f"umt tail {form} {r}x{c}-{ch}-{out}",
+                              ffn_case(form, r, c, ch, out), 0, timed))
     for kind in ("sk_chain_banded", "dw_chain", "dw_banded_mxu",
                  "dw_banded_mxu_t"):
         for nb, c, k in ((3 * B, 1920, 7), (B, 1152, 15)):
@@ -1346,6 +1386,7 @@ def profile_device(fn, wall_ms: float, name: str, host: bool = True
                            ("sk_chain", "sk_chain"),
                            ("dw_banded", "dw_banded"),
                            ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
+                           ("bwd_split_", "flash_bwd"),
                            ("lga_kernel", "lga_kernel"), ("conv", "conv"),
                            ("gemm", "gemm"), ("elementwise", "elementwise"),
                            ("reduce", "reduce"), ("softmax", "softmax"),
@@ -1420,18 +1461,23 @@ def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W, fields=None,
 
 # ---------------------------------------------------------------- phase 6
 def backward_checks(dev, summaries, batch=1, zoo=None,
-                    two_frame=None) -> None:
+                    two_frame=None, umt=None) -> None:
     """B5, with K3's output and lse, against their plain versions at the
     training shapes of ``batch`` clips (f32, bf16; bf16 timed beside its
-    bound and SDPA's backward, summed over one train step's calls into
-    each of ``summaries`` and of the ZOO configs' ``zoo`` ({name:
-    summary}) whose step runs that case), at the two-frame models' GMA
-    grid (phase 33's step: RAFT_TRAIN_B pairs of 368x496) into
-    ``two_frame``'s ({name: summary}) with GMA, and, at batch=1 only,
-    B5's tails and each kernel wrapper's forward (f32, bf16) and gradient
-    (f32) against its plain version: neither depends on the batch."""
+    bound and SDPA's backward, on the backend its dispatcher picks, summed
+    over one train step's calls into each of ``summaries`` and of the ZOO
+    configs' ``zoo`` ({name: summary}) whose step runs that case), at the
+    two-frame models' GMA grid (phase 33's step: RAFT_TRAIN_B pairs of
+    368x496) into ``two_frame``'s ({name: summary}) with GMA, at the UMT
+    step's K3 calls (phase 36: the ViT's 12 heads of d=64 over fnet's 4 x
+    1620 and cnet's 3 x 1620 tokens, once a block; GMA at d=384 over 3 x
+    1620, once an iteration) into ``umt``'s (a summary), and, at batch=1
+    only, B5's tails (at d=64 and d=384 with ``umt``) and each kernel
+    wrapper's forward (f32, bf16) and gradient (f32) against its plain
+    version: neither depends on the batch."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.coords import coords_grid
@@ -1476,11 +1522,22 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
         n2 = (RAFT_TRAIN_H // 8) * (RAFT_TRAIN_W // 8)
         cases.append(("2f gma", (RAFT_TRAIN_B, 1), n2, n2, 128,
                       RAFT_TRAIN_ITERS, gma2))
-    # B5's tails (128 resident and 64 walked rows a block): one query row,
-    # fewer keys than one tile, ragged query and key counts
+    if umt is not None:
+        n = (TRAIN_H // 16) * (TRAIN_W // 16)
+        for enc, t in (("fnet", T), ("cnet", T - 1)):
+            cases.append((f"umt {enc}", (batch, 12), t * n, t * n, 64,
+                          UMT_DEPTH, [umt]))
+        cases.append(("umt gma", (3 * batch, 1), n, n, 384, ITERS, [umt]))
+    # B5's tails (128 resident and 64 walked rows a block; at d=384 64 and
+    # 32): one query row, fewer keys than one tile, ragged query and key
+    # counts
     tails = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
              ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
              ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32))
+    if umt is not None:
+        tails += (((1, 1), 1, 1000, 64), ((1, 2), 333, 777, 64),
+                  ((2, 1), 129, 65, 64), ((1, 1), 1, 20, 384),
+                  ((2, 1), 100, 45, 384), ((1, 1), 65, 1311, 384))
     for bh_shape, n, m, d in tails if batch == 1 else ():
         cases.append(("tail", bh_shape, n, m, d, 0, []))
     for label, bh_shape, n, m, d, calls, paths in cases:
@@ -1514,15 +1571,21 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
                     ref, (qs, ks, vs), do, retain_graph=True), REPS)
                 flops = 10 * math.prod(bh_shape) * n * m * d
                 io = nbytes(q, k, v, do, lse, delta, *got)
+                b, _ = bound_ms(flops, io, dt)
                 for summary in paths:
                     s = summary["flash_attention_bwd"]
                     s["err"] = max(s["err"], err)
-                    b = add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                    add_timing(s, calls, ms, pms, flops, io, dt, lib_ms)
+                # the backend SDPA's dispatcher takes for these inputs
+                # (its flash backend refuses d > 256)
+                backend = SDPBackend(torch._fused_sdp_choice(
+                    qs, ks, vs, scale=1.0)).name
                 log(f"time flash_attention_bwd [{label}] bf16: kernel "
                     f"{ms:.4f} ms plain {pms:.4f} ms bound {b:.4f} ms "
-                    f"({flops:.4g} FLOP, {io:.4g} B) library (SDPA "
-                    f"backward) {lib_ms:.4f} ms; calls per train step "
-                    f"of B={batch} {calls}")
+                    f"({flops:.4g} FLOP, {io:.4g} B; achieved "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s) library (SDPA "
+                    f"backward, {backend}) {lib_ms:.4f} ms; calls per train "
+                    f"step of B={batch} {calls}")
                 del ref, qs, ks, vs
             del q, k, v, do, o, lse, o_p, lse_p, got, want
             torch.cuda.empty_cache()
@@ -1629,33 +1692,45 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
 
 # ---------------------------------------------------------------- phase 7
 def train_setup(dev, h, w, iters, mixed_precision, seed, dw_impl, t=T,
-                zoo=None, bidir=False):
+                zoo=None, bidir=False, fields=None):
     """A TrainState holding a training model (SK layout ``dw_impl``, T=t,
-    the ZOO config ``zoo``) with the seeded weights, and a seeded
-    synthetic batch (uint8-range images, N(0, 4^2) px flows; the backward
-    flows too with ``bidir``)."""
+    the ZOO config ``zoo`` or the config ``fields``) with the seeded
+    weights, and a seeded synthetic batch (uint8-range images, N(0, 4^2)
+    px flows; the backward flows too with ``bidir``)."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.tools.train_bench import synthetic_batch
     from streamflow_tpu_torch.training.state import TrainState
 
+    fields = ZOO.get(zoo, {}) if fields is None else fields
     cfg = StreamFlowConfig(T=t, iters=iters, mixed_precision=mixed_precision,
-                           remat=True, dw_impl=dw_impl, **ZOO.get(zoo, {}))
+                           remat=True, dw_impl=dw_impl, **fields)
     model = create_model("streamflow", cfg=cfg, device=dev, train=True)
     init_weights(model, seed)
     state = TrainState.create(model, lr=1.75e-4, num_steps=180_000)
     return state, synthetic_batch(B, t, h, w, seed, dev, bidir)
 
 
-def train_step_phase(dev, dw_impl) -> dict:
+def train_step_phase(dev, dw_impl, umt=False) -> dict:
+    """Phase 7's train step in SK layout ``dw_impl`` (phases 11, 15, 19 and
+    23 for the other layouts), or with ``umt`` phase 36's, of the UMT
+    model (launches from umt_train_launches): a warm-up step, then
+    TRAIN_STEPS timed ones, the first's launches exactly, finite loss and
+    gradient norm, every parameter moved, peak memory, one profiled step
+    (the default layout's with the host ops, the others' of the card
+    alone). Returns the launches of one step."""
     import torch
 
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from streamflow_tpu_torch.training.step import make_train_step
 
     suffix, _, expected = LAYOUTS[dw_impl]
+    tag, fields = f"dw_impl={dw_impl!r}", None
+    if umt:
+        suffix, expected, tag, fields = ("_umt", umt_train_launches(), "umt",
+                                         UMT_KW)
     state, batch = train_setup(dev, TRAIN_H, TRAIN_W, ITERS, True, SEED,
-                               dw_impl)
+                               dw_impl, fields=fields)
     step = make_train_step(gamma=0.85, iters=ITERS)
     before = {n: p.detach().clone() for n, p in
               state.model.named_parameters()}
@@ -1672,7 +1747,7 @@ def train_step_phase(dev, dw_impl) -> dict:
         if i == 0:
             counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train step dw_impl={dw_impl!r} launches {json.dumps(counts)} "
+    log(f"train step {tag} launches {json.dumps(counts)} "
         f"expected {json.dumps(expected)}")
     assert counts == expected, "train launch counts differ"
     loss, norm = float(m["loss"]), float(m["grad_norm"])
@@ -1681,7 +1756,7 @@ def train_step_phase(dev, dw_impl) -> dict:
              if torch.equal(p.detach(), before[n])]
     assert not still, f"parameters that did not move: {still[:5]}"
     ms = 1e3 * sum(times) / len(times)
-    log(f"train step dw_impl={dw_impl!r} {B}x{T}x{TRAIN_H}x{TRAIN_W} iters "
+    log(f"train step {tag} {B}x{T}x{TRAIN_H}x{TRAIN_W} iters "
         f"{ITERS} bf16 + f32 "
         f"params + remat: ms/step {ms:.3f} (mean of {TRAIN_STEPS} after a "
         f"warm-up, each {[round(1e3 * t, 3) for t in times]}); steps/s "
@@ -1691,14 +1766,29 @@ def train_step_phase(dev, dw_impl) -> dict:
     # the other layouts' steps: the card's activity alone (the host ops'
     # trace of a step costs ~20 s; the default layout's table keeps them)
     profile_device(lambda: step(state, batch), ms, "train_step" + suffix,
-                   host=dw_impl == "auto")
+                   host=dw_impl == "auto" and not umt)
+    return counts
+
+
+def umt_train_phase(dev) -> dict:
+    """Phase 36, the UMT model (encoder="umt", decoder_dim=768) trained:
+    phase 7's step at 432x960 (train_step_phase with ``umt``: exact
+    launches, every parameter moved, ms/step, a profile of the card
+    alone, peak memory), then phase 8's training guard on the UMT model
+    at GUARD_H x GUARD_W, T=4, GUARD_ITERS iterations. Returns the step's
+    launches."""
+    import torch
+
+    counts = train_step_phase(dev, "auto", umt=True)
+    torch.cuda.empty_cache()
+    training_guard(dev, "auto", fields=UMT_KW)
     return counts
 
 
 # ---------------------------------------------------------------- phase 8
-def training_guard(dev, dw_impl, t=T) -> None:
+def training_guard(dev, dw_impl, t=T, fields=None) -> None:
     """One step's loss and gradients at GUARD_H x GUARD_W, T=t, SK layout
-    ``dw_impl``: the kernel path
+    ``dw_impl`` (the config ``fields``, e.g. UMT_KW): the kernel path
     on the card against the plain path on the CPU, f32 and bf16, each
     against the f32 plain path (same seeded weights and batch). The f32
     bound of each gradient is GRAD_TOL plus PERTURB_SLACK times that
@@ -1719,7 +1809,7 @@ def training_guard(dev, dw_impl, t=T) -> None:
             (True, "card", dev, 0.0)]
     for mp, path, where, eps in runs:
         state, batch = train_setup(where, GUARD_H, GUARD_W, GUARD_ITERS, mp,
-                                   SEED + 3, dw_impl, t)
+                                   SEED + 3, dw_impl, t, fields=fields)
         model = state.model
         if eps:
             g = torch.Generator().manual_seed(SEED + 4)
@@ -1752,8 +1842,9 @@ def training_guard(dev, dw_impl, t=T) -> None:
     def median(d):
         return sorted(d.values())[len(d) // 2]
 
-    log(f"training guard dw_impl={dw_impl!r} T={t} {GUARD_H}x{GUARD_W} iters "
-        f"{GUARD_ITERS} against "
+    config = f" {json.dumps(fields)}" if fields else ""
+    log(f"training guard dw_impl={dw_impl!r}{config} T={t} "
+        f"{GUARD_H}x{GUARD_W} iters {GUARD_ITERS} against "
         f"the f32 plain path (loss {ref_loss:.6g}): f32 kernels loss rel "
         f"err {f32[0]:.3e} (bound {GRAD_TOL}), gradients rel L2 global "
         f"{f32[2]:.3e} (bound {GRAD_GLOBAL_TOL}) median "
@@ -3593,6 +3684,7 @@ def main() -> None:
         summary["inference_" + name] = new_summary()
         summary["train_step_" + name] = new_summary()
     summary["inference_umt"] = new_summary()
+    summary["train_step_umt"] = new_summary()
 
     phase(3, "kernels", kernel_checks, dev,
           {**per_layout("inference"), **per_zoo("inference", ZOO),
@@ -3606,10 +3698,11 @@ def main() -> None:
     def training_kernels():
         zoo = per_zoo("train_step", ZOO_TRAINED)
         two = per_zoo("train_step", RAFT_MODELS)
-        kernel_checks(dev, {**per_layout("train_step"), **zoo, **two},
-                      TRAIN_H, TRAIN_W, True)
+        umt = summary["train_step_umt"]
+        kernel_checks(dev, {**per_layout("train_step"), **zoo, **two,
+                            "umt": umt}, TRAIN_H, TRAIN_W, True)
         backward_checks(dev, list(per_layout("train_step").values()),
-                        zoo=zoo, two_frame=two)
+                        zoo=zoo, two_frame=two, umt=umt)
         # a bidirectional BatchNorm step runs the path twice
         for name, apps in ZOO_TRAINED.items():
             for s in zoo[name].values():
@@ -3652,7 +3745,8 @@ def main() -> None:
     summary["trainer_dp"] = scaled_summary(summary["train_step"],
                                            DP_TRAINER_STEPS)
     counts["inference_umt"] = phase(35, "UMT served", umt_phase, dev)
-    log(f"phases 3-35: {time.perf_counter() - t_start:.1f} s after the "
+    counts["train_step_umt"] = phase(36, "UMT trained", umt_train_phase, dev)
+    log(f"phases 3-36: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

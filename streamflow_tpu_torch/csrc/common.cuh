@@ -290,6 +290,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// the 32 accumulators at p as an array (a 64-column slice of a wider
+// accumulator, for one m64n64 wgmma)
+__device__ __forceinline__ float (&acc32(float* p))[32] {
+  return *reinterpret_cast<float(*)[32]>(p);
+}
+
 // D (64 x N, f32 registers) (+)= A . B on the warpgroup's tensor cores.
 // _ss: A (64 x 16, K-major) and B (N x 16, K-major) from shared memory;
 // _rs: A from registers in mma.sync's m16n8k16 A-fragment layout (warp w

@@ -199,11 +199,6 @@ struct Tiles {
   static constexpr int NTH = NWG * 128 + 32;     // + one producer warp
 };
 
-// the 32 accumulators at p as an array (a 64-column slice of O)
-__device__ __forceinline__ float (&acc32(float* p))[32] {
-  return *reinterpret_cast<float(*)[32]>(p);
-}
-
 // S (64 x BN keys) = Q rows q0.. of the tile . K_tile^T: D/16 wgmmas,
 // both operands K-major
 template <int D>

@@ -9,19 +9,19 @@ logsumexp. B5 replaces ``flash_attention_bwd_tpu``: dq, dk, dv with the
 probabilities rebuilt from that logsumexp. Users on the main path: the GMA
 aggregate (1 head, d=128; d=384 with the UMT encoder's decoder_dim=768)
 and the Twins GSA blocks above 16384 tokens (d=32); the UMT encoder's ViT
-blocks (12 heads, d=64). B5 takes d=32 and d=128 only, so a UMT model
-trains on the CPU's plain versions alone: on the card its backward
-raises.
+blocks (12 heads, d=64). B5 takes the same four head dims, so a UMT model
+trains on the card too; any other head dim raises before a launch.
 
 ``flash_attention`` is differentiable like the JAX package's custom_vjp
 (ops/pallas/attention.py:89-127): when autograd records, the forward keeps
 (q, k, v, o, lse), and the backward computes delta = rowsum(dO * O) as a
 small PyTorch pass and calls B5; otherwise the forward skips the
 logsumexp output. On the H100 the bf16 kernels run their products on
-wgmma fed by TMA rings (K3, and both passes of B5; see the sources'
-headers). The plain versions are a port of
-``_flash_xla`` (streaming softmax over kv chunks, f32) and the backward's
-math written out in f32 torch ops, rounded where the TPU kernels round.
+wgmma fed by TMA rings (K3, and both passes of B5; at d=384 both split
+the output's columns over two warpgroups; see the sources' headers). The
+plain versions are a port of ``_flash_xla`` (streaming softmax over kv
+chunks, f32) and the backward's math written out in f32 torch ops,
+rounded where the TPU kernels round.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ import torch
 from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import LAUNCHES
 
-HEAD_DIMS = (32, 64, 128, 384)  # GSA, UMT's ViT, GMA, UMT's GMA
-BWD_HEAD_DIMS = (32, 128)       # B5
+HEAD_DIMS = (32, 64, 128, 384)  # GSA, UMT's ViT, GMA, UMT's GMA: K3 and B5
 
 
 def flash_attention_plain(q, k, v, return_lse: bool = False,
@@ -85,12 +84,12 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, q_chunk: int = 8192):
     return (torch.cat(dqs, dim=2).to(dt), dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _check(q, k, v, head_dims=HEAD_DIMS, what="flash_attention"):
+def _check(q, k, v, what="flash_attention"):
     b, h, n, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, q.dtype, 4)
-    if d not in head_dims:
-        raise ValueError(f"{what} takes head dims {head_dims}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what} takes head dims {HEAD_DIMS}, got {d}")
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
@@ -126,7 +125,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta):
     counts each."""
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, do, lse, delta)
-    _check(q, k, v, BWD_HEAD_DIMS, "flash_attention_bwd")
+    _check(q, k, v, "flash_attention_bwd")
     _build.require(do, "do", q.dtype, 4)
     b, h, n, d = q.shape
     m = k.shape[2]

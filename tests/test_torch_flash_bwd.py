@@ -5,7 +5,9 @@ with seeded numpy inputs.
     the CUDA kernel is held against on the card) vs the Pallas kernels
     ``flash_attention_bwd_tpu`` in interpret mode (as
     tests/test_attention.py:148-170), given the same (q, k, v, dO, lse,
-    delta), at a padded and an exact tile case; the plain forward's
+    delta), at a padded and an exact tile case, and at ragged query and
+    key counts at each head dim the kernel takes (32, 64: UMT's ViT,
+    128, 384: GMA at UMT's context_dim); the plain forward's
     logsumexp vs ``flash_attention_tpu(..., return_lse=True)``. Tolerance
     2e-4 abs/rel, as tests/test_attention.py:58 (f32 sums over a few
     hundred keys in another order).
@@ -58,7 +60,9 @@ def _grad_close(got, want, rtol=1e-4):
 
 # ------------------------------------------------------------------ (a)
 @pytest.mark.parametrize("nq,nk,d", [(256, 256, 128), (200, 300, 128),
-                                     (300, 140, 32)])
+                                     (300, 140, 32), (200, 300, 64),
+                                     (130, 257, 64), (150, 90, 384),
+                                     (70, 200, 384)])
 def test_bwd_plain_matches_pallas_interpret(nq, nk, d):
     rng = np.random.default_rng(nq + nk + d)
     q = _rand(rng, 1, 2, nq, d, scale=d ** -0.5)

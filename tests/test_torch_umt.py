@@ -25,8 +25,10 @@ against the JAX package's, on the CPU.
   table; ``convert_umt_params`` on a synthetic reference state dict (a
   Conv3d patch embedding, ``q_bias`` and ``v_bias``) equals JAX's.
 - K2's wide path on tensors that pass for the card's, with a recording
-  launcher library: each form's stages, chained; B5 refusing d=64 and
-  d=384 before any launch.
+  launcher library: each form's stages, chained; B5 at d=64 and d=384 (one
+  launcher call, counted as its two kernels, outputs in the input dtype),
+  and refusing another head dim before any launch. The UMT train step
+  against JAX's is tests/test_torch_umt_train.py's.
 - Both packages fail at JAX's default ``decoder_dim=256``.
 - The new modules load neither jax nor the JAX package (a subprocess).
 """
@@ -283,20 +285,47 @@ def test_k2_wide_path_chains_its_stages(monkeypatch, form, dt):
     assert last[6] == y.data_ptr() and last[7:11] == (n, out, ch, 0)
 
 
-def test_b5_refuses_umt_head_dims_on_the_card(monkeypatch):
-    """K3 takes d=64 and d=384; its backward B5 raises there, before any
-    launch, so a UMT train step on the card fails loudly."""
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 384])
+def test_b5_launches_at_umt_head_dims(monkeypatch, d, dt):
+    """B5 at UMT's head dims (the ViT's 64, GMA's 384): one sf_flash_bwd
+    call with that d, the inputs' pointers and sizes and the io type's
+    code, counted as its two kernels; (dq, dk, dv) come back in the input
+    dtype and shapes."""
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
 
     launched = _fake_library(monkeypatch)
-    for d in (64, 384):
-        q, k, v, do = (torch.zeros(1, 2, 8, d).as_subclass(_Card)
-                       for _ in range(4))
-        lse = torch.zeros(1, 2, 8).as_subclass(_Card)
-        K3.flash_attention_fwd(q, k, v)
-        with pytest.raises(ValueError, match="head dims"):
-            K3.flash_attention_bwd(q, k, v, do, lse, lse)
-    assert [name for name, _ in launched] == ["sf_flash_fwd"] * 2
+    q, do = (torch.zeros(1, 3, 10, d, dtype=dt).as_subclass(_Card)
+             for _ in range(2))
+    k, v = (torch.zeros(1, 3, 7, d, dtype=dt).as_subclass(_Card)
+            for _ in range(2))
+    lse, delta = (torch.zeros(1, 3, 10).as_subclass(_Card) for _ in range(2))
+    before = LAUNCHES["flash_attention_bwd"]
+    grads = K3.flash_attention_bwd(q, k, v, do, lse, delta)
+    assert [name for name, _ in launched] == ["sf_flash_bwd"]
+    args = launched[0][1]
+    assert args[:6] == tuple(t.data_ptr() for t in (q, k, v, do, lse, delta))
+    assert args[9:14] == (3, 10, 7, d, 0 if dt == torch.float32 else 1)
+    assert LAUNCHES["flash_attention_bwd"] - before == 2
+    for g, t in zip(grads, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dt
+
+
+def test_b5_still_refuses_other_head_dims(monkeypatch):
+    """A head dim B5 has no kernel for (here 96) raises before any
+    launch."""
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES
+    from streamflow_tpu_torch.ops.kernels import flash_attention as K3
+
+    launched = _fake_library(monkeypatch)
+    q, k, v, do = (torch.zeros(1, 2, 8, 96).as_subclass(_Card)
+                   for _ in range(4))
+    lse = torch.zeros(1, 2, 8).as_subclass(_Card)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="head dims"):
+        K3.flash_attention_bwd(q, k, v, do, lse, lse)
+    assert launched == [] and LAUNCHES == before
 
 
 # ---------------------------------------------------------- the model
