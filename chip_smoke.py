@@ -65,7 +65,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   8. training guard: one step's loss and gradients at 128x256 through the
      kernel path on the card against the plain path on the CPU;
   9-26. the other SK layouts (StreamFlowConfig.dw_impl), at the same sizes
-     and depths: phases 4, 5, 7 and 8 again for 'pallas' (9-12: K2
+     and depths, their accuracy guards at 216x512 (LAYOUT_GUARD_H x
+     LAYOUT_GUARD_W, against one f32 reference at that size): phases 4, 5,
+     7 and 8 again for 'pallas' (9-12: K2
      ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
      place of K5), 'banded_chain' (17-20: K8) and 'banded_mxu_t' (21-24:
      K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
@@ -175,7 +177,29 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      d=64), B5 40), finite loss and gradient norm, every parameter moved,
      ms/step (mean of 3 after a warm-up), device ms, idle share and
      groups from a card-only profile, peak memory; then phase 8's
-     training guard on the UMT model at 128x256, T=4, 2 iterations.
+     training guard on the UMT model at 128x256, T=4, 2 iterations;
+  37. trained dynamics (tools/probe_bf16.py and probe_guard.py cut to
+     size): the path's kernels at its shapes (the train step at 192x384,
+     the clip at 216x512; B5 too); the canonical StreamFlow (bf16 with f32
+     parameters, remat, 'auto') from its own seeded initialisation,
+     trained TD_STEPS steps at 192x384 on the probe's synthetic clips
+     with its optimizer (launches exactly TD_STEPS x the step's at that
+     shape), its bf16 clip at 216x512, 12 iterations (launches exact);
+     the weights saved as a flax-layout npz (params.to_jax_variables,
+     save_params_npz) and reloaded (load_variables_npz, load_jax): flows
+     bit for bit; the f32 kernels on the card, the f32 and bf16 plain
+     paths on the CPU; probe_guard's control A (the f32 plain path at the
+     clip + 1e-4) at 2 and 12 iterations; the probe's EPE table (mean,
+     p99, max px); phase 5's two guards held at 12 iterations where
+     control A's relative EPE is below the f32 guard's bound (else
+     reported, not judged);
+  38. the tools: tools/sweep_e2e.py on 'default' and 'dw=banded_chain' in
+     turns at 440x1024 (graphed ms/clip, device ms, idle share),
+     tools/trace_e2e.py on the default (device time by op group, every
+     kernel of the forward present), the native IO runtime (libsfio,
+     g++) on .flo and .ppm files against the NumPy decoder and the bytes
+     written, bit for bit, a garbage file refused; tools/bench_input.py
+     in a process of its own where PIL is installed.
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -188,7 +212,10 @@ and that layout's forward and train step; "inference_<config>" and
 two-frame model, phases 3, 6 and 33, per 440x1024 pair of 32
 iterations and per B=8 step; "inference_umt": phases 3 and 35, per
 448x1024 clip of the UMT model; "train_step_umt": phases 6 and 36, per
-432x960 step of it;
+432x960 step of it; "trained_dynamics": phase 37's counted run (its
+TD_STEPS training steps at 192x384 and the trained weights' bf16 clip at
+216x512), with phase 37's kernel numbers per step times TD_STEPS plus
+per clip;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
@@ -362,6 +389,10 @@ ZOO_TABLE = {}
 # paths on the CPU for each of nine functions at 440x1024 would take
 # ~4 minutes)
 ZOO_GUARD_H, ZOO_GUARD_W = 216, 512
+# and so do the other SK layouts' (phases 10, 14, 18, 22, 26): the bf16
+# plain path on the CPU takes 12.3 s at 436x1024, 1.3 s at 216x512 (an
+# H100 machine's host), which makes room for phases 37 and 38
+LAYOUT_GUARD_H, LAYOUT_GUARD_W = ZOO_GUARD_H, ZOO_GUARD_W
 
 
 def zoo_kind(name: str) -> dict:
@@ -494,6 +525,20 @@ def umt_train_launches(iters: int = ITERS) -> dict:
                 flash_attention=2 * iters + vit,
                 flash_attention_bwd=2 * (iters + vit))
 
+
+# phase 37: trained dynamics (tools/probe_bf16.py cut to size): the
+# canonical StreamFlow trained TD_STEPS steps at TD_H x TD_W (the probe's
+# 400 at 288x512), evaluated on one TD_EVAL_H x TD_EVAL_W clip (the
+# probe's 436x1024) at 12 iterations; its weights go through TD_DIR; its
+# path in the kernels line is "trained_dynamics"
+TD_STEPS = 100
+TD_H, TD_W = 192, 384
+TD_EVAL_H, TD_EVAL_W = 216, 512
+TD_DIR = os.path.join(ROOT, "build", "chip_smoke_probe")
+# phase 38: the sweep's specs (440x1024, in turns) and bench_input's short
+# instance (stage 2's crops and batch)
+SWEEP_SPECS = ("default", "dw=banded_chain")
+BENCH_INPUT_ARGS = ("--workers", "4", "8")
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -668,7 +713,7 @@ def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
     return b
 
 
-def kernel_checks(dev, summaries, hp, wp, train, batch=1):
+def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
     """Every forward kernel against its plain version at the shapes of
     ``batch`` hp x wp clips (padded size, T frames), in f32 and bf16;
     per-kernel bf16 numbers summed into ``summaries[layout]`` (per SK
@@ -678,7 +723,8 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
     forward and remat's recompute, and K3 also returns its logsumexp).
     The tails of the kernels' tiles (cases of no calls) and the K6/K7
     identity are checked at batch=1 only: they do not depend on the
-    batch."""
+    batch; ``tails=False`` leaves out every case of no calls (a path at
+    other shapes, whose tails an earlier call checked)."""
     import torch
     import torch.nn.functional as F
 
@@ -1016,7 +1062,8 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
             n, m = t * hh * ww, (t * hh // sr) * (ww // sr)
             cases.append(("flash_attention",
                           f"gsa{stage} {enc} b{batch} h{nh} n{n} m{m} d32",
-                          flash_case((batch, nh), n, m, 32), 1,
+                          flash_case((batch, nh), n, m, 32),
+                          int(n > GSA_FLASH_TOKENS),
                           every + zoo_with(csc=True)))
             n, m = hh * ww, (hh // sr) * (ww // sr)
             if n > GSA_FLASH_TOKENS:
@@ -1119,7 +1166,8 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1):
         traffic = traffic[0] if traffic else None
         timed_only = "timed" in layouts
         layouts = tuple(lt for lt in layouts if lt in summaries)
-        if not (layouts or timed_only) or (batch > 1 and not calls):
+        if not (layouts or timed_only) or (
+                (batch > 1 or not tails) and not calls):
             continue
         for dt in (torch.float32, torch.bfloat16):
             run, plain, flops, inputs, library, aside = make(dt)
@@ -1359,11 +1407,13 @@ def full_forward(dev, dw_impl, zoo=None):
 
 def profile_device(fn, wall_ms: float, name: str, host: bool = True
                    ) -> dict:
-    """Device time of one call of ``fn`` by kernel group (profiled after a
-    traced warm-up call, tools/common.py::profiled; ``host=False``: the
+    """Device time of one call of ``fn`` by kernel group
+    (tools/common.py::kernel_group; profiled after a traced warm-up call,
+    tools/common.py::profiled; ``host=False``: the
     card's activity alone, no host ops in the table); the idle share
     compares the summed device time with the unprofiled wall time."""
-    from streamflow_tpu_torch.tools.common import device_events, profiled
+    from streamflow_tpu_torch.tools.common import (device_time_by_group,
+                                                   profiled)
 
     prof = profiled(fn, host)
     table = prof.key_averages().table(sort_by="cuda_time_total",
@@ -1371,32 +1421,7 @@ def profile_device(fn, wall_ms: float, name: str, host: bool = True
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as fh:
         fh.write(smi() + "\n" + table)
-    total = 0.0
-    by = {}
-    for key, _, t in device_events(prof):
-        if t <= 0:
-            continue
-        total += t
-        key = key.lower()
-        for pat, group in (("corr_lookup", "corr_lookup"),
-                           ("ffn_pair", "ffn_pair"),
-                           ("flash_fwd", "flash_fwd"),
-                           ("dw_chain", "dw_chain"),
-                           # the bf16 engine of K5, K6 and K8
-                           ("sk_chain", "sk_chain"),
-                           ("dw_banded", "dw_banded"),
-                           ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
-                           ("bwd_split_", "flash_bwd"),
-                           ("lga_kernel", "lga_kernel"), ("conv", "conv"),
-                           ("gemm", "gemm"), ("elementwise", "elementwise"),
-                           ("reduce", "reduce"), ("softmax", "softmax"),
-                           ("layer_norm", "layer_norm"), ("cat", "cat"),
-                           ("copy", "copy")):
-            if pat in key:
-                by[group] = by.get(group, 0.0) + t
-                break
-        else:
-            by["other"] = by.get("other", 0.0) + t
+    total, by = device_time_by_group(prof)
     idle = max(0.0, 1 - total / 1e3 / wall_ms)
     log(f"profile {name} device time by group (ms): " + json.dumps(
         {k: round(v / 1e3, 3) for k, v in sorted(by.items(),
@@ -1461,7 +1486,8 @@ def accuracy_guards(dev, dw_impl, refs, zoo=None, h=H, w=W, fields=None,
 
 # ---------------------------------------------------------------- phase 6
 def backward_checks(dev, summaries, batch=1, zoo=None,
-                    two_frame=None, umt=None) -> None:
+                    two_frame=None, umt=None, h=TRAIN_H, w=TRAIN_W,
+                    tails=True) -> None:
     """B5, with K3's output and lse, against their plain versions at the
     training shapes of ``batch`` clips (f32, bf16; bf16 timed beside its
     bound and SDPA's backward, on the backend its dispatcher picks, summed
@@ -1474,7 +1500,10 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
     1620, once an iteration) into ``umt``'s (a summary), and, at batch=1
     only, B5's tails (at d=64 and d=384 with ``umt``) and each kernel
     wrapper's forward (f32, bf16) and gradient (f32) against its plain
-    version: neither depends on the batch."""
+    version: neither depends on the batch. ``h`` x ``w``: another
+    training size (GSA calls only above GSA_FLASH_TOKENS); ``tails=False``
+    leaves out the tails and the wrappers' checks (a path at other
+    shapes)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -1497,7 +1526,7 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
     # blocks (fnet on 4 frames, cnet on 3, stacked along H; keys from a
     # stride-sr conv, stage 0 sr 8, stage 1 sr 4), each above the
     # 16384-token switch; calls per train step
-    h8, w8 = TRAIN_H // 8, TRAIN_W // 8
+    h8, w8 = h // 8, w // 8
     zoo = zoo or {}
 
     def zoo_with(**want):
@@ -1509,7 +1538,8 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
                                   (1, 8, 4, h8, w8)):
         for enc, t in (("fnet", T), ("cnet", T - 1)):
             cases.append((f"gsa{stage} {enc}", (batch, nh), t * hh * ww,
-                          (t * hh // sr) * (ww // sr), 32, 1,
+                          (t * hh // sr) * (ww // sr), 32,
+                          int(t * hh * ww > GSA_FLASH_TOKENS),
                           summaries + zoo_with(csc=True)))
             # the per-frame family: batch*t images of one frame
             if hh * ww > GSA_FLASH_TOKENS and zoo_with(frame=True):
@@ -1531,14 +1561,14 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
     # B5's tails (128 resident and 64 walked rows a block; at d=384 64 and
     # 32): one query row, fewer keys than one tile, ragged query and key
     # counts
-    tails = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
-             ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
-             ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32))
+    tail_cases = (((1, 2), 1, 1000, 128), ((2, 1), 300, 50, 128),
+                  ((1, 2), 333, 777, 128), ((1, 4), 1, 70, 32),
+                  ((1, 4), 300, 50, 32), ((1, 8), 1001, 1313, 32))
     if umt is not None:
-        tails += (((1, 1), 1, 1000, 64), ((1, 2), 333, 777, 64),
-                  ((2, 1), 129, 65, 64), ((1, 1), 1, 20, 384),
-                  ((2, 1), 100, 45, 384), ((1, 1), 65, 1311, 384))
-    for bh_shape, n, m, d in tails if batch == 1 else ():
+        tail_cases += (((1, 1), 1, 1000, 64), ((1, 2), 333, 777, 64),
+                       ((2, 1), 129, 65, 64), ((1, 1), 1, 20, 384),
+                       ((2, 1), 100, 45, 384), ((1, 1), 65, 1311, 384))
+    for bh_shape, n, m, d in tail_cases if batch == 1 and tails else ():
         cases.append(("tail", bh_shape, n, m, d, 0, []))
     for label, bh_shape, n, m, d, calls, paths in cases:
         label = f"{label} bh{math.prod(bh_shape)} n{n} m{m} d{d}"
@@ -1589,7 +1619,7 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
                 del ref, qs, ks, vs
             del q, k, v, do, o, lse, o_p, lse_p, got, want
             torch.cuda.empty_cache()
-    if batch > 1:
+    if batch > 1 or not tails:
         return
 
     # each kernel wrapper (kernel forward, composite backward) at a training
@@ -3625,6 +3655,266 @@ def dp_phase(dev) -> tuple:
     return a["launches"], c[0]["launches"]
 
 
+# ---------------------------------------------------------------- phase 37
+def sum_summaries(*summaries):
+    """One path's kernel numbers from several parts' (``new_summary``'s):
+    times and library times added, the largest error kept."""
+    out = new_summary()
+    for summary in summaries:
+        for name, s in summary.items():
+            o = out[name]
+            o["err"] = max(o["err"], s["err"])
+            for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "mem_ms"):
+                o[k] += s[k]
+            if s["library_ms"] is not None:
+                o["library_ms"] = (o["library_ms"] or 0.0) + s["library_ms"]
+            for t, v in s.get("ms_by_traffic", {}).items():
+                d = o.setdefault("ms_by_traffic", {})
+                d[t] = d.get(t, 0.0) + v
+    return out
+
+
+def trained_dynamics_phase(dev) -> tuple:
+    """Phase 37, trained dynamics (tools/probe_bf16.py and probe_guard.py
+    cut to size): the path's kernels at its shapes (kernel_checks and
+    backward_checks at TD_H x TD_W for the train step, kernel_checks at
+    TD_EVAL_H x TD_EVAL_W for the clip; tails left to phases 3 and 6);
+    then, with the launch counts set to 0, the probe's training
+    (TD_STEPS steps, launches exactly TD_STEPS x train_launches at its
+    shape) and the trained weights' bf16 clip at 12 iterations (launches
+    exactly forward_launches at its shape): the path "trained_dynamics".
+    The weights go out through params.to_jax_variables and
+    save_params_npz and back through load_variables_npz and load_jax:
+    the reloaded model's flows equal the trained model's bit for bit. One
+    more step is profiled on the card alone (device ms by group, idle
+    share against the loop's ms a step).
+    Then the f32 kernels on the card (launches as the clip's), the f32
+    and bf16 plain paths on the CPU, control A of probe_guard (the f32
+    plain path at the clip + 1e-4) at 2 and 12 iterations, the probe's
+    EPE table, and phase 5's two guards at 12 iterations: judged where
+    control A's global relative EPE is below F32_GUARD_TOL (the loop
+    damps a 1e-4 input change: rounding cannot push the guard past its
+    bound), reported otherwise. Returns the path's launches and kernel
+    numbers."""
+    import shutil
+
+    import torch
+
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.params import load_jax
+    from streamflow_tpu_torch.tools import probe_bf16 as PB
+    from streamflow_tpu_torch.tools import probe_guard as PG
+    from streamflow_tpu_torch.tools.common import rel_epe
+    from streamflow_tpu_torch.training.checkpoint import (load_variables_npz,
+                                                          save_params_npz)
+    from streamflow_tpu_torch.training.step import make_train_step
+
+    s_train, s_clip = new_summary(), new_summary()
+    kernel_checks(dev, {"auto": s_train}, TD_H, TD_W, True, tails=False)
+    backward_checks(dev, [s_train], h=TD_H, w=TD_W, tails=False)
+    kernel_checks(dev, {"auto": s_clip}, TD_EVAL_H, TD_EVAL_W, False,
+                  tails=False)
+    torch.cuda.empty_cache()
+
+    want_step = train_launches(T, TD_H, TD_W)
+    want_clip = forward_launches(ITERS, T, TD_EVAL_H, TD_EVAL_W)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, last = PB.train(PB.init_model(T, ITERS, dev), TD_STEPS, T, TD_H,
+                           TD_W, ITERS,
+                           log=lambda m: log(f"trained dynamics {m}"))
+    train_s = time.perf_counter() - t0
+    trained = dict(LAUNCHES)
+    log(f"trained dynamics: {TD_STEPS} steps at {TD_H}x{TD_W} in "
+        f"{train_s:.1f} s ({1e3 * train_s / TD_STEPS:.1f} ms/step); "
+        f"launches {json.dumps(trained)} expected {TD_STEPS} x "
+        f"{json.dumps(want_step)}")
+    assert trained == {k: TD_STEPS * v for k, v in want_step.items()}, (
+        "probe training launch counts differ")
+    assert all(math.isfinite(v) for v in last.values()), last
+
+    cfg = {mp: StreamFlowConfig(T=T, iters=ITERS, mixed_precision=mp)
+           for mp in (False, True)}
+    model = create_model("streamflow", cfg=cfg[True], device=dev)
+    model.load_state_dict(state.model.state_dict())
+    clip = PB.eval_clip(T, TD_EVAL_H, TD_EVAL_W)
+    bf16 = PB.flows_of(model, clip)
+    path = dict(LAUNCHES)
+    clip_counts = {k: path[k] - trained[k] for k in path}
+    log(f"trained dynamics: the bf16 clip ({tuple(clip.shape)}, {ITERS} "
+        f"iterations) launches {json.dumps(clip_counts)} expected "
+        f"{json.dumps(want_clip)}")
+    assert clip_counts == want_clip, "clip launch counts differ"
+    assert bool(torch.isfinite(bf16).all()), "non-finite flows"
+
+    shutil.rmtree(TD_DIR, ignore_errors=True)
+    os.makedirs(TD_DIR)
+    npz = os.path.join(TD_DIR, "best.npz")
+    save_params_npz(npz, PB.trained_variables(state))
+    # where a step's time goes: one more step (the weights are saved),
+    # profiled on the card alone, against the loop's wall ms a step
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             PB.synth_batch(TD_STEPS + 1, T, TD_H, TD_W).items()}
+    step = make_train_step(gamma=PB.GAMMA, iters=ITERS)
+    profile_device(lambda: step(state, batch), 1e3 * train_s / TD_STEPS,
+                   "train_step_probe", host=False)
+    del state, model, batch
+    torch.cuda.empty_cache()
+    variables = load_variables_npz(npz)
+    reloaded = create_model("streamflow", cfg=cfg[True], device=dev)
+    load_jax(reloaded, variables)
+    assert torch.equal(PB.flows_of(reloaded, clip), bf16), (
+        "the reloaded weights' flows differ from the trained model's")
+    del reloaded
+    mib = os.path.getsize(npz) / 2 ** 20
+    log(f"trained dynamics: weights saved ({mib:.1f} MiB npz, flax layout) "
+        f"and reloaded: flows bit for bit")
+
+    reset_launches()
+    f32 = PB.flows_of(PB.eval_model(variables, T, ITERS, False, dev), clip)
+    assert dict(LAUNCHES) == want_clip, dict(LAUNCHES)
+    t0 = time.perf_counter()
+    plain = PB.eval_model(variables, T, ITERS, False, "cpu")
+    ref_iters = PG.iter_flows(plain, clip, ITERS)
+    ref = ref_iters[-1]
+    ctrl_a = PG.control_a(plain, clip, (2, ITERS), ref_iters)
+    bf16_plain = PB.flows_of(PB.eval_model(variables, T, ITERS, True,
+                                           "cpu"), clip)
+    cpu_s = time.perf_counter() - t0
+    shutil.rmtree(TD_DIR, ignore_errors=True)
+
+    mag = ref.norm(dim=-1)
+    epe = {"f32": PB.epe_stats(f32, ref), "bf16": PB.epe_stats(bf16, ref)}
+    g32, g16, g16p = (rel_epe(f, ref) for f in (f32, bf16, bf16_plain))
+    a12 = ctrl_a[ITERS]["rel_epe"]
+    judged = a12 < F32_GUARD_TOL
+    log(f"trained dynamics at {TD_EVAL_H}x{TD_EVAL_W} (padded "
+        f"{tuple(clip.shape[2:4])}), {ITERS} iterations, against the f32 "
+        f"plain path (|flow| px mean {float(mag.mean()):.4g} max "
+        f"{float(mag.max()):.4g}): f32 kernels EPE px mean "
+        f"{epe['f32']['epe_mean']:.4g} p99 {epe['f32']['epe_p99']:.4g} max "
+        f"{epe['f32']['epe_max']:.4g}; bf16 kernels mean "
+        f"{epe['bf16']['epe_mean']:.4g} p99 {epe['bf16']['epe_p99']:.4g} "
+        f"max {epe['bf16']['epe_max']:.4g}; control A (+{PG.EPS} input, f32 "
+        f"plain): " + "; ".join(
+            f"iters={k} max EPE {v['max_epe']:.4g} px mean "
+            f"{v['mean_epe']:.4g} rel {v['rel_epe']:.3e}"
+            for k, v in ctrl_a.items())
+        + f"; CPU paths {cpu_s:.1f} s")
+    log(f"trained dynamics guards at {ITERS} iterations, rel EPE global / "
+        f"per-pixel p99: f32 kernels {g32[0]:.3e} / {g32[1]:.3e} (bound "
+        f"{F32_GUARD_TOL} each); bf16 kernels {g16[0]:.3e} / {g16[1]:.3e}, "
+        f"bf16 plain {g16p[0]:.3e} / {g16p[1]:.3e} (bound "
+        f"{BF16_GUARD_RATIO}x the plain); "
+        + (f"judged: control A's rel EPE at {ITERS} iterations "
+           f"{a12:.3e} < {F32_GUARD_TOL}" if judged else
+           f"NOT judged: control A's rel EPE at {ITERS} iterations "
+           f"{a12:.3e} >= {F32_GUARD_TOL} (the loop amplifies a {PG.EPS} input change "
+           f"past the guard's bound at this size and training)"))
+    if judged:
+        assert all(math.isfinite(v) and v < F32_GUARD_TOL for v in g32), g32
+        assert all(math.isfinite(k) and k <= BF16_GUARD_RATIO * p
+                   for k, p in zip(g16, g16p)), (g16, g16p)
+    return path, sum_summaries(scaled_summary(s_train, TD_STEPS), s_clip)
+
+
+# ---------------------------------------------------------------- phase 38
+def tools_phase(dev) -> None:
+    """Phase 38, the measuring tools and the native IO runtime:
+    tools/sweep_e2e.py over SWEEP_SPECS in turns at 440x1024 (ms/clip
+    graphed, device ms, idle share; its lines in
+    chiprun_out/sweep_results.txt), tools/trace_e2e.py on the default
+    (device time by op group: every kernel of the default forward has
+    time), the runtime (libsfio, built with g++) on .flo files (one and a
+    batch of three, 436x1024) against the NumPy decoder and on a .ppm
+    against the bytes written, bit for bit, a garbage file raising; and
+    tools/bench_input.py in a process of its own if PIL is installed
+    (it writes and reads png frames), else says it is not run."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from streamflow_tpu_torch import runtime
+    from streamflow_tpu_torch.data import frame_utils
+    from streamflow_tpu_torch.tools import sweep_e2e, trace_e2e
+
+    t0 = time.perf_counter()
+    rows = sweep_e2e.main(list(SWEEP_SPECS) + ["--reps", "10"])
+    for r in rows:
+        assert math.isfinite(r["ms_per_clip"]) and r["device_ms"] > 0, r
+    log("sweep_e2e 440x1024 T=4 12 iterations bf16, graphed, in turns: "
+        + "; ".join(f"{r['spec']} {r['ms_per_clip']:.3f} ms/clip (rounds "
+                    f"{[round(x, 3) for x in r['ms_per_clip_rounds']]}), "
+                    f"device {r['device_ms']:.3f} ms, idle "
+                    f"{r['idle_share']:.4f}" for r in rows)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = trace_e2e.main(["default", "--raw", "12"])
+    missing = [g for g in ("corr_lookup", "ffn_pair", "flash_fwd",
+                           "lga_kernel") if tr["groups_ms"].get(g, 0) <= 0]
+    assert not missing, f"trace_e2e: no device time in {missing}"
+    log(f"trace_e2e default: device {tr['total_ms']:.3f} ms by group "
+        + json.dumps({g: round(v, 3) for g, v in sorted(
+            tr["groups_ms"].items(), key=lambda kv: -kv[1])})
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    d = os.path.join(ROOT, "build", "chip_smoke_runtime")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    runtime.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    flos = [os.path.join(d, f"{i}.flo") for i in range(3)]
+    for p in flos:
+        frame_utils.write_flo(p, (8 * rng.standard_normal(
+            (H, W, 2))).astype(np.float32))
+    for p in flos:
+        assert np.array_equal(frame_utils.read_flo(p),
+                              frame_utils.read_flo_numpy(p)), p
+    assert np.array_equal(runtime.read_flo_batch_native(flos), np.stack(
+        [frame_utils.read_flo_numpy(p) for p in flos]))
+    img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    ppm = os.path.join(d, "frame.ppm")
+    with open(ppm, "wb") as fh:
+        fh.write(b"P6\n# chip_smoke\n%d %d\n255\n" % (W, H))
+        fh.write(img.tobytes())
+    assert np.array_equal(frame_utils.read_image(ppm), img)
+    bad = os.path.join(d, "bad.flo")
+    with open(bad, "wb") as fh:
+        fh.write(b"not a flow file")
+    try:
+        frame_utils.read_flo(bad)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("the native decoder took a garbage .flo")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"runtime: libsfio built in {build_s:.1f} s; .flo {H}x{W} (one, "
+        f"and a batch of 3) equal to the NumPy decoder's and .ppm to the "
+        f"bytes written, bit for bit; garbage refused ({refused})")
+
+    if importlib.util.find_spec("PIL") is None:
+        log("bench_input: not run (PIL is not installed on this machine; "
+            "the tool writes and reads png frames)")
+        return
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "streamflow_tpu_torch.tools.bench_input",
+         *BENCH_INPUT_ARGS, "--root", os.path.join(ROOT, "build")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    log(f"bench_input {' '.join(BENCH_INPUT_ARGS)}: "
+        + " | ".join(res.stdout.strip().splitlines())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -3663,9 +3953,9 @@ def main() -> None:
                for path in ("inference", "train_step") for dw in LAYOUTS}
     counts = {}
 
-    def phase(n, what, fn, *a):
+    def phase(n, what, fn, *a, **kw):
         t0 = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         log(f"phase {n} {what}: passed ({time.perf_counter() - t0:.1f} s)")
         return out
 
@@ -3690,7 +3980,7 @@ def main() -> None:
           {**per_layout("inference"), **per_zoo("inference", ZOO),
            **per_zoo("inference", RAFT_MODELS),
            "umt": summary["inference_umt"]}, 440, 1024, False)
-    refs, ms_clip = {}, {}
+    refs, refs_cut, ms_clip = {}, {}, {}
     counts["inference"], ms_clip["auto"] = phase(4, "forward", full_forward,
                                                  dev, "auto")
     phase(5, "accuracy guards", accuracy_guards, dev, "auto", refs)
@@ -3721,8 +4011,10 @@ def main() -> None:
         suffix, tag = LAYOUTS[dw][0], f" dw_impl={dw!r}"
         counts["inference" + suffix], ms_clip[dw] = phase(
             n, "forward" + tag, full_forward, dev, dw)
+        # at LAYOUT_GUARD_H x LAYOUT_GUARD_W (phase 5 holds the main path
+        # at 436x1024), against one f32 reference at that size
         phase(n + 1, "accuracy guards" + tag, accuracy_guards, dev, dw,
-              refs)
+              refs_cut, h=LAYOUT_GUARD_H, w=LAYOUT_GUARD_W)
         n += 2
         if dw in TRAINED:
             counts["train_step" + suffix] = phase(
@@ -3746,7 +4038,10 @@ def main() -> None:
                                            DP_TRAINER_STEPS)
     counts["inference_umt"] = phase(35, "UMT served", umt_phase, dev)
     counts["train_step_umt"] = phase(36, "UMT trained", umt_train_phase, dev)
-    log(f"phases 3-36: {time.perf_counter() - t_start:.1f} s after the "
+    counts["trained_dynamics"], summary["trained_dynamics"] = phase(
+        37, "trained dynamics", trained_dynamics_phase, dev)
+    phase(38, "tools", tools_phase, dev)
+    log(f"phases 3-38: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

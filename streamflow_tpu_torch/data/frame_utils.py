@@ -2,10 +2,21 @@
 core/utils/frame_utils.py:13-160): Middlebury .flo, PFM, KITTI 16-bit png,
 Spring .flo5 (HDF5), and the extension-dispatching reader.
 
-Host-side NumPy by design — these feed the input pipeline, not the device.
-The port's own copy of streamflow_tpu/data/frame_utils.py, without the JAX
-package's native .flo decoder (the NumPy decoder is the one here). PIL, cv2
-and h5py are imported where a reader or writer needs them.
+Host-side by design: these feed the input pipeline, not the device. The
+port's own copy of streamflow_tpu/data/frame_utils.py. Which decoder runs:
+
+- ``.flo`` (``read_flo``, and ``read_gen`` of a ``.flo``): always the
+  native runtime (``streamflow_tpu_torch.runtime``, C++ built with g++ at
+  first use), as JAX's ``read_flo`` tries first. Unlike JAX's, it does not
+  fall back: a failed build or a file the decoder rejects raises.
+  ``read_flo_numpy`` is the NumPy decoder that JAX falls back to, kept as
+  the plain version the tests hold the native one against.
+- ``.ppm`` (``read_gen`` and ``read_image``; FlyingChairs' frames): the
+  native runtime, so these frames load where PIL is absent. Other images
+  (``.png``, ``.jpg``, ``.jpeg``) open with PIL.
+- PFM in NumPy; KITTI's png with cv2; ``.flo5`` with h5py.
+
+PIL, cv2 and h5py are imported where a reader or writer needs them.
 """
 
 from __future__ import annotations
@@ -21,6 +32,14 @@ FLO_MAGIC = 202021.25  # Middlebury sanity-check magic number
 
 # --------------------------------------------------------------------------- .flo
 def read_flo(path) -> np.ndarray:
+    """A .flo file as (H, W, 2) float32, through the native decoder."""
+    from streamflow_tpu_torch import runtime
+
+    return runtime.read_flo_native(path)
+
+
+def read_flo_numpy(path) -> np.ndarray:
+    """The NumPy .flo decoder (JAX's fallback path)."""
     with open(path, "rb") as f:
         magic = np.fromfile(f, np.float32, count=1)
         if magic.size == 0 or magic[0] != FLO_MAGIC:
@@ -123,9 +142,15 @@ def write_flo5(path, flow: np.ndarray):
 
 # ------------------------------------------------------------------- dispatch
 def read_gen(path, pil: bool = False):
-    """Extension-dispatching reader (reference frame_utils.py:144-160)."""
+    """Extension-dispatching reader (reference frame_utils.py:144-160): a
+    ``.ppm`` as an (H, W, 3) uint8 array through the native decoder; other
+    images as PIL images."""
     ext = Path(path).suffix.lower()
-    if ext in (".png", ".jpeg", ".ppm", ".jpg"):
+    if ext == ".ppm":
+        from streamflow_tpu_torch import runtime
+
+        return runtime.read_ppm_native(path)
+    if ext in (".png", ".jpeg", ".jpg"):
         from PIL import Image
 
         return Image.open(path)
@@ -142,7 +167,10 @@ def read_gen(path, pil: bool = False):
 
 
 def read_image(path) -> np.ndarray:
-    """Image as (H, W, 3) uint8 (grayscale broadcast to 3 channels)."""
+    """Image as (H, W, 3) uint8 (grayscale broadcast to 3 channels); a
+    ``.ppm`` through the native decoder, others through PIL."""
+    if Path(path).suffix.lower() == ".ppm":
+        return read_gen(path)
     from PIL import Image
 
     img = np.asarray(Image.open(path)).astype(np.uint8)

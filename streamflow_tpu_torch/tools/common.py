@@ -7,9 +7,11 @@ the card's name and power limit."""
 from __future__ import annotations
 
 import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
@@ -20,6 +22,10 @@ import torch
 # head's output layer is scaled down so that the 12-iteration flows stay
 # in the range of real footage (tens of px, a few hundred at most).
 FLOW_HEAD_SCALE = 2e-3
+
+# where the measuring tools (probe_bf16, probe_guard, sweep_e2e,
+# trace_e2e) append their results: the repository's chiprun_out/
+RESULTS_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
 
 # the CLIs' two-frame --model values (JAX tools/evaluate.py, train_2f.py)
 # -> the registry's names, whose configs are the ones JAX's CLIs build
@@ -145,6 +151,44 @@ def device_events(prof):
         yield ev.key, ev.count, ev.cuda_time_total if t is None else t
 
 
+# (substring of a kernel's lower-cased name, its group): the port's
+# kernels (K1-K8, B5: the bf16 engine of K5, K6 and K8 is sk_chain, B5's
+# kernels bwd_dq_, bwd_dkv_ and bwd_split_) and PyTorch's and its
+# libraries' kernels by kind; the first match wins, "other" otherwise
+KERNEL_GROUPS = (("corr_lookup", "corr_lookup"), ("ffn_pair", "ffn_pair"),
+                 ("flash_fwd", "flash_fwd"), ("dw_chain", "dw_chain"),
+                 ("sk_chain", "sk_chain"), ("dw_banded", "dw_banded"),
+                 ("bwd_dq_", "flash_bwd"), ("bwd_dkv_", "flash_bwd"),
+                 ("bwd_split_", "flash_bwd"), ("lga_kernel", "lga_kernel"),
+                 ("conv", "conv"), ("gemm", "gemm"),
+                 ("elementwise", "elementwise"), ("reduce", "reduce"),
+                 ("softmax", "softmax"), ("layer_norm", "layer_norm"),
+                 ("cat", "cat"), ("copy", "copy"))
+
+
+def kernel_group(name: str) -> str:
+    """The op group of a kernel as the profiler names it (KERNEL_GROUPS),
+    as chip_smoke.py's profile tables and tools.trace_e2e report it."""
+    key = name.lower()
+    for pat, group in KERNEL_GROUPS:
+        if pat in key:
+            return group
+    return "other"
+
+
+def device_time_by_group(prof) -> Tuple[float, dict]:
+    """(total device us, {group: device us}) of a profile's kernels and
+    copies on the card (``device_events``), grouped by ``kernel_group``."""
+    total, by = 0.0, {}
+    for key, _, t in device_events(prof):
+        if t <= 0:
+            continue
+        total += t
+        group = kernel_group(key)
+        by[group] = by.get(group, 0.0) + t
+    return total, by
+
+
 def smi() -> Optional[str]:
     """The card's name and power limit as nvidia-smi prints them; None
     without nvidia-smi."""
@@ -156,3 +200,32 @@ def smi() -> Optional[str]:
     except (OSError, subprocess.CalledProcessError):
         return None
     return out.strip().splitlines()[0]
+
+
+def strict_f32() -> None:
+    """f32 stays f32 on the card: no TF32 in cuBLAS's matmuls nor in
+    cuDNN's convs (PyTorch lets cuDNN's f32 convs run in TF32 by default,
+    which moves the f32 kernel path ~1e-3 from the plain path), as
+    chip_smoke.py, train_bench and kernel_bench run."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def device_record(device) -> dict:
+    """What a tool's result says of the device its kernels ran on: the CPU,
+    or the card's name and nvidia-smi's name and power limit."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"device": "cpu"}
+    return {"device": torch.cuda.get_device_name(dev), "card": smi()}
+
+
+def append_results(path, lines) -> None:
+    """Append ``lines`` to the results file ``path`` (its directory made)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as fh:
+        fh.write("\n".join(lines) + "\n")
