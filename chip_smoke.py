@@ -199,7 +199,21 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      kernel of the forward present), the native IO runtime (libsfio,
      g++) on .flo and .ppm files against the NumPy decoder and the bytes
      written, bit for bit, a garbage file refused; tools/bench_input.py
-     in a process of its own where PIL is installed.
+     in a process of its own where PIL is installed;
+  39. the sequence-sharded forward (parallel/seq.py): every kernel of its
+     path against its plain version at rank 0's slab shapes (seq_cases);
+     then two ranks sharing the card over gloo (n_seq=2, processes of
+     their own, the kernels built first), canonical StreamFlow at
+     436x1024 padded to 440x1024, T=4: which dtypes gloo sums on CUDA
+     tensors and whether it gathers them; f32 (TF32 off) at iters 1 and
+     2 against the one-process forward on the card (rtol 1e-4, atol 1e-5
+     x max(1, max |flow|)); bf16 'auto' and 'pallas' at iters 1 and
+     'auto' at 12 iterations within phase 5's bf16 guard (relative EPE
+     against the f32 one-process forward at most 1.5x the one-process
+     bf16 forward's, global and p99); each rank's launches exact (the
+     one-process counts) and both ranks' flows equal bit for bit; each
+     rank's wall and device ms, the exchanges' share, peak memory; then
+     one 1440x2560 bf16 run (peak memory, wall ms).
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -216,6 +230,8 @@ iterations and per B=8 step; "inference_umt": phases 3 and 35, per
 TD_STEPS training steps at 192x384 and the trained weights' bf16 clip at
 216x512), with phase 37's kernel numbers per step times TD_STEPS plus
 per clip;
+"inference_seq": phase 39's rank 0, per 440x1024 clip of 12
+iterations at its slabs' shapes;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
@@ -239,6 +255,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
@@ -246,6 +263,8 @@ B, T, H, W = 1, 4, 436, 1024
 ITERS = 12
 SEED = 0
 REPS = 5  # timed repetitions, after warm-up
+# the plain versions' (yardsticks 10-50x slower than their kernels)
+PLAIN_REPS, PLAIN_WARMUP = 2, 1
 
 # Tolerances of the kernel-vs-plain checks, elementwise.
 # f32: |kernel - plain| <= 1e-4 + 1e-4 |plain|. Both sides accumulate in
@@ -528,10 +547,11 @@ def umt_train_launches(iters: int = ITERS) -> dict:
 
 # phase 37: trained dynamics (tools/probe_bf16.py cut to size): the
 # canonical StreamFlow trained TD_STEPS steps at TD_H x TD_W (the probe's
-# 400 at 288x512), evaluated on one TD_EVAL_H x TD_EVAL_W clip (the
-# probe's 436x1024) at 12 iterations; its weights go through TD_DIR; its
-# path in the kernels line is "trained_dynamics"
-TD_STEPS = 100
+# 400 at 288x512; the steps are host-paced, ~1 s each, and the command
+# has 1200 s for all its phases), evaluated on one TD_EVAL_H x TD_EVAL_W
+# clip (the probe's 436x1024) at 12 iterations; its weights go through
+# TD_DIR; its path in the kernels line is "trained_dynamics"
+TD_STEPS = 30
 TD_H, TD_W = 192, 384
 TD_EVAL_H, TD_EVAL_W = 216, 512
 TD_DIR = os.path.join(ROOT, "build", "chip_smoke_probe")
@@ -589,11 +609,13 @@ HBM_BYTES_PER_S = 3.35e12
 
 def log(msg: str) -> None:
     """Print a line, and keep it in OUT_DIR/chip_smoke.log (the whole
-    run's lines; a runner may return only the end of the output)."""
+    run's lines, each after the seconds since the process started: a
+    runner may return only the end of the output, and the command has a
+    time limit)."""
     print(msg, flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as fh:
-        fh.write(msg + "\n")
+        fh.write(f"[{time.perf_counter() - T_START:7.1f} s] {msg}\n")
 
 
 def smi() -> str:
@@ -806,15 +828,16 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                     flops, args, None, None)
         return make
 
-    def dw_case(kind, nimg, c, k):
-        """The SK block's dw stack (1, k) of one (nimg, h8, w8, c) tensor:
+    def dw_case(kind, nimg, c, k, rows=None):
+        """The SK block's dw stack (1, k) of one (nimg, h8, w8, c) tensor
+        (``rows`` rows in place of h8):
         K5 or K8 (the whole stack; cuDNN's conv of the default layout
         timed beside it), K6 or K7 (the kxk stage; the library yardstick
         is cuDNN's bf16 depthwise conv + bias, one call on the same
         tensor). The work counted is the conv's, 2 k^2 N C FLOP, and K8's
         k=1 stage, 3 N C."""
         def make(dt):
-            x = rnd(nimg, h8, w8, c, dt=dt)
+            x = rnd(nimg, rows or h8, w8, c, dt=dt)
             ws = (rnd(c, 1, 1, 1, scale=0.3, dt=dt),
                   rnd(c, 1, k, k, scale=1 / k, dt=dt))
             bs = (rnd(c, scale=0.1, dt=dt), rnd(c, scale=0.1, dt=dt))
@@ -1157,6 +1180,9 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                       flash_case((nb, 1), n2, n2, 128), calls2,
                       tuple(m for m in two if m != "raft")))
 
+    if "seq" in summaries:
+        cases += seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case,
+                           dw_case, hp, wp)
     if "umt" in summaries:
         cases += umt_cases(ffn_case, flash_case, corr_traffic_case,
                            mixed_tiles, edge_case,
@@ -1180,7 +1206,8 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                                   a, b, a.dtype)
                       for i, (a, b) in enumerate(zip(got, want)))
             if dt == torch.bfloat16 and calls:   # tails: checked only
-                ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
+                ms = cuda_ms(run, REPS)
+                pms = cuda_ms(plain, PLAIN_REPS, PLAIN_WARMUP)
                 lib_ms = cuda_ms(library, REPS) if library else None
                 io = nbytes(*inputs, *got)
                 b, _ = bound_ms(flops, io, dt)
@@ -1221,6 +1248,83 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
         assert torch.equal(a7, a6), f"K7 differs from K6 at {tuple(x.shape)}"
     log(f"check dw_banded_mxu_t equals dw_banded_mxu bit for bit (bf16) at "
         f"the six SK blocks' {path} shapes")
+
+
+def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
+              wp) -> list:
+    """Phase 39's kernel shapes: rank 0 of SEQ_WORLD ranks sharing an hp
+    x wp clip (its slabs from parallel/seq.py::seq_plan), each kernel's
+    calls per clip of ITERS iterations (the "seq" path): K2's default
+    forms on each SK block's slab extended by its halo (rank 0: the rows
+    below), the Twins MLPs on the encoders' stacked slabs, K3 for GMA
+    (the slab's queries against the whole grid's keys) and GSA (a stacked
+    slab against the whole reduced grid), K4 on window-aligned slabs, K1
+    on the slab's queries against the whole pyramid; K5 on an extended
+    slab, checked (the 'pallas' run of phase 39 calls it there)."""
+    from streamflow_tpu_torch.ops.corr import pool_pyramid
+    from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.parallel.seq import seq_plan
+    from streamflow_tpu_torch.tools import kernel_bench as KB
+
+    plan = seq_plan(T, hp, wp, SEQ_WORLD)
+    h8, w8 = hp // 8, wp // 8
+    (r0, r1), (f0, f1), (c0, c1) = (plan.decoder[0], plan.fnet[0],
+                                    plan.cnet[0])
+    hs = r1 - r0
+    below = SEQ_WORLD > 1          # rank 0 takes a halo from below only
+    tag = ("seq",)
+    cases = []
+    for c, co, pairs, k in ((324, 256, 3, 15), (256, 192, 3, 15),
+                            (128, 64, 3, 15), (256, 126, 3, 15),
+                            (640, 128, 3, 7), (384, 6, 1, 15)):
+        ch, rows = int(1.5 * c), pairs * (hs + below * (k // 2)) * w8
+        cases.append(("ffn_pair", f"seq ffn_pair_k1 {rows}x{c}-{ch}-{c}",
+                      ffn_case("ffn_pair_k1", rows, c, ch, c), ITERS, tag))
+        cases.append(("ffn_pair",
+                      f"seq dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
+                      ffn_case("dwres_pw_ffn_pair", rows, c, ch, co), ITERS,
+                      tag))
+    for c, rows in ((128, 2 * (f1 - f0) * 2 * w8),
+                    (128, 2 * (c1 - c0) * 2 * w8),
+                    (256, (f1 - f0) * w8), (256, (c1 - c0) * w8)):
+        cases.append(("ffn_pair", f"seq ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
+                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, tag))
+    cases.append(("flash_attention",
+                  f"seq gma bh3 n{hs * w8} m{h8 * w8} d128",
+                  flash_case((3, 1), hs * w8, h8 * w8, 128), ITERS, tag))
+    for stage, nh, sr, up in ((0, 4, 8, 2), (1, 8, 4, 1)):
+        ww = up * w8
+        for enc, (a, b), t in (("fnet", (f0, f1), T),
+                               ("cnet", (c0, c1), T - 1)):
+            n, m = up * (b - a) * ww, (up * t * h8 // sr) * (ww // sr)
+            cases.append(("flash_attention",
+                          f"seq gsa{stage} {enc} b1 h{nh} n{n} m{m} d32",
+                          flash_case((1, nh), n, m, 32),
+                          int(up * t * h8 * ww > GSA_FLASH_TOKENS), tag))
+    for stage, c, nh, up in ((0, 128, 4, 2), (1, 256, 8, 1)):
+        for enc, (a, b) in (("fnet", (f0, f1)), ("cnet", (c0, c1))):
+            hq, wq = -(-up * (b - a) // 7) * 7, -(-up * w8 // 7) * 7
+            cases.append(("lga_attention",
+                          f"seq stage{stage} {enc} 1x{hq}x{wq}x{3 * c} h{nh}",
+                          lga_case(hq, wq, c, nh), 1, tag))
+
+    def corr_make(dt):
+        f1 = rnd(3, hs, w8, 256, dt=dt)
+        levels = [lv.contiguous() for lv in
+                  pool_pyramid(rnd(3, h8, w8, 256, dt=dt), 4)]
+        coords = KB.corr_coords("jitter30", 3, hs, w8, g, dev)
+        coords[..., 1] += r0                 # the slab's global rows
+        shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
+        return (lambda: K1.corr_lookup(f1, levels, coords, 4),
+                lambda: K1.corr_lookup_plain(f1, levels, coords, 4),
+                KB.corr_flops(coords, shapes, 256, 4),
+                (f1, *levels, coords), None, None)
+    cases.append(("corr_lookup",
+                  f"seq jitter30 3x{hs}x{w8} against 3x{h8}x{w8}x256 4 "
+                  f"levels r4", corr_make, ITERS, tag))
+    cases.append(("dw_chain", f"seq 3x{hs + 7}x{w8}x324 ks (1, 15)",
+                  dw_case("dw_chain", 3, 324, 15, hs + 7), 0, tag))
+    return cases
 
 
 def umt_cases(ffn_case, flash_case, corr_traffic_case, mixed_tiles,
@@ -1395,8 +1499,10 @@ def full_forward(dev, dw_impl, zoo=None):
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
+    # the ZOO configs' profiles record the card alone (the same device
+    # numbers; the host's ops cost seconds of the command's 1200)
     prof = profile_device(lambda: model(imgs, test_mode=True), ms,
-                          "forward" + suffix)
+                          "forward" + suffix, host=zoo is None)
     if zoo is not None:
         ZOO_TABLE[zoo] = dict(ms_clip=round(ms, 3),
                               device_ms=round(prof["total_ms"], 3),
@@ -1593,7 +1699,8 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
                                   a, b, dt)
                       for name, a, b in zip(("dq", "dk", "dv"), got, want))
             if dt == torch.bfloat16 and calls:   # tails: checked only
-                ms, pms = cuda_ms(run, REPS), cuda_ms(plain, REPS)
+                ms = cuda_ms(run, REPS)
+                pms = cuda_ms(plain, PLAIN_REPS, PLAIN_WARMUP)
                 qs, ks, vs = (t.detach().clone().requires_grad_(True)
                               for t in (q, k, v))
                 ref = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
@@ -2465,7 +2572,8 @@ def trainer_phase(dev) -> tuple:
     n = TRAINER_STEPS - TRAINER_PRINT
     loop_ms = 1e3 * (run.step_t[-1] - run.step_t[TRAINER_PRINT - 1]
                      - run.save_s[0] - run.val_s[0]) / n
-    prof = profile_device(lambda: step(state, first), loop_ms, "trainer")
+    prof = profile_device(lambda: step(state, first), loop_ms, "trainer",
+                          host=False)
     timing = CheckpointManager(os.path.join(TRAINER_DIR, "timing"))
     t0 = time.perf_counter()
     timing.save(state)
@@ -2729,7 +2837,7 @@ def raft_forward(dev, name) -> dict:
     assert bool(torch.isfinite(flow).all()), "non-finite flows"
     mag = flow.norm(dim=-1)
     ms_e = host_ms(eager, REPS, dev)
-    prof_e = profile_device(eager, ms_e[0], f"forward_{name}")
+    prof_e = profile_device(eager, ms_e[0], f"forward_{name}", host=False)
 
     fwd = GraphedForward2F(model, RAFT_ITERS)
     torch.cuda.synchronize()
@@ -2859,7 +2967,7 @@ def raft_train_steps(dev, name) -> dict:
     moved = all(not torch.equal(a, b)
                 for a, b in zip(batch_stats(model), after1))
     prof = profile_device(lambda: step(state, batch), times[1],
-                          f"train_step_{name}")
+                          f"train_step_{name}", host=False)
     RAFT_TABLE.setdefault(name, {}).update(
         ms_step=[round(t, 3) for t in times],
         device_ms_step=round(prof["total_ms"], 3),
@@ -3059,7 +3167,7 @@ def umt_phase(dev) -> dict:
 #     same global batch, f32, then (c) tools/train.py::train with two ranks
 #     over gloo, in the same two processes (part "bc").
 DP_DIR = os.path.join(ROOT, "build", "chip_smoke_dp")
-DP_STEPS = 3                 # (a): steps of each side, canonical
+DP_STEPS = 2                 # (a): steps of each side, canonical
 # (a): the group's state after DP_STEPS steps against its nearest plain
 # run, relative L2 of all parameters and buffers, of all first and of all
 # second AdamW moments; its metrics against each plain run's. Two plain
@@ -3070,7 +3178,7 @@ DP_A_REL = {"model": 1e-5, "exp_avg": 1e-2, "exp_avg_sq": 1e-2}
 DP_A_METRIC_RTOL = 1e-3
 # the px rates: a few of the 1.24M pixels a step crossing a threshold
 DP_A_METRIC_ATOL = 1e-4
-DP_TIMED = 2                 # (a): rounds of timed steps, 2 a side each
+DP_TIMED = 1                 # (a): rounds of timed steps, 2 a side each
 DP2_B, DP2_ITERS = 2, 2      # (b): the global batch, iterations
 # (b): name -> (model, config fields, bidirectional)
 DP2_FORMS = {"canonical": ("streamflow", {}, False),
@@ -3086,10 +3194,11 @@ DP_TIMEOUT = 600             # seconds a part's processes may take
 
 
 def dp_run(part: str, world: int, backend: str) -> list:
-    """Part ``part`` of phase 34 in ``world`` processes on the card (a
-    file store under DP_DIR for the rendezvous); returns each rank's
-    record. Raises if a process fails or outlasts DP_TIMEOUT; kills every
-    process it started before it returns or raises."""
+    """Part ``part`` of phase 34 (or "seq", phase 39) in ``world``
+    processes on the card (a file store under DP_DIR for the
+    rendezvous); returns each rank's record. Raises if a process fails or
+    outlasts DP_TIMEOUT; kills every process it started before it returns
+    or raises."""
     import shutil
 
     shutil.rmtree(DP_DIR, ignore_errors=True)
@@ -3105,7 +3214,8 @@ def dp_run(part: str, world: int, backend: str) -> list:
     try:
         for p in procs:
             if p.wait(timeout=DP_TIMEOUT):
-                raise AssertionError(f"phase 34 ({part}): a process exited "
+                raise AssertionError(f"phase {dp_phase_of(part)} ({part}): "
+                                     f"a process exited "
                                      f"with {p.returncode}")
     finally:
         for p in procs:
@@ -3120,9 +3230,13 @@ def dp_run(part: str, world: int, backend: str) -> list:
     return recs
 
 
+def dp_phase_of(part: str) -> int:
+    return 39 if part == "seq" else 34
+
+
 def dp_worker(part, rank, world, backend, store) -> None:
-    """One process of phase 34: joins the group, runs its part, writes
-    its record to DP_DIR/<part>_<rank>.json."""
+    """One process of phase 34 (or 39): joins the group, runs its part,
+    writes its record to DP_DIR/<part>_<rank>.json."""
     t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
     import torch
@@ -3139,12 +3253,15 @@ def dp_worker(part, rank, world, backend, store) -> None:
     t1 = time.perf_counter()
     assert parallel.initialize(f"file://{store}", world, rank,
                                backend=backend, device=dev) == (rank, world)
-    log(f"phase 34 ({part}) rank {rank}: torch, the kernels and the card "
+    log(f"phase {dp_phase_of(part)} ({part}) rank {rank}: torch, the "
+        f"kernels and the card "
         f"{t1 - t0:.1f} s, the {backend} group {time.perf_counter() - t1:.1f}"
         f" s")
     try:
         if part == "a":
             rec = dp_one_rank(dev, rank, world)
+        elif part == "seq":
+            rec = seq_worker(dev, rank, world)
         else:             # (b) then (c), in the same two processes
             rec = {"b": dp_two_ranks(dev, rank, world)}
             torch.cuda.empty_cache()
@@ -3915,6 +4032,296 @@ def tools_phase(dev) -> None:
         + f" ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------- phase 39
+SEQ_WORLD = 2            # ranks of the seq group, sharing the card
+SEQ_REPS = 3             # timed sharded forwards a rank, after a warm-up
+SEQ_HIGH = (1440, 2560)
+# f32 against the one-process forward: tests/test_torch_seq.py's bound
+SEQ_RTOL, SEQ_ATOL = 1e-4, 1e-5
+
+
+def seq_launches(dw_impl: str, iters: int) -> dict:
+    """Each rank's launches in one sharded forward: the one-process
+    forward's (each slab runs every kernel as often; GSA's K3 by the
+    whole grid's token count)."""
+    out = forward_launches(iters)
+    if dw_impl == "pallas":
+        out["dw_chain"] = 6 * iters
+    return out
+
+
+def gloo_probe(dev) -> dict:
+    """What gloo does with CUDA tensors: all_reduce per dtype (a sum of
+    ones over the ranks) and all_gather; a refusal is recorded, not
+    raised."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    out = {}
+    for dt in (torch.int32, torch.uint8, torch.int64, torch.bfloat16,
+               torch.float16, torch.float32):
+        t = torch.ones(8, dtype=dt, device=dev)
+        try:
+            dist.all_reduce(t)
+            out[f"all_reduce {str(dt)[6:]}"] = bool((t == world).all())
+        except Exception as e:   # noqa: BLE001 - the refusal is the record
+            out[f"all_reduce {str(dt)[6:]}"] = type(e).__name__
+    t = torch.ones(8, device=dev)
+    parts = [torch.zeros_like(t) for _ in range(world)]
+    try:
+        dist.all_gather(parts, t)
+        out["all_gather float32"] = all(bool((p == 1).all()) for p in parts)
+    except Exception as e:       # noqa: BLE001
+        out["all_gather float32"] = type(e).__name__
+    return out
+
+
+def seq_worker(dev, rank, world) -> dict:
+    """One rank of phase 39 (a process of its own; rank 0 also runs the
+    one-process references while rank 1 waits at a store barrier):
+    returns its record."""
+    import torch
+    import torch.distributed as dist
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.parallel.exchange import Rows
+    from streamflow_tpu_torch.tools.common import (device_events, host_ms,
+                                                   profiled, rel_epe)
+
+    gloo = gloo_probe(dev)
+    if rank == 0:
+        log(f"phase 39 gloo on CUDA tensors, {world} ranks: "
+            f"{json.dumps(gloo)}")
+    mesh = parallel.make_mesh(n_seq=world)
+    imgs = make_clip(dev)
+
+    def model(dtype, dw_impl="auto"):
+        m = create_model("streamflow", cfg=StreamFlowConfig(
+            T=T, iters=ITERS, mixed_precision=dtype == "bf16",
+            dw_impl=dw_impl), device=dev)
+        init_weights(m, SEED + 1)
+        return m
+
+    def one(m, iters, x=imgs):
+        """The one-process forward, on rank 0 (rank 1 waits)."""
+        out = None
+        if rank == 0:
+            out = m(x, iters=iters, test_mode=True).float().cpu()
+        parallel.barrier("seq one-process")
+        return out
+
+    def sharded(m, iters, dw_impl, x=imgs):
+        fwd = parallel.make_seq_sharded_forward(m, mesh, iters)
+        reset_launches()
+        out = fwd(x)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        assert counts == seq_launches(dw_impl, iters), (rank, counts)
+        # both ranks return the same whole flows, bit for bit
+        ref = out.clone()
+        dist.broadcast(ref.view(torch.int32), 0)
+        same = torch.tensor([float(torch.equal(ref.view(torch.int32),
+                                               out.view(torch.int32)))],
+                            device=dev)
+        dist.all_reduce(same)
+        assert int(same.item()) == world, "the ranks' flows differ"
+        return fwd, out.cpu(), counts
+
+    # f32 (TF32 off) at iters 1 and 2 against the one-process forward
+    m32 = model("f32")
+    ref32 = {}
+    for it in (1, 2):
+        ref32[it] = one(m32, it)
+        _, got, counts = sharded(m32, it, "auto")
+        if rank == 0:
+            bound = SEQ_ATOL * max(1.0, float(ref32[it].abs().max()))
+            excess = float(((got - ref32[it]).abs() - bound
+                            - SEQ_RTOL * ref32[it].abs()).max())
+            err = float((got - ref32[it]).abs().max())
+            equal = float((got == ref32[it]).float().mean())
+            nonzero = {k: v for k, v in counts.items() if v}
+            log(f"phase 39 f32 'auto' {tuple(imgs.shape)} iters {it}: "
+                f"{world} ranks (gloo) against one process, max abs diff "
+                f"{err:.3e} (|flow| max {float(ref32[it].abs().max()):.4g}; "
+                f"bound rtol {SEQ_RTOL} + atol {SEQ_ATOL} x max(1, "
+                f"max|flow|)), {equal:.4f} of the values equal bit for "
+                f"bit; launches {json.dumps(nonzero)}")
+            assert excess <= 0, f"f32 iters {it}: sharded vs one process"
+    ref32[ITERS] = one(m32, ITERS)
+    del m32
+    torch.cuda.empty_cache()
+
+    # bf16 within phase 5's guard form against the f32 one-process path
+    def guard(label, got, plain, ref):
+        if rank == 0:
+            g, p = rel_epe(got, ref), rel_epe(plain, ref)
+            diff = float((got - plain).abs().max())
+            log(f"phase 39 {label}: rel EPE against the f32 one-process "
+                f"forward, global / p99: {world} ranks {g[0]:.3e} / "
+                f"{g[1]:.3e}, one process bf16 {p[0]:.3e} / {p[1]:.3e} "
+                f"(bound {BF16_GUARD_RATIO}x); against the one-process "
+                f"bf16 forward max abs diff {diff:.3e}, "
+                f"{float((got == plain).float().mean()):.4f} of the values "
+                f"equal bit for bit")
+            assert all(a <= BF16_GUARD_RATIO * b for a, b in zip(g, p)), (
+                label, g, p)
+
+    for dw_impl in ("pallas", "auto"):
+        m16 = model("bf16", dw_impl)
+        plain = one(m16, 1)
+        _, got, counts = sharded(m16, 1, dw_impl)
+        guard(f"bf16 dw_impl={dw_impl!r} iters 1", got, plain, ref32[1])
+    # m16: the 'auto' model, the loop's last
+
+    # the main path: bf16 'auto', 12 iterations
+    plain = one(m16, ITERS)
+    fwd, got, counts = sharded(m16, ITERS, "auto")
+    guard(f"bf16 'auto' iters {ITERS}", got, plain, ref32[ITERS])
+    ms = host_ms(lambda: fwd(imgs), SEQ_REPS, dev)
+    # device time from a card-only profile: kernels, and gloo's copies
+    # between the card and the host
+    events = [(k, t) for k, _, t in device_events(profiled(
+        lambda: fwd(imgs), host=False)) if t > 0]
+    dev_ms = sum(t for _, t in events) / 1e3
+    copy_ms = sum(t for k, t in events if k.startswith("Memcpy")) / 1e3
+    # the exchanges' share: a run with each collective's host time summed
+    spent = []
+    inner = Rows._sum
+
+    def timed(self, nbytes, parts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(self, nbytes, parts)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0, nbytes))
+        return out
+    Rows._sum = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(imgs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Rows._sum = inner
+    ex_s = sum(t for t, _ in spent)
+    one_ms = None
+    if rank == 0:
+        one_ms = host_ms(lambda: m16(imgs, test_mode=True), SEQ_REPS, dev)[0]
+    parallel.barrier("seq timed")
+    log(f"phase 39 rank {rank} bf16 'auto' {tuple(imgs.shape)} iters "
+        f"{ITERS}: {ms[0]:.3f} ms a clip (mean of {SEQ_REPS}, min "
+        f"{ms[1]:.3f}; both ranks on the one card), device {dev_ms:.3f} ms "
+        f"({copy_ms:.3f} of it gloo's copies to and from the host); "
+        f"{len(spent)} exchanges of {sum(n for _, n in spent) / 2 ** 20:.1f}"
+        f" MiB in all, "
+        f"{1e3 * ex_s:.1f} of {1e3 * wall:.1f} ms of an instrumented run "
+        f"({ex_s / wall:.3f})"
+        + (f"; the one-process forward {one_ms:.3f} ms" if rank == 0
+           else ""))
+    del fwd
+
+    # 1440x2560 once: each rank's peak memory and wall time
+    big = make_clip(dev, *SEQ_HIGH)
+    fwd = parallel.make_seq_sharded_forward(m16, mesh, ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flows = fwd(big)
+    torch.cuda.synchronize()
+    high_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert flows.shape == (B, T - 1, *SEQ_HIGH, 2), flows.shape
+    assert bool(torch.isfinite(flows).all()), "non-finite flows"
+    log(f"phase 39 rank {rank} bf16 'auto' {tuple(big.shape)} iters "
+        f"{ITERS}, one run: {high_s:.2f} s (the first at this shape), "
+        f"max_memory_allocated {peak:.3f} GiB")
+    return {"launches": counts, "peak_gib": peak}
+
+
+def slab_bits(dev) -> dict:
+    """Which kernels of the decoder give each rank's slab the whole
+    grid's rows bit for bit, at phase 39's shapes (the decoder slabs of
+    the 440x1024 clip; K5 on a slab extended by its halo), f32 and bf16:
+    recorded, not required."""
+    import torch
+
+    from streamflow_tpu_torch.ops.corr import pool_pyramid
+    from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
+    from streamflow_tpu_torch.ops.kernels import dw_chain as K5
+    from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
+    from streamflow_tpu_torch.ops.kernels import flash_attention as K3
+    from streamflow_tpu_torch.parallel.seq import seq_plan
+    from streamflow_tpu_torch.tools import kernel_bench as KB
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h8, w8, c, halo = 440 // 8, 1024 // 8, 324, 7
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=g,
+                                        device=dev)).to(dt)
+        f1 = rnd(3, h8, w8, 256)
+        levels = [lv.contiguous()
+                  for lv in pool_pyramid(rnd(3, h8, w8, 256), 4)]
+        coords = KB.corr_coords("jitter30", 3, h8, w8, g, dev)
+        x = rnd(3, h8, w8, c)
+        pair = (rnd(486, c, scale=c ** -0.5), rnd(486, scale=0.1),
+                rnd(c, 486, scale=486 ** -0.5), rnd(c, scale=0.1),
+                rnd(c, scale=0.3), rnd(c, scale=0.1))
+        q, k, v = (rnd(3, 1, h8 * w8, 128, scale=s)
+                   for s in (128 ** -0.5, 1.0, 1.0))
+        ws = (rnd(c, 1, 1, 1, scale=0.3), rnd(c, 1, 15, 15, scale=1 / 15))
+        bs = (rnd(c, scale=0.1), rnd(c, scale=0.1))
+
+        def kernels(a, b, lo, hi):
+            rows = b - a
+            return {
+                "corr_lookup": K1.corr_lookup(
+                    f1[:, a:b].contiguous(), levels,
+                    coords[:, a:b].contiguous()),
+                "ffn_pair": K2.ffn_pair_k1(
+                    x[:, a:b].reshape(-1, c).contiguous(),
+                    *pair).reshape(3, rows, w8, c),
+                "flash_attention": K3.flash_attention_fwd(
+                    q.reshape(3, 1, h8, w8, 128)[:, :, a:b].reshape(
+                        3, 1, -1, 128).contiguous(), k, v).reshape(
+                            3, rows, w8, 128),
+                "dw_chain": K5.dw_chain(x[:, lo:hi].contiguous(), ws, bs,
+                                        (1, 15))[:, a - lo:b - lo]}
+        whole = kernels(0, h8, 0, h8)
+        same = dict.fromkeys(whole, True)
+        for a, b in seq_plan(T, 440, 1024, SEQ_WORLD).decoder:
+            part = kernels(a, b, max(a - halo, 0), min(b + halo, h8))
+            for name, t in part.items():
+                same[name] &= torch.equal(t, whole[name][:, a:b])
+        out[str(dt)[6:]] = same
+    log(f"phase 39 the decoder's kernels on each rank's slab, bit for bit "
+        f"as on the whole grid: {json.dumps(out)}")
+    return out
+
+
+def seq_phase(dev, summary) -> dict:
+    """Phase 39: the kernels at rank 0's slab shapes into ``summary``
+    (the "inference_seq" path), then SEQ_WORLD ranks sharing the card;
+    returns rank 0's launches of the 12-iteration bf16 forward."""
+    t0 = time.perf_counter()
+    kernel_checks(dev, {"seq": summary}, 440, 1024, False)
+    slab_bits(dev)
+    t1 = time.perf_counter()
+    recs = dp_run("seq", SEQ_WORLD, "gloo")
+    assert all(r["launches"] == recs[0]["launches"] for r in recs)
+    peaks = [round(r["peak_gib"], 3) for r in recs]
+    log(f"phase 39 parts: kernels {t1 - t0:.1f} s, {SEQ_WORLD} ranks "
+        f"{time.perf_counter() - t1:.1f} s; 1440x2560 peak GiB by rank "
+        f"{peaks}")
+    return recs[0]["launches"]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -3975,6 +4382,7 @@ def main() -> None:
         summary["train_step_" + name] = new_summary()
     summary["inference_umt"] = new_summary()
     summary["train_step_umt"] = new_summary()
+    summary["inference_seq"] = new_summary()
 
     phase(3, "kernels", kernel_checks, dev,
           {**per_layout("inference"), **per_zoo("inference", ZOO),
@@ -4041,7 +4449,9 @@ def main() -> None:
     counts["trained_dynamics"], summary["trained_dynamics"] = phase(
         37, "trained dynamics", trained_dynamics_phase, dev)
     phase(38, "tools", tools_phase, dev)
-    log(f"phases 3-38: {time.perf_counter() - t_start:.1f} s after the "
+    counts["inference_seq"] = phase(39, "sequence-sharded forward",
+                                    seq_phase, dev, summary["inference_seq"])
+    log(f"phases 3-39: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})
@@ -4080,7 +4490,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp"]:      # a process of phase 34
+    if sys.argv[1:2] == ["--dp"]:      # a process of phase 34 or 39
         part, rank, world, backend, store = sys.argv[2:7]
         dp_worker(part, int(rank), int(world), backend, store)
     else:

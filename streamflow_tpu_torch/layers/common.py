@@ -55,6 +55,14 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, bias: bool = True
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def on_slab(fn, x: torch.Tensor, k: int, rows=None) -> torch.Tensor:
+    """``fn(x)``, a layer that reaches ``k`` rows along x's dim 1; with
+    ``rows`` (``parallel.exchange.Rows``: x is one slab of the grid's
+    rows, in the sequence-sharded forward) run on the slab extended by
+    the neighbours' ``k`` rows and cropped back to it."""
+    return fn(x) if rows is None else rows.local(fn, x, k)
+
+
 class Mlp(nn.Module):
     """Transformer MLP fc1 -> gelu -> fc2 (timm Mlp), the plain form of the
     K2 ``ln_ffn_pair`` kernel's pair."""

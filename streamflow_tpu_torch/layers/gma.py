@@ -56,10 +56,12 @@ class GMAAggregate(nn.Module):
         self.to_v = nn.Conv2d(dim, heads * dim_head, 1, bias=False)
         self.gamma = nn.Parameter(torch.zeros(1))
 
-    def forward(self, qk, fmap):
+    def forward(self, qk, fmap, whole=None):
+        """``whole``: the whole grid's fmap, of which fmap and q are one
+        slab of rows (``parallel/seq.py``), k and v the whole's."""
         b, h, w, c = fmap.shape
-        v = pointwise(fmap, self.to_v)
-        v = v.reshape(b, h * w, self.heads, self.dim_head).transpose(1, 2)
+        v = pointwise(fmap if whole is None else whole, self.to_v)
+        v = v.reshape(b, -1, self.heads, self.dim_head).transpose(1, 2)
         out = flash_attention(qk[0], qk[1], v.contiguous())
         out = out.transpose(1, 2).reshape(b, h, w, c).to(fmap.dtype)
         return fmap + self.gamma.to(fmap.dtype) * out

@@ -68,6 +68,9 @@ class SKBlock(nn.Module):
         super().__init__()
         hidden = int(1.5 * c_in)
         self.k_conv = tuple(k_conv)
+        # rows the block reaches across an edge of its input (its convs
+        # in sequence)
+        self.halo = sum(k // 2 for k in self.k_conv)
         self.layout = dw_impl if dw_impl in _PAIR_LAYOUTS else "edge"
         self.ffn1 = _ffn(c_in, hidden, c_in)
         self.conv_list = nn.ModuleList(

@@ -35,7 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from streamflow_tpu_torch.layers.common import (Mlp, cast, conv2d, layer_norm,
-                                                linear)
+                                                linear, on_slab)
 from streamflow_tpu_torch.layers.temporal import TinyAttention
 from streamflow_tpu_torch.ops.kernels.ffn_pair import ffn_pair, ln_ffn_pair
 from streamflow_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -69,10 +69,13 @@ class PosConv(nn.Module):
         super().__init__()
         self.proj = nn.Sequential(nn.Conv2d(dim, dim, 3, 1, 1, groups=dim))
 
-    def forward(self, x, size):
+    def forward(self, x, size, rows=None):
+        """``rows``: x is that slab of the grid's rows (the conv reaches
+        one row across its edges)."""
         b, n, c = x.shape
         feat = x.reshape(b, size[0], size[1], c)
-        return (conv2d(feat, self.proj[0]) + feat).reshape(b, n, c)
+        y = on_slab(lambda f: conv2d(f, self.proj[0]), feat, 1, rows)
+        return (y + feat).reshape(b, n, c)
 
 
 class LocallyGroupedAttn(nn.Module):
@@ -108,14 +111,32 @@ class GlobalSubSampleAttn(nn.Module):
         self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, size, gsa_flash: bool = False):
+    def forward(self, x, size, gsa_flash: bool = False, rows=None):
+        """``rows``: x is that slab of the grid's rows, aligned to the sr
+        cells: its queries attend to the keys and values of the whole
+        grid (every slab's reduced tokens, gathered, projected as on one
+        rank), and flash or not follows the whole grid's token count."""
         b, n, c = x.shape
         nh = self.num_heads
         hd = c // nh
         q = linear(x, self.q).reshape(b, n, nh, hd).transpose(1, 2)
         q = q * hd ** -0.5
-        kvin = conv2d(x.reshape(b, size[0], size[1], c), self.sr)
+        feat = x.reshape(b, size[0], size[1], c)
+        sr = self.sr_ratio
+        if rows is not None:
+            # the slab at the top of the whole grid's rows, zeros below:
+            # cuDNN picks its algorithm by shape, and at the whole grid's
+            # each of the slab's cells sums as on one rank (an H100 at f32
+            # summed the slab's cells in another order at the slab's own
+            # shape)
+            feat = F.pad(feat, (0, 0, 0, 0, 0, rows.total - rows.size))
+        kvin = conv2d(feat, self.sr)
+        if rows is not None:
+            kvin = kvin[:, :rows.stop // sr - rows.start // sr]
         kvin = layer_norm(kvin.reshape(b, -1, c), self.norm)
+        if rows is not None:   # every slab's cells, then kv at one rank's M
+            kvin = rows.coarse(sr).gather(kvin, 1, unit=size[1] // sr)
+            n = rows.total * size[1]
         kv = linear(kvin, self.kv).reshape(b, -1, 2, nh, hd)
         k = kv[:, :, 0].transpose(1, 2)
         v = kv[:, :, 1].transpose(1, 2)
@@ -125,7 +146,7 @@ class GlobalSubSampleAttn(nn.Module):
         else:
             a = torch.softmax(q.float() @ k.float().transpose(-1, -2), -1)
             out = (a.to(v.dtype).float() @ v.float()).to(v.dtype)
-        return linear(out.transpose(1, 2).reshape(b, n, c), self.proj)
+        return linear(out.transpose(1, 2).reshape(b, -1, c), self.proj)
 
 
 def _dirac_(w: torch.Tensor) -> torch.Tensor:
@@ -170,7 +191,10 @@ class TwinsBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim * mlp_ratio, dim)
 
-    def forward(self, x, size, gsa_flash: bool = False, t: int = 1):
+    def forward(self, x, size, gsa_flash: bool = False, t: int = 1,
+                rows=None):
+        """``rows``: x is that slab of the grid's rows (GSA blocks;
+        ``parallel/seq.py``)."""
         bt, n, c = x.shape
 
         def to_time(tok):      # (B*T, N, C) -> (B, N, T, C)
@@ -183,7 +207,8 @@ class TwinsBlock(nn.Module):
             tok = self.temporal_attn(to_time(layer_norm(x, self.norm0)))
             x = x + from_time(linear(tok, self.temporal_fc))
         if isinstance(self.attn, GlobalSubSampleAttn):
-            x = x + self.attn(layer_norm(x, self.norm1), size, gsa_flash)
+            x = x + self.attn(layer_norm(x, self.norm1), size, gsa_flash,
+                              rows)
         else:
             x = x + self.attn(layer_norm(x, self.norm1), size)
         n2, fc1, fc2 = self.norm2, self.mlp.fc1, self.mlp.fc2

@@ -20,7 +20,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from streamflow_tpu_torch.layers.common import conv2d, gelu, pointwise
+from streamflow_tpu_torch.layers.common import (conv2d, gelu, on_slab,
+                                                pointwise)
 from streamflow_tpu_torch.layers.gma import GMAAggregate
 from streamflow_tpu_torch.layers.sk import SKBlock
 from streamflow_tpu_torch.layers.temporal import TemporalLayer
@@ -51,11 +52,16 @@ class SKMotionEncoder6(nn.Module):
         self.convf2 = SKBlock(128, 64, k_conv, dw_impl)
         self.conv = SKBlock(192 + 64, out_dim - 2, k_conv, dw_impl)
 
-    def forward(self, flow, corr):
-        cor = self.convc2(gelu(self.convc1(corr)))
+    def forward(self, flow, corr, rows=None):
+        """``rows``: the inputs are that slab of the grid's rows; each SK
+        block runs on its input's slab extended by its halo."""
+        def sk(block, x):
+            return on_slab(block, x, block.halo, rows)
+
+        cor = sk(self.convc2, gelu(sk(self.convc1, corr)))
         flow = flow.to(cor.dtype)
-        flo = self.convf2(pointwise(flow, self.convf1))
-        out = self.conv(torch.cat([cor, flo], dim=-1))
+        flo = sk(self.convf2, pointwise(flow, self.convf1))
+        out = sk(self.conv, torch.cat([cor, flo], dim=-1))
         return torch.cat([out, flow], dim=-1)
 
 
@@ -95,34 +101,47 @@ class SKUpdateBlockTAMv3(nn.Module):
             self.flow_head = SKBlock(d, 2, k_conv, dw_impl)
         self.mask = mask_head_module(d, ratio)
 
-    def forward(self, net, inp, corr, flow, attn, compute_mask: bool = True):
+    def forward(self, net, inp, corr, flow, attn, compute_mask: bool = True,
+                rows=None):
         """net/inp (B, F, H, W, D), corr (B, F, H, W, 324), flow
         (B, F, H, W, 2); attn is GMA's (q, k) (None without GMA). Returns
         net, the mask (B, F, H, W, 9 r^2) or None, and delta (B, F, H, W,
-        2)."""
+        2). ``rows`` (``parallel/seq.py``): the inputs are that slab of the
+        grid's rows, attn's k whole; the SK blocks and the mask head run
+        on their inputs' slabs extended by their halos; the motion
+        features are gathered for GMA's v and the temporal layer, which
+        run at the whole grid's shape (per pixel, but the card's batched
+        products sum in another order at a slab's)."""
         b, f, h, w, d = net.shape
         assert f == self.num_frames
 
         def flat(x):
             return x.reshape(b * f, h, w, x.shape[-1])
 
-        mf = self.encoder(flat(flow), flat(corr))
+        def sk(block, x):
+            return on_slab(block, x, block.halo, rows)
+
+        mf = self.encoder(flat(flow), flat(corr), rows)
+        mf_all = mf if rows is None else rows.gather(mf, 1)
         mf_global = (mf if self.aggregator is None
-                     else self.aggregator(attn, mf))
-        mf_temporal = self.transformer_block(mf.reshape(b, f, h, w, d))
-        net_f = self.gru(torch.cat(
+                     else self.aggregator(attn, mf, mf_all))
+        mf_temporal = self.transformer_block(mf_all.reshape(b, f, -1, w, d))
+        if rows is not None:
+            mf_temporal = mf_temporal[:, :, rows.start:rows.stop]
+        net_f = sk(self.gru, torch.cat(
             [flat(net), flat(inp), mf, mf_global, flat(mf_temporal)], dim=-1))
 
         if self.joint_flow_head:
             joint = net_f.reshape(b, f, h, w, d).permute(0, 2, 3, 1, 4)
-            delta = self.flow_head(joint.reshape(b, h, w, f * d))
+            delta = sk(self.flow_head, joint.reshape(b, h, w, f * d))
             delta = delta.reshape(b, h, w, f, 2).permute(0, 3, 1, 2, 4)
         else:
-            delta = self.flow_head(net_f).reshape(b, f, h, w, 2)
+            delta = sk(self.flow_head, net_f).reshape(b, f, h, w, 2)
 
         mask = None
         if compute_mask:
-            mask = mask_head(self.mask, net_f).reshape(b, f, h, w, -1)
+            mask = on_slab(lambda x: mask_head(self.mask, x), net_f, 1,
+                           rows).reshape(b, f, h, w, -1)
         return net_f.reshape(b, f, h, w, d), mask, delta
 
 

@@ -10,9 +10,11 @@ import torch
 
 
 def coords_grid(batch: int, ht: int, wd: int, device=None,
-                dtype=torch.float32) -> torch.Tensor:
-    """Identity coordinate grid, shape (batch, ht, wd, 2), channels (x, y)."""
-    ys = torch.arange(ht, device=device, dtype=dtype)
+                dtype=torch.float32, y0: int = 0) -> torch.Tensor:
+    """Identity coordinate grid, shape (batch, ht, wd, 2), channels (x, y);
+    its rows are the grid's rows y0 to y0 + ht (a slab's, in the
+    sequence-sharded forward)."""
+    ys = torch.arange(y0, y0 + ht, device=device, dtype=dtype)
     xs = torch.arange(wd, device=device, dtype=dtype)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     grid = torch.stack([gx, gy], dim=-1)

@@ -21,11 +21,14 @@ def _neighborhood3x3(x: torch.Tensor) -> torch.Tensor:
 
 
 def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
-                    ratio: int = 8) -> torch.Tensor:
-    """(B,h,w,2), (B,h,w,9*r*r) -> (B, h*r, w*r, 2), computed in f32."""
-    b, h, w, _ = flow.shape
+                    ratio: int = 8, top: int = 0) -> torch.Tensor:
+    """(B,h,w,2), (B,h,w,9*r*r) -> (B, h*r, w*r, 2), computed in f32.
+    ``flow`` may hold more rows than ``mask``: ``top`` rows above the
+    mask's and the rest below, a slab's halo (``parallel/seq.py``), which
+    the 3x3 neighbourhoods read in place of the zero padding."""
+    b, h, w, _ = mask.shape
     r = ratio
     m = torch.softmax(mask.reshape(b, h, w, 9, r, r).float(), dim=3)
-    nb = _neighborhood3x3(ratio * flow.float())               # (B,h,w,9,2)
+    nb = _neighborhood3x3(ratio * flow.float())[:, top:top + h]  # (B,h,w,9,2)
     up = torch.einsum("bhwkij,bhwkc->bhwijc", m, nb)          # (B,h,w,r,r,2)
     return up.permute(0, 1, 3, 2, 4, 5).reshape(b, h * r, w * r, 2)

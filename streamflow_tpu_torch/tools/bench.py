@@ -19,7 +19,8 @@ weights from a seed, on one GPU. Prints one JSON line.
   on the card and the f32 plain path on the CPU, same weights; relative
   EPE global (max EPE / max(1, max |flow_ref|), as bench.py:146) and
   per-pixel p99 (EPE / max(1, |flow_ref|)), each held below 1e-2 (the f32
-  guard of chip_smoke.py; both paths run the same math in other orders).
+  guard of chip_smoke.py; both paths run the same math in other orders),
+  with TF32 off in cuBLAS and cuDNN (``tools/common.py::strict_f32``).
 - ``name`` and ``power_limit``: nvidia-smi's.
 
 Unlike bench.py there is no ``vs_baseline`` (its target is an A100
@@ -67,7 +68,9 @@ def main(argv=None) -> dict:
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.ops.padding import InputPadder
     from streamflow_tpu_torch.tools.common import (host_ms, init_weights,
-                                                   rel_epe, smi)
+                                                   rel_epe, smi, strict_f32)
+
+    strict_f32()   # the f32 guard's convs in f32, not cuDNN's default TF32
 
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"

@@ -202,6 +202,25 @@ def test_test_memory_and_bench_tools_run_on_the_cpu(capsys):
     assert line["rel_epe_p99_vs_f32_plain_1iter"] == 0.0
 
 
+def test_bench_turns_tf32_off():
+    """tools/bench.py's f32 guard runs in f32: its main turns TF32 off in
+    cuBLAS and cuDNN (PyTorch leaves cuDNN's f32 convs in TF32)."""
+    from streamflow_tpu_torch.tools import bench
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        bench.main(["--device", "cpu", "--height", "60", "--width", "90",
+                    "--iters", "1"])
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
 def _jax_demo():
     spec = importlib.util.spec_from_file_location(
         "jax_tools_demo", ROOT / "tools" / "demo.py")
