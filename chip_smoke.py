@@ -213,7 +213,23 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      bf16 forward's, global and p99); each rank's launches exact (the
      one-process counts) and both ranks' flows equal bit for bit; each
      rank's wall and device ms, the exchanges' share, peak memory; then
-     one 1440x2560 bf16 run (peak memory, wall ms).
+     one 1440x2560 bf16 run (peak memory, wall ms). Then 8 processes
+     sharing the card over gloo: (a) the same clip over one seq group of
+     8 (one 8-GPU node: decoder slabs 7 x 7 + 6, the cnet's 6 encoder
+     units leaving two ranks empty): f32 at iters 1 against the
+     one-process forward (the bound above, the share of bit-equal values),
+     bf16 'auto' at iters 1 and 12 within phase 5's guard, every rank's
+     launches exactly its slabs' (seq_rank_launches: an empty slab's
+     rank launches fewer), the ranks bit for bit, wall and device ms, the
+     exchanges' count and bytes, peak memory, one 1440x2560 run; (b) each
+     Twins ablation config of ZOO (the per-frame encoders and the
+     decoder ablations) at iters 1, bf16 'auto', B=1 over
+     make_mesh(n_data=2, n_seq=4) (data group 1 holds no rows; a
+     per-frame encoder's 55-row frames leave two ranks without encoder
+     rows; decoder 14/14/14/13) within the same guard against its own
+     one-process forwards, launches exact, ms a clip. The kernels are
+     checked at the slab shapes of SEQ_PATHS (rank 0 of two, the last
+     rank of 8, rank 0 of 4 under 'twins').
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -230,8 +246,9 @@ iterations and per B=8 step; "inference_umt": phases 3 and 35, per
 TD_STEPS training steps at 192x384 and the trained weights' bf16 clip at
 216x512), with phase 37's kernel numbers per step times TD_STEPS plus
 per clip;
-"inference_seq": phase 39's rank 0, per 440x1024 clip of 12
-iterations at its slabs' shapes;
+"inference_seq", "inference_seq8", "inference_seq_frames": phase 39's
+SEQ_PATHS, per 440x1024 clip (12 iterations; 'twins' at 1) at that
+rank's slabs' shapes;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
@@ -1180,9 +1197,11 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                       flash_case((nb, 1), n2, n2, 128), calls2,
                       tuple(m for m in two if m != "raft")))
 
-    if "seq" in summaries:
-        cases += seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case,
-                           dw_case, hp, wp)
+    for tag, (n_seq, rank, temporal, iters) in SEQ_PATHS.items():
+        if tag in summaries:
+            cases += seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case,
+                               dw_case, hp, wp, tag, n_seq, rank, temporal,
+                               iters)
     if "umt" in summaries:
         cases += umt_cases(ffn_case, flash_case, corr_traffic_case,
                            mixed_tiles, edge_case,
@@ -1251,62 +1270,80 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
 
 
 def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
-              wp) -> list:
-    """Phase 39's kernel shapes: rank 0 of SEQ_WORLD ranks sharing an hp
-    x wp clip (its slabs from parallel/seq.py::seq_plan), each kernel's
-    calls per clip of ITERS iterations (the "seq" path): K2's default
-    forms on each SK block's slab extended by its halo (rank 0: the rows
-    below), the Twins MLPs on the encoders' stacked slabs, K3 for GMA
-    (the slab's queries against the whole grid's keys) and GSA (a stacked
-    slab against the whole reduced grid), K4 on window-aligned slabs, K1
-    on the slab's queries against the whole pyramid; K5 on an extended
-    slab, checked (the 'pallas' run of phase 39 calls it there)."""
+              wp, tag, n_seq, s, temporal, iters) -> list:
+    """Phase 39's kernel shapes: rank ``s`` of ``n_seq`` ranks sharing an
+    hp x wp clip (its slabs from parallel/seq.py::seq_plan; ``temporal``:
+    Twins_CSC's stacked encoder grids, else a per-frame encoder's slabs of
+    each frame), each kernel's calls per clip of ``iters`` iterations (the
+    ``tag`` path; none for a grid where the rank's slab is empty): K2's
+    default forms on each SK block's slab extended by its halo (as many
+    rows above and below as the grid holds), the Twins MLPs on the
+    encoders' slabs, K3 for GMA (the slab's queries against the whole
+    grid's keys) and GSA (a slab against the whole reduced grid, or per
+    frame against one frame's), K4 on window-aligned slabs, K1 on the
+    slab's queries against the whole pyramid; for "seq", K5 on an
+    extended slab, checked (the 'pallas' run of phase 39 calls it
+    there)."""
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
     from streamflow_tpu_torch.parallel.seq import seq_plan
     from streamflow_tpu_torch.tools import kernel_bench as KB
 
-    plan = seq_plan(T, hp, wp, SEQ_WORLD)
+    plan = seq_plan(T, hp, wp, n_seq, temporal)
     h8, w8 = hp // 8, wp // 8
-    (r0, r1), (f0, f1), (c0, c1) = (plan.decoder[0], plan.fnet[0],
-                                    plan.cnet[0])
+    (r0, r1), (f0, f1), (c0, c1) = (plan.decoder[s], plan.fnet[s],
+                                    plan.cnet[s])
     hs = r1 - r0
-    below = SEQ_WORLD > 1          # rank 0 takes a halo from below only
-    tag = ("seq",)
+    tags = (tag,)
     cases = []
     for c, co, pairs, k in ((324, 256, 3, 15), (256, 192, 3, 15),
                             (128, 64, 3, 15), (256, 126, 3, 15),
                             (640, 128, 3, 7), (384, 6, 1, 15)):
-        ch, rows = int(1.5 * c), pairs * (hs + below * (k // 2)) * w8
-        cases.append(("ffn_pair", f"seq ffn_pair_k1 {rows}x{c}-{ch}-{c}",
-                      ffn_case("ffn_pair_k1", rows, c, ch, c), ITERS, tag))
+        ext = hs + min(k // 2, r0) + min(k // 2, h8 - r1)
+        ch, rows = int(1.5 * c), pairs * ext * w8
+        if not hs:
+            continue
+        cases.append(("ffn_pair", f"{tag} ffn_pair_k1 {rows}x{c}-{ch}-{c}",
+                      ffn_case("ffn_pair_k1", rows, c, ch, c), iters, tags))
         cases.append(("ffn_pair",
-                      f"seq dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
-                      ffn_case("dwres_pw_ffn_pair", rows, c, ch, co), ITERS,
-                      tag))
-    for c, rows in ((128, 2 * (f1 - f0) * 2 * w8),
-                    (128, 2 * (c1 - c0) * 2 * w8),
-                    (256, (f1 - f0) * w8), (256, (c1 - c0) * w8)):
-        cases.append(("ffn_pair", f"seq ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
-                      ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2, tag))
-    cases.append(("flash_attention",
-                  f"seq gma bh3 n{hs * w8} m{h8 * w8} d128",
-                  flash_case((3, 1), hs * w8, h8 * w8, 128), ITERS, tag))
+                      f"{tag} dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
+                      ffn_case("dwres_pw_ffn_pair", rows, c, ch, co), iters,
+                      tags))
+    # images of an encoder's grid: one stacked grid, or its T frames
+    imgs = {"fnet": 1 if temporal else T, "cnet": 1 if temporal else T - 1}
+    grids = (("fnet", (f0, f1), T), ("cnet", (c0, c1), T - 1))
+    for stage, c, up in ((0, 128, 2), (1, 256, 1)):
+        for enc, (a, b), _ in grids:
+            rows = imgs[enc] * up * (b - a) * up * w8
+            if rows:
+                cases.append(("ffn_pair",
+                              f"{tag} ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
+                              ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2,
+                              tags))
+    if hs:
+        cases.append(("flash_attention",
+                      f"{tag} gma bh3 n{hs * w8} m{h8 * w8} d128",
+                      flash_case((3, 1), hs * w8, h8 * w8, 128), iters, tags))
     for stage, nh, sr, up in ((0, 4, 8, 2), (1, 8, 4, 1)):
         ww = up * w8
-        for enc, (a, b), t in (("fnet", (f0, f1), T),
-                               ("cnet", (c0, c1), T - 1)):
-            n, m = up * (b - a) * ww, (up * t * h8 // sr) * (ww // sr)
-            cases.append(("flash_attention",
-                          f"seq gsa{stage} {enc} b1 h{nh} n{n} m{m} d32",
-                          flash_case((1, nh), n, m, 32),
-                          int(up * t * h8 * ww > GSA_FLASH_TOKENS), tag))
+        for enc, (a, b), t in grids:
+            frames = t if temporal else 1        # frames in a grid
+            n = up * (b - a) * ww
+            m = (up * frames * h8 // sr) * (ww // sr)
+            if n:
+                cases.append((
+                    "flash_attention",
+                    f"{tag} gsa{stage} {enc} b{imgs[enc]} h{nh} n{n} m{m} d32",
+                    flash_case((imgs[enc], nh), n, m, 32),
+                    int(up * frames * h8 * ww > GSA_FLASH_TOKENS), tags))
     for stage, c, nh, up in ((0, 128, 4, 2), (1, 256, 8, 1)):
-        for enc, (a, b) in (("fnet", (f0, f1)), ("cnet", (c0, c1))):
+        for enc, (a, b), _ in grids:
             hq, wq = -(-up * (b - a) // 7) * 7, -(-up * w8 // 7) * 7
-            cases.append(("lga_attention",
-                          f"seq stage{stage} {enc} 1x{hq}x{wq}x{3 * c} h{nh}",
-                          lga_case(hq, wq, c, nh), 1, tag))
+            if hq:
+                cases.append((
+                    "lga_attention", f"{tag} stage{stage} {enc} "
+                    f"{imgs[enc]}x{hq}x{wq}x{3 * c} h{nh}",
+                    lga_case(hq, wq, c, nh, imgs[enc]), 1, tags))
 
     def corr_make(dt):
         f1 = rnd(3, hs, w8, 256, dt=dt)
@@ -1319,11 +1356,13 @@ def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
                 lambda: K1.corr_lookup_plain(f1, levels, coords, 4),
                 KB.corr_flops(coords, shapes, 256, 4),
                 (f1, *levels, coords), None, None)
-    cases.append(("corr_lookup",
-                  f"seq jitter30 3x{hs}x{w8} against 3x{h8}x{w8}x256 4 "
-                  f"levels r4", corr_make, ITERS, tag))
-    cases.append(("dw_chain", f"seq 3x{hs + 7}x{w8}x324 ks (1, 15)",
-                  dw_case("dw_chain", 3, 324, 15, hs + 7), 0, tag))
+    if hs:
+        cases.append(("corr_lookup",
+                      f"{tag} jitter30 3x{hs}x{w8} against 3x{h8}x{w8}x256 "
+                      f"4 levels r4", corr_make, iters, tags))
+    if tag == "seq":
+        cases.append(("dw_chain", f"seq 3x{hs + 7}x{w8}x324 ks (1, 15)",
+                      dw_case("dw_chain", 3, 324, 15, hs + 7), 0, tags))
     return cases
 
 
@@ -3194,7 +3233,7 @@ DP_TIMEOUT = 600             # seconds a part's processes may take
 
 
 def dp_run(part: str, world: int, backend: str) -> list:
-    """Part ``part`` of phase 34 (or "seq", phase 39) in ``world``
+    """Part ``part`` of phase 34 (or "seq" and "seq8", phase 39) in ``world``
     processes on the card (a file store under DP_DIR for the
     rendezvous); returns each rank's record. Raises if a process fails or
     outlasts DP_TIMEOUT; kills every process it started before it returns
@@ -3231,7 +3270,7 @@ def dp_run(part: str, world: int, backend: str) -> list:
 
 
 def dp_phase_of(part: str) -> int:
-    return 39 if part == "seq" else 34
+    return 39 if part.startswith("seq") else 34
 
 
 def dp_worker(part, rank, world, backend, store) -> None:
@@ -3262,6 +3301,8 @@ def dp_worker(part, rank, world, backend, store) -> None:
             rec = dp_one_rank(dev, rank, world)
         elif part == "seq":
             rec = seq_worker(dev, rank, world)
+        elif part == "seq8":
+            rec = seq_node_worker(dev, rank, world)
         else:             # (b) then (c), in the same two processes
             rec = {"b": dp_two_ranks(dev, rank, world)}
             torch.cuda.empty_cache()
@@ -4038,15 +4079,47 @@ SEQ_REPS = 3             # timed sharded forwards a rank, after a warm-up
 SEQ_HIGH = (1440, 2560)
 # f32 against the one-process forward: tests/test_torch_seq.py's bound
 SEQ_RTOL, SEQ_ATOL = 1e-4, 1e-5
+# (a): one 8-GPU node's seq group, its ranks sharing the card; (b): the
+# A10c configs (ZOO's Twins ones) over make_mesh(n_data=2, n_seq=4) in
+# the same 8 processes, B=1 (data group 1 holds no rows)
+SEQ_NODE, SEQ_NODE_REPS = 8, 1
+SEQ_ZOO_SEQ = 4
+SEQ_ZOO = ("twins", "twins_1dconv", "twins_temporal_attention",
+           "twins_3dconv", "sk_tam_v1", "sk_tam_v3_noinit", "no_gma")
+# the kernels line's paths of phase 39, "inference_<tag>": tag -> (n_seq,
+# rank, Twins_CSC's stacked grid, iterations a clip): rank 0 of two; the
+# last rank of SEQ_NODE (a 6-row decoder slab, the fnet's last 24 stacked
+# rows, no cnet rows); rank 0 of SEQ_ZOO_SEQ under a per-frame encoder
+# ((b)'s 'twins' at iters 1: 28 of each frame's 55 rows)
+SEQ_PATHS = {"seq": (SEQ_WORLD, 0, True, ITERS),
+             "seq8": (SEQ_NODE, SEQ_NODE - 1, True, ITERS),
+             "seq_frames": (SEQ_ZOO_SEQ, 0, False, 1)}
 
 
-def seq_launches(dw_impl: str, iters: int) -> dict:
-    """Each rank's launches in one sharded forward: the one-process
-    forward's (each slab runs every kernel as often; GSA's K3 by the
-    whole grid's token count)."""
-    out = forward_launches(iters)
-    if dw_impl == "pallas":
-        out["dw_chain"] = 6 * iters
+def seq_rank_launches(plan, s: int, iters: int, dw_impl: str = "auto",
+                      name=None, h: int = 440, w: int = 1024) -> dict:
+    """Rank ``s``'s launches in one sharded forward of the canonical model
+    (or of the ZOO config ``name``), from the plan's slabs: a decoder
+    slab runs the refinement kernels of the one-process forward (K1, K2
+    2 per SK block, K3 for GMA, K5 under 'pallas'), and each encoder
+    slab its 4 Twins MLPs (K2), 2 LGA blocks (K4) and the GSA blocks
+    whose whole grid (a frame's, per frame) exceeds GSA_FLASH_TOKENS
+    (K3); an empty slab none of its grid's."""
+    kind = zoo_kind(name) if name else dict(csc=True, gma=True)
+    holds = plan.holds(s)
+    out = dict.fromkeys(KERNELS, 0)
+    if holds["decoder"]:
+        out.update(corr_lookup=iters, ffn_pair=12 * iters,
+                   flash_attention=iters if kind["gma"] else 0,
+                   dw_chain=6 * iters if dw_impl == "pallas" else 0)
+    for enc, t in (("fnet", T), ("cnet", T - 1)):
+        if holds[enc]:
+            frames = t if kind["csc"] else 1
+            out["ffn_pair"] += 4
+            out["lga_attention"] += 2
+            out["flash_attention"] += sum(
+                frames * (h // d) * (w // d) > GSA_FLASH_TOKENS
+                for d in (4, 8))
     return out
 
 
@@ -4077,157 +4150,154 @@ def gloo_probe(dev) -> dict:
     return out
 
 
-def seq_worker(dev, rank, world) -> dict:
-    """One rank of phase 39 (a process of its own; rank 0 also runs the
-    one-process references while rank 1 waits at a store barrier):
-    returns its record."""
+def seq_model(dev, dtype, dw_impl="auto", name=None):
+    """Phase 39's StreamFlow (the ZOO config ``name``, else the canonical
+    one) at full width, seeded weights (the same in both dtypes)."""
+    from streamflow_tpu_torch.config import StreamFlowConfig
+    from streamflow_tpu_torch.models import create_model
+
+    m = create_model("streamflow", cfg=StreamFlowConfig(
+        T=T, iters=ITERS, mixed_precision=dtype == "bf16", dw_impl=dw_impl,
+        **(ZOO[name] if name else {})), device=dev)
+    init_weights(m, SEED + 1)
+    return m
+
+
+def seq_one(m, iters, x, first: bool):
+    """The one-process forward on the world's rank 0 (``first``), the
+    other ranks waiting at a store barrier; None on those."""
+    from streamflow_tpu_torch import parallel
+
+    out = m(x, iters=iters, test_mode=True).float().cpu() if first else None
+    parallel.barrier("seq one-process")
+    return out
+
+
+def seq_sharded(dev, m, mesh, iters, x, expect):
+    """The sharded forward of ``m`` over ``mesh``: its launches on this
+    rank exactly ``expect``, and every rank of its seq group returning the
+    same flows bit for bit (a broadcast from the group's first rank);
+    returns (the forward, its flows on the host, the launches)."""
     import torch
     import torch.distributed as dist
 
     from streamflow_tpu_torch import parallel
-    from streamflow_tpu_torch.config import StreamFlowConfig
-    from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
-    from streamflow_tpu_torch.parallel.exchange import Rows
-    from streamflow_tpu_torch.tools.common import (device_events, host_ms,
-                                                   profiled, rel_epe)
 
-    gloo = gloo_probe(dev)
-    if rank == 0:
-        log(f"phase 39 gloo on CUDA tensors, {world} ranks: "
-            f"{json.dumps(gloo)}")
-    mesh = parallel.make_mesh(n_seq=world)
-    imgs = make_clip(dev)
-
-    def model(dtype, dw_impl="auto"):
-        m = create_model("streamflow", cfg=StreamFlowConfig(
-            T=T, iters=ITERS, mixed_precision=dtype == "bf16",
-            dw_impl=dw_impl), device=dev)
-        init_weights(m, SEED + 1)
-        return m
-
-    def one(m, iters, x=imgs):
-        """The one-process forward, on rank 0 (rank 1 waits)."""
-        out = None
-        if rank == 0:
-            out = m(x, iters=iters, test_mode=True).float().cpu()
-        parallel.barrier("seq one-process")
-        return out
-
-    def sharded(m, iters, dw_impl, x=imgs):
-        fwd = parallel.make_seq_sharded_forward(m, mesh, iters)
-        reset_launches()
-        out = fwd(x)
-        torch.cuda.synchronize()
-        counts = dict(LAUNCHES)
-        assert counts == seq_launches(dw_impl, iters), (rank, counts)
-        # both ranks return the same whole flows, bit for bit
+    fwd = parallel.make_seq_sharded_forward(m, mesh, iters)
+    reset_launches()
+    out = fwd(x)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    assert counts == expect, (dist.get_rank(), counts, expect)
+    if out.shape[0]:
         ref = out.clone()
-        dist.broadcast(ref.view(torch.int32), 0)
+        dist.broadcast(ref.view(torch.int32), mesh.d * mesh.n_seq,
+                       group=mesh.seq_group)
         same = torch.tensor([float(torch.equal(ref.view(torch.int32),
                                                out.view(torch.int32)))],
                             device=dev)
-        dist.all_reduce(same)
-        assert int(same.item()) == world, "the ranks' flows differ"
-        return fwd, out.cpu(), counts
+        dist.all_reduce(same, group=mesh.seq_group)
+        assert int(same.item()) == mesh.n_seq, "the ranks' flows differ"
+    return fwd, out.cpu(), counts
 
-    # f32 (TF32 off) at iters 1 and 2 against the one-process forward
-    m32 = model("f32")
-    ref32 = {}
-    for it in (1, 2):
-        ref32[it] = one(m32, it)
-        _, got, counts = sharded(m32, it, "auto")
-        if rank == 0:
-            bound = SEQ_ATOL * max(1.0, float(ref32[it].abs().max()))
-            excess = float(((got - ref32[it]).abs() - bound
-                            - SEQ_RTOL * ref32[it].abs()).max())
-            err = float((got - ref32[it]).abs().max())
-            equal = float((got == ref32[it]).float().mean())
-            nonzero = {k: v for k, v in counts.items() if v}
-            log(f"phase 39 f32 'auto' {tuple(imgs.shape)} iters {it}: "
-                f"{world} ranks (gloo) against one process, max abs diff "
-                f"{err:.3e} (|flow| max {float(ref32[it].abs().max()):.4g}; "
-                f"bound rtol {SEQ_RTOL} + atol {SEQ_ATOL} x max(1, "
-                f"max|flow|)), {equal:.4f} of the values equal bit for "
-                f"bit; launches {json.dumps(nonzero)}")
-            assert excess <= 0, f"f32 iters {it}: sharded vs one process"
-    ref32[ITERS] = one(m32, ITERS)
-    del m32
-    torch.cuda.empty_cache()
 
-    # bf16 within phase 5's guard form against the f32 one-process path
-    def guard(label, got, plain, ref):
-        if rank == 0:
-            g, p = rel_epe(got, ref), rel_epe(plain, ref)
-            diff = float((got - plain).abs().max())
-            log(f"phase 39 {label}: rel EPE against the f32 one-process "
-                f"forward, global / p99: {world} ranks {g[0]:.3e} / "
-                f"{g[1]:.3e}, one process bf16 {p[0]:.3e} / {p[1]:.3e} "
-                f"(bound {BF16_GUARD_RATIO}x); against the one-process "
-                f"bf16 forward max abs diff {diff:.3e}, "
-                f"{float((got == plain).float().mean()):.4f} of the values "
-                f"equal bit for bit")
-            assert all(a <= BF16_GUARD_RATIO * b for a, b in zip(g, p)), (
-                label, g, p)
+def seq_f32_check(label, got, ref) -> str:
+    """The f32 sharded flows within SEQ_RTOL + SEQ_ATOL x max(1,
+    max|flow|) of the one-process forward's; returns the log's words."""
+    bound = SEQ_ATOL * max(1.0, float(ref.abs().max()))
+    excess = float(((got - ref).abs() - bound - SEQ_RTOL * ref.abs()).max())
+    words = (f"max abs diff {float((got - ref).abs().max()):.3e} (|flow| "
+             f"max {float(ref.abs().max()):.4g}; bound rtol {SEQ_RTOL} + atol "
+             f"{SEQ_ATOL} x max(1, max|flow|)), "
+             f"{float((got == ref).float().mean()):.4f} of the values equal "
+             f"bit for bit")
+    assert excess <= 0, f"{label}: sharded vs one process: {words}"
+    return words
 
-    for dw_impl in ("pallas", "auto"):
-        m16 = model("bf16", dw_impl)
-        plain = one(m16, 1)
-        _, got, counts = sharded(m16, 1, dw_impl)
-        guard(f"bf16 dw_impl={dw_impl!r} iters 1", got, plain, ref32[1])
-    # m16: the 'auto' model, the loop's last
 
-    # the main path: bf16 'auto', 12 iterations
-    plain = one(m16, ITERS)
-    fwd, got, counts = sharded(m16, ITERS, "auto")
-    guard(f"bf16 'auto' iters {ITERS}", got, plain, ref32[ITERS])
-    ms = host_ms(lambda: fwd(imgs), SEQ_REPS, dev)
-    # device time from a card-only profile: kernels, and gloo's copies
-    # between the card and the host
+def seq_guard(label, got, plain, ref, ranks) -> None:
+    """Phase 5's bf16 guard on sharded flows: the relative EPE against the
+    f32 one-process forward (global and p99) at most BF16_GUARD_RATIO x
+    the one-process bf16 forward's."""
+    import torch
+
+    from streamflow_tpu_torch.tools.common import rel_epe
+
+    g, p = rel_epe(got, ref), rel_epe(plain, ref)
+    diff = float((got - plain).abs().max())
+    log(f"phase 39 {label}: rel EPE against the f32 one-process forward, "
+        f"global / p99: {ranks} ranks {g[0]:.3e} / {g[1]:.3e}, one process "
+        f"bf16 {p[0]:.3e} / {p[1]:.3e} (bound {BF16_GUARD_RATIO}x); against "
+        f"the one-process bf16 forward max abs diff {diff:.3e}, "
+        f"{float((got == plain).float().mean()):.4f} of the values equal "
+        f"bit for bit")
+    assert torch.isfinite(got).all(), f"{label}: non-finite flows"
+    assert all(a <= BF16_GUARD_RATIO * b for a, b in zip(g, p)), (
+        label, g, p)
+
+
+def seq_timed(dev, fwd, imgs, reps):
+    """Wall ms a clip (mean and min of ``reps``), device ms of a card-only
+    profile (kernels, and gloo's copies between the card and the host),
+    and the exchanges of an instrumented run: their count, bytes and host
+    seconds, beside that run's wall seconds and peak memory (GiB)."""
+    import torch
+
+    from streamflow_tpu_torch.parallel.exchange import Rows
+    from streamflow_tpu_torch.tools.common import (device_events, host_ms,
+                                                   profiled)
+
+    ms = host_ms(lambda: fwd(imgs), reps, dev)
     events = [(k, t) for k, _, t in device_events(profiled(
         lambda: fwd(imgs), host=False)) if t > 0]
     dev_ms = sum(t for _, t in events) / 1e3
     copy_ms = sum(t for k, t in events if k.startswith("Memcpy")) / 1e3
-    # the exchanges' share: a run with each collective's host time summed
     spent = []
     inner = Rows._sum
 
-    def timed(self, nbytes, parts):
+    def timed(self, nbytes, parts, device):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(self, nbytes, parts)
+        out = inner(self, nbytes, parts, device)
         torch.cuda.synchronize()
         spent.append((time.perf_counter() - t0, nbytes))
         return out
     Rows._sum = timed
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fwd(imgs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         Rows._sum = inner
-    ex_s = sum(t for t, _ in spent)
-    one_ms = None
-    if rank == 0:
-        one_ms = host_ms(lambda: m16(imgs, test_mode=True), SEQ_REPS, dev)[0]
-    parallel.barrier("seq timed")
-    log(f"phase 39 rank {rank} bf16 'auto' {tuple(imgs.shape)} iters "
-        f"{ITERS}: {ms[0]:.3f} ms a clip (mean of {SEQ_REPS}, min "
-        f"{ms[1]:.3f}; both ranks on the one card), device {dev_ms:.3f} ms "
-        f"({copy_ms:.3f} of it gloo's copies to and from the host); "
-        f"{len(spent)} exchanges of {sum(n for _, n in spent) / 2 ** 20:.1f}"
-        f" MiB in all, "
-        f"{1e3 * ex_s:.1f} of {1e3 * wall:.1f} ms of an instrumented run "
-        f"({ex_s / wall:.3f})"
-        + (f"; the one-process forward {one_ms:.3f} ms" if rank == 0
-           else ""))
-    del fwd
+    return dict(ms=ms, dev_ms=dev_ms, copy_ms=copy_ms, n=len(spent),
+                mib=sum(n for _, n in spent) / 2 ** 20,
+                ex_s=sum(t for t, _ in spent), wall=wall,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
 
-    # 1440x2560 once: each rank's peak memory and wall time
+
+def seq_timed_words(tm, reps) -> str:
+    return (f"{tm['ms'][0]:.3f} ms a clip (mean of {reps}, min "
+            f"{tm['ms'][1]:.3f}; the ranks share the one card), device "
+            f"{tm['dev_ms']:.3f} ms ({tm['copy_ms']:.3f} of it gloo's copies "
+            f"to and from the host); {tm['n']} exchanges of "
+            f"{tm['mib']:.1f} MiB in all, {1e3 * tm['ex_s']:.1f} of "
+            f"{1e3 * tm['wall']:.1f} ms of an instrumented run "
+            f"({tm['ex_s'] / tm['wall']:.3f})")
+
+
+def seq_high(dev, m, mesh, rank) -> float:
+    """One bf16 SEQ_HIGH clip, 12 iterations: finite flows of its shape;
+    logs and returns this rank's peak memory (GiB)."""
+    import torch
+
+    from streamflow_tpu_torch import parallel
+
     big = make_clip(dev, *SEQ_HIGH)
-    fwd = parallel.make_seq_sharded_forward(m16, mesh, ITERS)
+    fwd = parallel.make_seq_sharded_forward(m, mesh, ITERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4237,10 +4307,190 @@ def seq_worker(dev, rank, world) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert flows.shape == (B, T - 1, *SEQ_HIGH, 2), flows.shape
     assert bool(torch.isfinite(flows).all()), "non-finite flows"
-    log(f"phase 39 rank {rank} bf16 'auto' {tuple(big.shape)} iters "
-        f"{ITERS}, one run: {high_s:.2f} s (the first at this shape), "
-        f"max_memory_allocated {peak:.3f} GiB")
+    log(f"phase 39 rank {rank} of {mesh.n_seq} bf16 'auto' "
+        f"{tuple(big.shape)} iters {ITERS}, one run: {high_s:.2f} s (the "
+        f"first at this shape), max_memory_allocated {peak:.3f} GiB")
+    return peak
+
+
+def seq_worker(dev, rank, world) -> dict:
+    """One rank of phase 39's two-rank part (a process of its own; rank 0
+    also runs the one-process references while rank 1 waits at a store
+    barrier): returns its record."""
+    import torch
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.seq import seq_plan
+    from streamflow_tpu_torch.tools.common import host_ms
+
+    gloo = gloo_probe(dev)
+    if rank == 0:
+        log(f"phase 39 gloo on CUDA tensors, {world} ranks: "
+            f"{json.dumps(gloo)}")
+    mesh = parallel.make_mesh(n_seq=world)
+    imgs = make_clip(dev)
+    plan = seq_plan(T, *imgs.shape[2:4], world)
+
+    def expect(iters, dw_impl="auto"):
+        return seq_rank_launches(plan, rank, iters, dw_impl)
+
+    # f32 (TF32 off) at iters 1 and 2 against the one-process forward
+    m32 = seq_model(dev, "f32")
+    ref32 = {}
+    for it in (1, 2):
+        ref32[it] = seq_one(m32, it, imgs, rank == 0)
+        _, got, counts = seq_sharded(dev, m32, mesh, it, imgs, expect(it))
+        if rank == 0:
+            words = seq_f32_check(f"f32 iters {it}", got, ref32[it])
+            nonzero = {k: v for k, v in counts.items() if v}
+            log(f"phase 39 f32 'auto' {tuple(imgs.shape)} iters {it}: "
+                f"{world} ranks (gloo) against one process, {words}; "
+                f"launches {json.dumps(nonzero)}")
+    ref32[ITERS] = seq_one(m32, ITERS, imgs, rank == 0)
+    del m32
+    torch.cuda.empty_cache()
+
+    # bf16 within phase 5's guard form against the f32 one-process path
+    for dw_impl in ("pallas", "auto"):
+        m16 = seq_model(dev, "bf16", dw_impl)
+        plain = seq_one(m16, 1, imgs, rank == 0)
+        _, got, counts = seq_sharded(dev, m16, mesh, 1, imgs,
+                                     expect(1, dw_impl))
+        if rank == 0:
+            seq_guard(f"bf16 dw_impl={dw_impl!r} iters 1", got, plain,
+                      ref32[1], world)
+    # m16: the 'auto' model, the loop's last
+
+    # the main path: bf16 'auto', 12 iterations
+    plain = seq_one(m16, ITERS, imgs, rank == 0)
+    fwd, got, counts = seq_sharded(dev, m16, mesh, ITERS, imgs,
+                                   expect(ITERS))
+    if rank == 0:
+        seq_guard(f"bf16 'auto' iters {ITERS}", got, plain, ref32[ITERS],
+                  world)
+    tm = seq_timed(dev, fwd, imgs, SEQ_REPS)
+    one_ms = None
+    if rank == 0:
+        one_ms = host_ms(lambda: m16(imgs, test_mode=True), SEQ_REPS, dev)[0]
+    parallel.barrier("seq timed")
+    log(f"phase 39 rank {rank} bf16 'auto' {tuple(imgs.shape)} iters "
+        f"{ITERS}: " + seq_timed_words(tm, SEQ_REPS)
+        + (f"; the one-process forward {one_ms:.3f} ms" if rank == 0
+           else ""))
+    del fwd
+
+    # 1440x2560 once: each rank's peak memory and wall time
+    peak = seq_high(dev, m16, mesh, rank)
     return {"launches": counts, "peak_gib": peak}
+
+
+def seq_node_worker(dev, rank, world) -> dict:
+    """One rank of phase 39's (a) and (b), in SEQ_NODE processes sharing
+    the card (rank 0 also runs the one-process references while the
+    others wait): (a) the canonical clip over one seq group of SEQ_NODE
+    ranks, (b) each SEQ_ZOO config over make_mesh(n_data=2,
+    n_seq=SEQ_ZOO_SEQ) with B=1; every rank's launches exactly its
+    slabs' (``seq_rank_launches``). Returns its record."""
+    import torch
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.seq import seq_plan
+
+    mesh = parallel.make_mesh(n_seq=world)
+    imgs = make_clip(dev)
+    hp, wp = imgs.shape[2:4]
+    plan = seq_plan(T, hp, wp, world)
+    first = rank == 0
+    if first:
+        log(f"phase 39 (a) {world} ranks, plan of the {hp}x{wp} clip "
+            f"(rows a rank): fnet {[b - a for a, b in plan.fnet]}, cnet "
+            f"{[b - a for a, b in plan.cnet]}, decoder "
+            f"{[b - a for a, b in plan.decoder]}")
+
+    def launched(label, counts, expect):
+        log(f"phase 39 {label} rank {rank}: launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}, the "
+            f"plan's {json.dumps({k: v for k, v in expect.items() if v})} "
+            f"(slab rows {json.dumps(plan.holds(rank))})")
+
+    # (a) f32 at iters 1, then bf16 'auto' at iters 1 and 12
+    m32 = seq_model(dev, "f32")
+    ref32 = {it: seq_one(m32, it, imgs, first) for it in (1, ITERS)}
+    expect = seq_rank_launches(plan, rank, 1)
+    _, got, counts = seq_sharded(dev, m32, mesh, 1, imgs, expect)
+    if first:
+        log(f"phase 39 (a) f32 'auto' {tuple(imgs.shape)} iters 1, {world} "
+            f"ranks against one process: "
+            + seq_f32_check("(a) f32 iters 1", got, ref32[1]))
+    del m32
+    torch.cuda.empty_cache()
+    m16 = seq_model(dev, "bf16")
+    for it in (1, ITERS):
+        plain = seq_one(m16, it, imgs, first)
+        expect = seq_rank_launches(plan, rank, it)
+        fwd, got, counts = seq_sharded(dev, m16, mesh, it, imgs, expect)
+        if first:
+            seq_guard(f"(a) bf16 'auto' iters {it}, {world} ranks", got,
+                      plain, ref32[it], world)
+    launched(f"(a) bf16 'auto' iters {ITERS}", counts, expect)
+    launches_a = counts
+    tm = seq_timed(dev, fwd, imgs, SEQ_NODE_REPS)
+    peak = tm["peak"]
+    parallel.barrier("seq node timed")
+    log(f"phase 39 (a) rank {rank} of {world} bf16 'auto' "
+        f"{tuple(imgs.shape)} iters {ITERS}: " + seq_timed_words(
+            tm, SEQ_NODE_REPS) + f"; max_memory_allocated {peak:.3f} GiB")
+    del fwd
+    high = seq_high(dev, m16, mesh, rank)
+    del m16
+    torch.cuda.empty_cache()
+
+    # (b) the A10c configs, B=1 over two data groups of SEQ_ZOO_SEQ ranks
+    mesh4 = parallel.make_mesh(n_data=world // SEQ_ZOO_SEQ,
+                               n_seq=SEQ_ZOO_SEQ)
+    zoo = {}
+    for name in SEQ_ZOO:
+        t0 = time.perf_counter()
+        ref = None
+        if first:        # the f32 reference is rank 0's alone
+            ref = seq_one(seq_model(dev, "f32", name=name), 1, imgs, True)
+        else:
+            parallel.barrier("seq one-process")
+        m16 = seq_model(dev, "bf16", name=name)
+        plain = seq_one(m16, 1, imgs, first)
+        zplan = seq_plan(T, hp, wp, SEQ_ZOO_SEQ, m16.fnet.temporal)
+        expect = (seq_rank_launches(zplan, mesh4.s, 1, name=name)
+                  if mesh4.d == 0 else dict.fromkeys(KERNELS, 0))
+        fwd, got, counts = seq_sharded(dev, m16, mesh4, 1, imgs, expect)
+        assert got.shape[0] == (B if mesh4.d == 0 else 0), got.shape
+        ms = None
+        if mesh4.d == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd(imgs)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+        parallel.barrier("seq zoo timed")   # the card to data group 0 alone
+        if first:
+            seq_guard(f"(b) {name} bf16 'auto' iters 1, make_mesh(n_data="
+                      f"{mesh4.n_data}, n_seq={SEQ_ZOO_SEQ})", got, plain,
+                      ref, SEQ_ZOO_SEQ)
+            log(f"phase 39 (b) {name}: slab rows a rank fnet "
+                f"{[b - a for a, b in zplan.fnet]} cnet "
+                f"{[b - a for a, b in zplan.cnet]} decoder "
+                f"{[b - a for a, b in zplan.decoder]} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        zoo[name] = {"launches": counts, "ms": ms}
+        del fwd, m16
+        torch.cuda.empty_cache()
+    parallel.barrier("seq zoo")
+    log(f"phase 39 (b) rank {rank} (data group {mesh4.d}, seq rank "
+        f"{mesh4.s}): launches and ms a clip (iters 1) by config "
+        + json.dumps({k: [{n: c for n, c in v["launches"].items() if c},
+                          None if v["ms"] is None else round(v["ms"], 3)]
+                      for k, v in zoo.items()}))
+    return {"launches": launches_a, "peak_gib": peak, "high_gib": high,
+            "zoo": zoo}
 
 
 def slab_bits(dev) -> dict:
@@ -4305,21 +4555,31 @@ def slab_bits(dev) -> dict:
     return out
 
 
-def seq_phase(dev, summary) -> dict:
-    """Phase 39: the kernels at rank 0's slab shapes into ``summary``
-    (the "inference_seq" path), then SEQ_WORLD ranks sharing the card;
-    returns rank 0's launches of the 12-iteration bf16 forward."""
+def seq_phase(dev, summaries) -> dict:
+    """Phase 39: the kernels at the slab shapes of SEQ_PATHS into
+    ``summaries`` (paths "inference_<tag>"), then SEQ_WORLD ranks, then
+    SEQ_NODE ranks ((a), (b)) sharing the card; returns each path's
+    launches: rank 0's of the two-rank 12-iteration bf16 forward, the
+    last rank's of (a)'s, rank 0's of (b)'s 'twins'."""
     t0 = time.perf_counter()
-    kernel_checks(dev, {"seq": summary}, 440, 1024, False)
+    kernel_checks(dev, {tag: summaries["inference_" + tag]
+                        for tag in SEQ_PATHS}, 440, 1024, False)
     slab_bits(dev)
     t1 = time.perf_counter()
     recs = dp_run("seq", SEQ_WORLD, "gloo")
     assert all(r["launches"] == recs[0]["launches"] for r in recs)
-    peaks = [round(r["peak_gib"], 3) for r in recs]
+    t2 = time.perf_counter()
+    node = dp_run("seq8", SEQ_NODE, "gloo")
     log(f"phase 39 parts: kernels {t1 - t0:.1f} s, {SEQ_WORLD} ranks "
-        f"{time.perf_counter() - t1:.1f} s; 1440x2560 peak GiB by rank "
-        f"{peaks}")
-    return recs[0]["launches"]
+        f"{t2 - t1:.1f} s, {SEQ_NODE} ranks ((a), (b)) "
+        f"{time.perf_counter() - t2:.1f} s; peak GiB by rank of the "
+        f"440x1024 clip at n_seq={SEQ_NODE} "
+        f"{[round(r['peak_gib'], 3) for r in node]}; 1440x2560 at n_seq="
+        f"{SEQ_WORLD} {[round(r['peak_gib'], 3) for r in recs]}, at n_seq="
+        f"{SEQ_NODE} {[round(r['high_gib'], 3) for r in node]}")
+    return {"inference_seq": recs[0]["launches"],
+            "inference_seq8": node[-1]["launches"],
+            "inference_seq_frames": node[0]["zoo"]["twins"]["launches"]}
 
 
 def main() -> None:
@@ -4382,7 +4642,8 @@ def main() -> None:
         summary["train_step_" + name] = new_summary()
     summary["inference_umt"] = new_summary()
     summary["train_step_umt"] = new_summary()
-    summary["inference_seq"] = new_summary()
+    for tag in SEQ_PATHS:
+        summary["inference_" + tag] = new_summary()
 
     phase(3, "kernels", kernel_checks, dev,
           {**per_layout("inference"), **per_zoo("inference", ZOO),
@@ -4449,8 +4710,8 @@ def main() -> None:
     counts["trained_dynamics"], summary["trained_dynamics"] = phase(
         37, "trained dynamics", trained_dynamics_phase, dev)
     phase(38, "tools", tools_phase, dev)
-    counts["inference_seq"] = phase(39, "sequence-sharded forward",
-                                    seq_phase, dev, summary["inference_seq"])
+    counts.update(phase(39, "sequence-sharded forward", seq_phase, dev,
+                        summary))
     log(f"phases 3-39: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "

@@ -48,7 +48,14 @@ def pointwise(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, bias: bool = True
            ) -> torch.Tensor:
     """A Conv2d applied to NHWC (B, H, W, C) through a channels-last view;
-    returns contiguous NHWC. ``bias=False`` leaves the module's bias out."""
+    returns contiguous NHWC. ``bias=False`` leaves the module's bias out.
+    No rows (an empty slab of the sequence-sharded forward): no rows out,
+    and no call."""
+    if not x.shape[1]:
+        (_, k), (_, s), (_, p), (_, d) = (conv.kernel_size, conv.stride,
+                                          conv.padding, conv.dilation)
+        wo = (x.shape[2] + 2 * p - d * (k - 1) - 1) // s + 1
+        return x.new_empty(x.shape[0], 0, wo, conv.out_channels)
     y = F.conv2d(x.permute(0, 3, 1, 2), cast(conv.weight, x),
                  cast(conv.bias, x) if bias else None, conv.stride,
                  conv.padding, conv.dilation, conv.groups)

@@ -93,6 +93,9 @@ class SKBlock(nn.Module):
                 f"the default layout takes k_conv (1, k), got {ks}; "
                 f"dw_impl='pallas' takes (1,)*n + (k,)")
 
+        if not x.shape[1]:   # an empty slab of rows: no kernel, no rows out
+            return x.new_empty(*x.shape[:3], self.ffn2[2].out_channels)
+
         def w(conv):  # (out, in, 1, 1) -> (out, in), in x's dtype
             return cast(conv.weight.reshape(conv.weight.shape[:2]), x)
 

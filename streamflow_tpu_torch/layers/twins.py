@@ -58,8 +58,8 @@ class TemporalPatchEmbed(nn.Module):
         b, t, h, w, c = x.shape
         y = conv2d(x.reshape(b * t, h, w, c), self.proj)
         hp, wp = y.shape[1], y.shape[2]
-        return (layer_norm(y.reshape(b, t * hp * wp, -1), self.norm),
-                (t * hp, wp))
+        return (layer_norm(y.reshape(b, t * hp * wp, y.shape[-1]),
+                           self.norm), (t * hp, wp))
 
 
 class PosConv(nn.Module):
@@ -115,15 +115,17 @@ class GlobalSubSampleAttn(nn.Module):
         """``rows``: x is that slab of the grid's rows, aligned to the sr
         cells: its queries attend to the keys and values of the whole
         grid (every slab's reduced tokens, gathered, projected as on one
-        rank), and flash or not follows the whole grid's token count."""
+        rank), and flash or not follows the whole grid's token count. An
+        empty slab runs no conv and K3 on no queries."""
         b, n, c = x.shape
+        tokens = n                       # the whole grid's
         nh = self.num_heads
         hd = c // nh
         q = linear(x, self.q).reshape(b, n, nh, hd).transpose(1, 2)
         q = q * hd ** -0.5
         feat = x.reshape(b, size[0], size[1], c)
         sr = self.sr_ratio
-        if rows is not None:
+        if rows is not None and rows.size:
             # the slab at the top of the whole grid's rows, zeros below:
             # cuDNN picks its algorithm by shape, and at the whole grid's
             # each of the slab's cells sums as on one rank (an H100 at f32
@@ -136,17 +138,17 @@ class GlobalSubSampleAttn(nn.Module):
         kvin = layer_norm(kvin.reshape(b, -1, c), self.norm)
         if rows is not None:   # every slab's cells, then kv at one rank's M
             kvin = rows.coarse(sr).gather(kvin, 1, unit=size[1] // sr)
-            n = rows.total * size[1]
+            tokens = rows.total * size[1]
         kv = linear(kvin, self.kv).reshape(b, -1, 2, nh, hd)
         k = kv[:, :, 0].transpose(1, 2)
         v = kv[:, :, 1].transpose(1, 2)
-        if gsa_flash or n > GSA_FLASH_TOKENS:
+        if gsa_flash or tokens > GSA_FLASH_TOKENS:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous())
         else:
             a = torch.softmax(q.float() @ k.float().transpose(-1, -2), -1)
             out = (a.to(v.dtype).float() @ v.float()).to(v.dtype)
-        return linear(out.transpose(1, 2).reshape(b, -1, c), self.proj)
+        return linear(out.transpose(1, 2).reshape(b, n, c), self.proj)
 
 
 def _dirac_(w: torch.Tensor) -> torch.Tensor:
@@ -219,7 +221,8 @@ class TwinsBlock(nn.Module):
         y = ffn_pair(layer_norm(x, n2).contiguous(), *(cast(p, x) for p in (
             fc1.weight, fc1.bias, fc2.weight, fc2.bias)), residual=False)
         conv = self.temporal_conv
-        tok = to_time(y).reshape(-1, t, c).transpose(1, 2)   # (B*N, C, T)
+        # (B*N, C, T)
+        tok = to_time(y).reshape(bt // t * n, t, c).transpose(1, 2)
         tok = F.conv1d(tok, cast(conv.weight, x), cast(conv.bias, x),
                        padding=1)
         y = from_time(tok.transpose(1, 2).reshape(bt // t, n, t, c))
@@ -280,10 +283,14 @@ class TwinsEncoder(nn.Module):
             x = gsa(x, size, self.gsa_flash, t=t_hook)
             ht, w = size
             x = x.reshape(x.shape[0], t_grid, ht // t_grid, w, -1)
-        x = x.reshape(b, t, *x.shape[2:])
-        if self.temporal_conv is not None:
-            conv = self.temporal_conv
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), cast(conv.weight, x),
-                         cast(conv.bias, x), padding=1)
-            x = x + y.permute(0, 2, 3, 4, 1)
-        return x
+        return self.conv3d(x.reshape(b, t, *x.shape[2:]))
+
+    def conv3d(self, x):
+        """x (B, T, h, w, C) plus the dirac-init 3x3x3 ``temporal_conv``
+        over (T, h, w) of it (Twins3DConv); x itself without one."""
+        if self.temporal_conv is None:
+            return x
+        conv = self.temporal_conv
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), cast(conv.weight, x),
+                     cast(conv.bias, x), padding=1)
+        return x + y.permute(0, 2, 3, 4, 1)

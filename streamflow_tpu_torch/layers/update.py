@@ -140,8 +140,8 @@ class SKUpdateBlockTAMv3(nn.Module):
 
         mask = None
         if compute_mask:
-            mask = on_slab(lambda x: mask_head(self.mask, x), net_f, 1,
-                           rows).reshape(b, f, h, w, -1)
+            mask = on_slab(lambda x: mask_head(self.mask, x), net_f, 1, rows)
+            mask = mask.reshape(b, f, h, w, mask.shape[-1])
         return net_f.reshape(b, f, h, w, d), mask, delta
 
 

@@ -65,9 +65,12 @@ def corr_lookup(f1, f2_levels, coords, radius: int = 4):
 
 
 def _corr_lookup(f1, f2_levels, coords, radius: int):
+    b, h, w, _ = f1.shape
+    if not b * h * w:   # no queries (an empty slab of rows): no launch
+        return f1.new_empty(b, h, w, len(f2_levels) * (2 * radius + 1) ** 2)
     if not f1.is_cuda:
         return corr_lookup_plain(f1, f2_levels, coords, radius)
-    b, h, w, c = f1.shape
+    c = f1.shape[3]
     _build.require(f1, "f1", ndim=4)
     _build.require(coords, "coords", torch.float32, 4)
     if coords.shape != (b, h, w, 2):

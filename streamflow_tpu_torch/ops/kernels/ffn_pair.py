@@ -232,7 +232,10 @@ def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db):
 
 def _run(x, w1, b1, w2, b2, residual, ln=None, **kw):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor;
-    arguments as ``ffn_pair_plain``'s."""
+    arguments as ``ffn_pair_plain``'s. No rows (an empty slab): no rows
+    out, no launch."""
+    if not x.numel():
+        return x.new_empty(*x.shape[:-1], w2.shape[0])
     if not x.is_cuda:
         return ffn_pair_plain(x, w1, b1, w2, b2, residual, ln=ln, **kw)
     if ln is not None:

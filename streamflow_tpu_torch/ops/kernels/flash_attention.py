@@ -96,7 +96,12 @@ def _check(q, k, v, what="flash_attention"):
 
 
 def flash_attention_fwd(q, k, v, return_lse: bool = False):
-    """K3: softmax(q k^T) v [and the per-row logsumexp (B, H, N) f32]."""
+    """K3: softmax(q k^T) v [and the per-row logsumexp (B, H, N) f32].
+    No queries (an empty slab): empty outputs, no launch."""
+    if not q.shape[2]:
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = torch.empty_like(q)
+        return (out, lse) if return_lse else out
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, return_lse)
     _check(q, k, v)

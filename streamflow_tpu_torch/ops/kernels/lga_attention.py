@@ -58,6 +58,8 @@ def lga_attention(qkv, ws: int, nh: int):
 
 
 def _lga_attention(qkv, ws: int, nh: int):
+    if not qkv.numel():   # no windows (an empty slab of rows): no launch
+        return qkv.new_empty(*qkv.shape[:-1], qkv.shape[-1] // 3)
     if not qkv.is_cuda:
         return lga_attention_plain(qkv, ws, nh)
     _build.require(qkv, "qkv", ndim=4)

@@ -1,22 +1,28 @@
 """Row exchanges of the sequence-sharded forward (``parallel/seq.py``): a
 grid split along its rows into contiguous slabs, one per rank of a seq
-group, and the two exchanges its layers need.
+group, and the two exchanges its layers need. A slab may hold any number
+of rows, none included.
 
-- ``halo``: a slab extended by ``k`` rows of each neighbour, for a layer
-  whose window reaches ``k`` rows across a slab edge (a kxk conv reaches
-  k // 2). A slab at the grid's own edge gets nothing there: the layer
-  pads that edge as it does on the whole grid.
+- ``halo``: a slab extended by the ``k`` rows above and below it, for a
+  layer whose window reaches ``k`` rows across a slab edge (a kxk conv
+  reaches k // 2). The rows come from whichever ranks hold them: a slab
+  thinner than ``k`` passes its rows on to ranks beyond its neighbours.
+  A slab at the grid's own edge gets nothing there: the layer pads that
+  edge as it does on the whole grid. An empty slab takes no halo.
 - ``gather``: the whole grid from every rank's slab, for a layer that
   needs it all (attention keys and values, the correlation pyramid, the
-  output). Slabs may differ in size.
+  output). Slabs may differ in size, and may be empty.
 
 Both are carried by ``all_reduce``, the collective that gloo also runs on
 CUDA tensors (with ``broadcast``), so the same code runs two ranks that
 share one card over gloo and ranks on cards of their own over NCCL. Each
-rank writes its rows into its own zeroed slot of one buffer and the
+rank writes its rows into their zeroed place in one buffer and the
 buffer is summed over the group, as int32 words of the rows' bytes: x +
-0 is x's bit pattern in every dtype (-0.0 and NaN included). Under NCCL
-this moves about twice the bytes of an ``all_gather`` (ROADMAP).
+0 is x's bit pattern in every dtype (-0.0 and NaN included). Every rank,
+an empty one too, joins every exchange with a buffer of the same size,
+which follows from the bounds and the rows' trailing shape alone. Under
+NCCL a gather moves about twice the bytes of an ``all_gather``
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -64,23 +70,26 @@ class Rows:
         return Rows([(a // div, b // div) for a, b in self.bounds],
                     self.index, self.group)
 
-    def _sum(self, nbytes: int, parts) -> torch.Tensor:
-        """A zeroed buffer of ``nbytes`` (rounded up to int32 words) with
-        ``parts`` ((byte offset, uint8 tensor)) written in, summed over
-        the group; returns its uint8 view."""
-        dev = parts[0][1].device if parts else None
-        buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=dev)
+    def _sum(self, nbytes: int, parts, device) -> torch.Tensor:
+        """A zeroed buffer of ``nbytes`` (rounded up to int32 words) on
+        ``device`` with ``parts`` ((byte offset, uint8 tensor)) written
+        in, summed over the group; returns its uint8 view. Every rank
+        passes the same ``nbytes``; none at all skips the collective on
+        every rank alike."""
+        buf = torch.zeros(-(-nbytes // 4), dtype=torch.int32, device=device)
         raw = buf.view(torch.uint8)
         for off, part in parts:
             raw[off:off + part.numel()].copy_(part)
-        dist.all_reduce(buf, group=self.group)
+        if buf.numel():
+            dist.all_reduce(buf, group=self.group)
         return raw
 
     def gather(self, x: torch.Tensor, dim: int = 1,
                unit: int = 1) -> torch.Tensor:
         """The whole grid, contiguous, from this rank's slab ``x`` along
         ``dim``: (stop - start) * ``unit`` entries there (``unit`` > 1 for
-        an axis of rows x columns flattened, or of rows upsampled)."""
+        an axis of rows x columns flattened, or of rows upsampled), none
+        for an empty slab."""
         dim = dim % x.dim()
         if x.shape[dim] != self.size * unit:
             raise ValueError(f"Rows.gather: {x.shape[dim]} entries along "
@@ -92,47 +101,68 @@ class Rows:
         rest = xm.shape[1:]
         per = math.prod(rest) * x.element_size() * unit   # bytes per row
         raw = self._sum(per * self.total,
-                        [(per * self.start, _bytes(xm))])
+                        [(per * self.start, _bytes(xm))], x.device)
         whole = raw[:per * self.total].view(x.dtype).reshape(
             self.total * unit, *rest)
         return whole.movedim(0, dim).contiguous()
 
+    def reach(self, k: int) -> List[Tuple[int, int]]:
+        """The rows that the halos of ``k`` read, as disjoint runs in
+        order: the ``k`` rows above and below each non-empty slab, within
+        the grid (the layout of ``halo``'s buffer)."""
+        spans = sorted(s for a, b in self.bounds if b > a
+                       for s in ((max(a - k, 0), a),
+                                 (b, min(b + k, self.total))) if s[1] > s[0])
+        runs: List[Tuple[int, int]] = []
+        for a, b in spans:
+            if runs and a <= runs[-1][1]:
+                runs[-1] = (runs[-1][0], max(runs[-1][1], b))
+            else:
+                runs.append((a, b))
+        return runs
+
     def halo(self, x: torch.Tensor, k: int,
              dim: int = 1) -> Tuple[torch.Tensor, int]:
-        """``x`` extended along ``dim`` by the ``k`` rows before it (the
-        previous rank's last) and after it (the next rank's first), where
-        those ranks exist; returns (extended, rows added before)."""
+        """``x`` extended along ``dim`` by the ``k`` rows of the grid
+        before it and after it, from whichever ranks hold them, cut short
+        at the grid's edges; returns (extended, rows added before). Each
+        rank writes its rows that any halo reads (``reach``) into one
+        buffer; an empty slab writes nothing and gets (x, 0)."""
         dim = dim % x.dim()
-        n = len(self.bounds)
-        if k == 0 or n == 1:
+        if k == 0 or len(self.bounds) == 1:
             return x, 0
-        if min(b - a for a, b in self.bounds) < k:
-            raise ValueError(f"Rows.halo: a slab of {self.bounds} is "
-                             f"thinner than the halo of {k} rows")
         xm = x.movedim(dim, 0)
-        per = xm[:k].numel() * x.element_size()            # bytes per part
-        slot = lambda r, side: (2 * r + side) * per  # noqa: E731
-        raw = self._sum(2 * n * per, [
-            (slot(self.index, 0), _bytes(xm[:k])),
-            (slot(self.index, 1), _bytes(xm[xm.shape[0] - k:]))])
+        rest = xm.shape[1:]
+        per = math.prod(rest) * x.element_size()          # bytes per row
+        runs, parts, at = [], [], 0
+        for a, b in self.reach(k):       # each run's first row in the buffer
+            lo, hi = max(a, self.start), min(b, self.stop)
+            if hi > lo:
+                parts.append((per * (at + lo - a),
+                              _bytes(xm[lo - self.start:hi - self.start])))
+            runs.append((a, b, at))
+            at += b - a
+        raw = self._sum(per * at, parts, x.device)
+        if not self.size:
+            return x, 0
 
-        def part(r, side):
-            p = raw[slot(r, side):slot(r, side) + per].view(x.dtype)
-            return p.reshape(k, *xm.shape[1:]).movedim(0, dim)
-        parts = [x]
-        top = 0
-        if self.index > 0:
-            parts.insert(0, part(self.index - 1, 1))
-            top = k
-        if self.index < n - 1:
-            parts.append(part(self.index + 1, 0))
-        return torch.cat(parts, dim=dim), top
+        def rows(lo, hi):                # the grid's rows lo:hi
+            a, _, off = next(r for r in runs if r[0] <= lo and hi <= r[1])
+            p = raw[per * (off + lo - a):per * (off + hi - a)]
+            return p.view(x.dtype).reshape(hi - lo, *rest).movedim(0, dim)
+        top = min(k, self.start)
+        bottom = min(k, self.total - self.stop)
+        ext = ([rows(self.start - top, self.start)] if top else []) + [x] + (
+            [rows(self.stop, self.stop + bottom)] if bottom else [])
+        return torch.cat(ext, dim=dim), top
 
     def local(self, fn: Callable, x: torch.Tensor, k: int,
               dim: int = 1) -> torch.Tensor:
         """``fn`` (a layer that reaches ``k`` rows across a slab edge,
         along ``dim`` of its input and output) on this rank's slab: run on
-        the slab extended by its halo, cropped back to the slab's rows."""
+        the slab extended by its halo, cropped back to the slab's rows.
+        An empty slab joins the exchange and hands ``fn`` its no rows (the
+        layers launch nothing there)."""
         ext, top = self.halo(x, k, dim)
         return fn(ext).narrow(dim, top, x.shape[dim])
 

@@ -5,45 +5,63 @@ group, and the batch over the data axis, as JAX's
 
 JAX lets GSPMD partition the whole forward; here each layer runs on its
 rank's slab of rows and the exchanges are written by hand
-(``parallel/exchange.py``: halo rows from the neighbours, the whole grid
-gathered from every slab). The numerics are the unsharded model's: every
-op is either per row (per token, per pixel) or reads its neighbours'
-rows through a halo or the whole grid through a gather, so each output
-row is computed from the same values as on one rank.
+(``parallel/exchange.py``: halo rows from whichever ranks hold them, the
+whole grid gathered from every slab). The numerics are the unsharded
+model's: every op is either per row (per token, per pixel) or reads its
+neighbours' rows through a halo or the whole grid through a gather, so
+each output row is computed from the same values as on one rank.
 
-Layer by layer (canonical StreamFlow only: ``twins_csc`` +
-``sk_tam_v3`` + GMA, any T, every ``dw_impl``, f32 or bf16):
+Every Twins StreamFlow (``twins_csc``, ``twins``, ``twins_1dconv``,
+``twins_temporal_attention``, ``twins_3dconv``; ``sk_tam_v3``,
+``sk_tam_v1``, ``sk_tam_v3_noinit``; with or without GMA), any T >= 2,
+every ``dw_impl``, f32 or bf16, H and W multiples of 8, any n_seq and
+n_data, any batch. Slabs may be thinner than a halo, or empty where a
+grid has fewer rows (or encoder units) than ranks: an empty slab runs no
+layer on its rows and launches no kernel, and joins every exchange in
+the same order. Layer by layer:
 
-- Encoders (``layers/twins.py``) on slabs of Twins_CSC's stacked token
-  grid (the T frames stacked along the height). A slab boundary falls on
-  a multiple of ``encoder_unit()`` stage-2 rows (28: the 7-row LGA
+- Encoders (``layers/twins.py``). Twins_CSC: slabs of its stacked token
+  grid (the T frames stacked along the height). The per-frame encoders:
+  slabs of each frame's rows, the same rows in every frame (the frames
+  folded into the batch, as ``TwinsEncoder.forward``), so that the
+  hooks, per token over the T frames (``"attn"``: TinyAttention over T;
+  ``"1dconv"``: a Conv1d over T), run on the slab. A slab boundary falls
+  on a multiple of ``encoder_unit()`` stage-2 rows (28: the 7-row LGA
   windows and the 4-row GSA cells of stage 2; stage 1's 7 and 8 at twice
   the rows), so the patch embeds, LGA windows and GSA cells of a slab
-  are the whole grid's and only the last slab pads its LGA windows. The
-  PEG 3x3 conv takes a 1-row halo; GSA's reduced tokens (its ``sr`` conv
-  and norm, on each slab) are gathered and projected to keys and values
-  whole, and its queries attend to all of them, flash or not by the
-  whole grid's token count. The encoders' outputs are gathered whole.
+  are the whole grid's, only the last slab pads its LGA windows, and no
+  window or cell needs a halo. The PEG 3x3 conv takes a 1-row halo (per
+  frame); GSA's reduced tokens (its ``sr`` conv and norm, on each slab)
+  are gathered and projected to keys and values whole, and its queries
+  attend to all of them, flash or not by the whole grid's token count
+  (one frame's, per frame: stage 1 takes K3 at 440x1024, stage 2 not).
+  The encoders' outputs are gathered whole; ``twins_3dconv``'s 3x3x3
+  ``temporal_conv`` over (T, H, W) then runs on the whole output on
+  every rank (at the unsharded shape: no halo over T and H, the same
+  sums as on one rank).
 - Hand-off: every rank builds the whole f2 pyramid and GMA's q and k
   from the whole context, and keeps its decoder rows (an even split of
   each frame pair's 1/8 grid) of f1, the context and q; its coordinates
   are the global ones of those rows.
 - Refinement: K1 looks up its slab's queries in the whole pyramid; GMA's
   motion features are gathered every iteration and projected to v
-  whole, and K3 runs the slab's queries against k and v; each SK block
-  and the mask head run on their input's slab extended by their halo (7
-  rows for the 15x15 depthwise conv, 3 for the gru's 7x7, 1 for the 3x3)
-  and are cropped; the temporal layer is per pixel.
+  whole, and K3 runs the slab's queries against k and v (without GMA,
+  the motion features stand in); each SK block and the mask head run on
+  their input's slab extended by their halo (7 rows for the 15x15
+  depthwise conv, 3 for the gru's 7x7, 1 for the 3x3), from as many
+  ranks as hold those rows, and are cropped; the temporal layer is per
+  pixel (live under ``sk_tam_v3_noinit``), the flow head joint or per
+  frame (``sk_tam_v1``).
 - Output: the convex upsampling reads a 1-row halo of the flow; the
   upsampled rows are gathered, so every rank of a seq group returns the
-  whole flows of its data rows (JAX's ``out_sh = P("data")``).
+  whole flows of its data rows.
 
 Where a layer's shape follows the slab, the card's libraries may sum in
 another order; so each product that takes a whole grid's worth of rows
-runs at the whole grid's shape (GSA's kv, GMA's q, k and v; the ``sr``
-conv on the slab padded to the whole grid's rows). On an H100 the f32
-forward then equals the one-rank forward bit for bit (chip_smoke.py
-phase 39).
+runs at the whole grid's shape (GSA's kv, GMA's q, k and v, the temporal
+layer; the ``sr`` conv on the slab padded to the whole grid's rows). On
+an H100 the canonical f32 forward then equals the one-rank forward bit
+for bit (chip_smoke.py phase 39).
 
 Test mode only, as JAX's. The kernels are the unsharded path's own, at
 the slabs' shapes; a CPU tensor takes their plain versions as it does
@@ -54,7 +72,7 @@ this code with no exchange, bit for bit the unsharded forward.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -77,71 +95,67 @@ Bounds = List[Tuple[int, int]]
 
 
 class SeqPlan(NamedTuple):
-    """Every rank's (start, stop) rows: of the fnet's and the cnet's
-    stacked stage-2 token grids (T and T-1 frames of H/8 rows), and of
-    each frame pair's 1/8 grid in the decoder."""
+    """Every rank's (start, stop) rows, in rank order: of the fnet's and
+    the cnet's token grids, in stage-2 rows (Twins_CSC: the stacked grids
+    of the T and T-1 frames; a per-frame encoder: each frame's H/8 rows,
+    the same bounds in every frame), and of each frame pair's 1/8 grid in
+    the decoder. A slab may be empty."""
     fnet: Bounds
     cnet: Bounds
     decoder: Bounds
 
+    def holds(self, s: int) -> Dict[str, int]:
+        """Rank ``s``'s rows of each grid (none: it runs no layer there
+        and launches none of that grid's kernels)."""
+        return {name: b - a for name, (a, b) in
+                zip(self._fields, (bounds[s] for bounds in self))}
+
 
 def encoder_unit(cfg=SVT_LARGE) -> int:
-    """Stage-2 stacked rows between two slab boundaries of the encoder:
-    where the windows (ws), the GSA cells (sr) and, in stage 1, the stage-2
-    patches of the unsharded grid start (28 for SVT-Large)."""
+    """Stage-2 rows between two slab boundaries of the encoder: where the
+    windows (ws), the GSA cells (sr) and, in stage 1, the stage-2 patches
+    of the unsharded grid start (28 for SVT-Large)."""
     (p1, p2), ws, (sr1, sr2) = (cfg["patch_sizes"], cfg["ws"],
                                 cfg["sr_ratios"])
     stage1 = math.lcm(ws, sr1, p2)        # in stage-1 rows
     return math.lcm(-(-stage1 // p2), ws, sr2)
 
 
-def _halo(cfg) -> int:
-    """The decoder's largest halo: rows its widest conv reaches."""
-    return max(sum(k // 2 for k in ks)
-               for ks in (cfg.k_conv, cfg.pc_updater_conv, (3,)))
-
-
 def seq_plan(t: int, height: int, width: int, n_seq: int,
-             halo: int = 7) -> SeqPlan:
+             temporal: bool = True) -> SeqPlan:
     """The slabs of a T=t clip of height x width over ``n_seq`` ranks.
-    The decoder splits each pair's H/8 rows as evenly as possible (55:
-    28, 27); each encoder splits its stacked grid into runs of
+    The decoder splits each pair's H/8 rows as evenly as possible (55 in
+    2: 28, 27; 55 in 8: seven of 7, one of 6; 6 in 8: six of 1, two
+    empty). Each encoder splits its grid (``temporal``: Twins_CSC's
+    stacked T-frame grid; else one frame's H/8 rows) into whole runs of
     ``encoder_unit()`` rows, as evenly as possible, the last slab taking
-    the rest. Raises a ValueError, naming the shape and the constraint,
-    where no plan exists: H or W not a multiple of 8, a decoder slab
-    thinner than ``halo`` rows, or an encoder with fewer units than
-    ranks."""
+    the rest; where the grid has fewer units than ranks, the ranks past
+    them get empty slabs. Whole units rather than cuts through windows
+    and cells completed by halos: no layer of the encoder then exchanges
+    more than PEG's 1-row halo and GSA's gather, and each window and cell
+    is summed at the unsharded grid's place. Raises a ValueError, naming
+    the shape, for H or W not a multiple of 8 or T < 2."""
     if height % 8 or width % 8 or min(height, width, t) < 1:
         raise ValueError(f"seq_plan: {height}x{width} is not a multiple of "
                          f"8 (pad the clip, ops/padding.py)")
     if t < 2:
         raise ValueError(f"seq_plan: T={t}; a clip has two frames or more")
+    if n_seq < 1:
+        raise ValueError(f"seq_plan: n_seq={n_seq}")
     h, unit = height // 8, encoder_unit()
-    decoder = even_split(h, n_seq)
-    if min(b - a for a, b in decoder) < halo:
-        raise ValueError(
-            f"seq_plan: {height}x{width} over n_seq={n_seq} gives decoder "
-            f"slabs of {[b - a for a, b in decoder]} rows of its {h}-row "
-            f"1/8 grid, thinner than the {halo}-row halo of its widest "
-            f"conv; take fewer ranks or a taller clip")
 
-    def encoder(frames):
-        rows = frames * h
-        units = -(-rows // unit)
-        if units < n_seq:
-            raise ValueError(
-                f"seq_plan: the {frames}-frame stacked grid of a T={t} "
-                f"{height}x{width} clip has {rows} stage-2 rows, "
-                f"{units} slab(s) of {unit} rows (LGA windows and GSA "
-                f"cells), fewer than n_seq={n_seq}")
-        return [(a * unit, min(b * unit, rows))
-                for a, b in even_split(units, n_seq)]
-    return SeqPlan(encoder(t), encoder(t - 1), decoder)
+    def encoder(rows):
+        return [(min(a * unit, rows), min(b * unit, rows))
+                for a, b in even_split(-(-rows // unit), n_seq)]
+    if temporal:
+        return SeqPlan(encoder(t * h), encoder((t - 1) * h),
+                       even_split(h, n_seq))
+    return SeqPlan(encoder(h), encoder(h), even_split(h, n_seq))
 
 
 def _check_model(model) -> None:
-    """The canonical StreamFlow only; every other model raises, naming
-    the ROADMAP entry that queues it."""
+    """Every Twins StreamFlow; the other models raise, naming the ROADMAP
+    entry that queues them."""
     if not isinstance(model, StreamFlow):
         raise NotImplementedError(
             f"make_seq_sharded_forward: {type(model).__name__} (the "
@@ -157,14 +171,6 @@ def _check_model(model) -> None:
             f"make_seq_sharded_forward: encoder={cfg.encoder!r} (the CNN "
             f"encoders: instance-norm statistics over the seq group) is "
             f"not sharded yet; ROADMAP.md A10d")
-    if cfg.encoder != "twins_csc" or cfg.update_block != "sk_tam_v3" or (
-            not cfg.use_gma):
-        raise NotImplementedError(
-            f"make_seq_sharded_forward: encoder={cfg.encoder!r}, "
-            f"update_block={cfg.update_block!r}, use_gma={cfg.use_gma} "
-            f"(the per-frame Twins family, twins_3dconv's 3x3x3 halo, the "
-            f"decoder ablations) is not sharded yet; only the canonical "
-            f"twins_csc + sk_tam_v3 + GMA is; ROADMAP.md A10c")
 
 
 def _frames(x: torch.Tensor, start: int, per_frame: int) -> torch.Tensor:
@@ -173,14 +179,14 @@ def _frames(x: torch.Tensor, start: int, per_frame: int) -> torch.Tensor:
     whole frames (the unsharded encoder's shapes), else (B, 1, rows, W,
     C) (a stride-p conv of whole p-row cells gives the same rows)."""
     b, rows = x.shape[:2]
-    if start % per_frame == 0 and rows % per_frame == 0:
+    if rows and start % per_frame == 0 and rows % per_frame == 0:
         return x.reshape(b, rows // per_frame, per_frame, *x.shape[2:])
     return x.reshape(b, 1, *x.shape[1:])
 
 
 def _encode(enc: TwinsEncoder, x: torch.Tensor, rows2: Rows) -> torch.Tensor:
-    """TwinsEncoder.forward of Twins_CSC on this rank's slab ``rows2`` of
-    the stacked stage-2 grid of x (B, T, H, W, 3); returns the whole
+    """TwinsEncoder.forward on this rank's slab ``rows2`` of the encoder's
+    stage-2 grid (``SeqPlan``) of x (B, T, H, W, 3); returns the whole
     output (B, T, H/8, W/8, C), gathered."""
     b, t, height, width, c_in = x.shape
     svt = enc.svt
@@ -188,20 +194,28 @@ def _encode(enc: TwinsEncoder, x: torch.Tensor, rows2: Rows) -> torch.Tensor:
     rows1 = Rows([(a * p2, e * p2) for a, e in rows2.bounds], rows2.index,
                  rows2.group)
     scale = p1 * p2
-    stacked = x.reshape(b, t * height, width, c_in)
-    slab = _frames(stacked[:, rows2.start * scale:rows2.stop * scale],
-                   rows2.start * scale, height)
+    if enc.temporal:     # Twins_CSC: slabs of the stacked grid
+        stacked = x.reshape(b, t * height, width, c_in)
+        slab = _frames(stacked[:, rows2.start * scale:rows2.stop * scale],
+                       rows2.start * scale, height)
+        batch, t_hook = b, 1
+    else:                # the same rows of every frame, frames in the batch
+        slab = x[:, :, rows2.start * scale:rows2.stop * scale].reshape(
+            b * t, 1, rows2.size * scale, width, c_in)
+        batch, t_hook = b * t, t if enc.hook != "none" else 1
     per_frame = height
     for i, rows in enumerate((rows1, rows2)):
         tok, size = svt.patch_embeds[i](slab)
         assert size[0] == rows.size, (size, rows.bounds)
         lga, gsa = svt.blocks[i]
-        tok = svt.pos_block[i](lga(tok, size), size, rows)
-        tok = gsa(tok, size, enc.gsa_flash, rows=rows)
+        tok = svt.pos_block[i](lga(tok, size, t=t_hook), size, rows)
+        tok = gsa(tok, size, enc.gsa_flash, t=t_hook, rows=rows)
         per_frame //= (p1, p2)[i]
-        slab = _frames(tok.reshape(b, *size, -1), rows.start, per_frame)
-    out = rows2.gather(slab.reshape(b, rows2.size, *slab.shape[3:]), 1)
-    return out.reshape(b, t, per_frame, *out.shape[2:])
+        tok = tok.reshape(batch, *size, tok.shape[-1])
+        slab = (_frames(tok, rows.start, per_frame) if enc.temporal
+                else tok.reshape(batch, 1, *tok.shape[1:]))
+    out = rows2.gather(slab.reshape(batch, rows2.size, *slab.shape[3:]), 1)
+    return enc.conv3d(out.reshape(b, t, per_frame, *out.shape[2:]))
 
 
 @torch.no_grad()
@@ -225,10 +239,14 @@ def _forward(model: StreamFlow, images: torch.Tensor, iters: int,
                         cfg.corr_levels, cfg.corr_radius)
     net, inp = cnets.split(cfg.hidden_dim, dim=-1)
     net, inp = torch.tanh(net), torch.relu(inp)
-    # GMA's q and k of the whole grid, as on one rank; the slab's queries
-    q, k = model.att(inp.reshape(b * f, h, w, cfg.context_dim))
-    q = q.reshape(*q.shape[:2], h, w, -1)[:, :, r0:r1]
-    attn = (q.reshape(*k.shape[:2], hs * w, -1).contiguous(), k)
+    attn = None
+    if model.att is not None:
+        # GMA's q and k of the whole grid, as on one rank; the slab's
+        # queries
+        q, k = model.att(inp.reshape(b * f, h, w, cfg.context_dim))
+        q = q.reshape(*q.shape[:2], h, w, q.shape[-1])[:, :, r0:r1]
+        attn = (q.reshape(*k.shape[:2], hs * w, k.shape[-1]).contiguous(),
+                k)
     net, inp = net[:, :, r0:r1], inp[:, :, r0:r1]
 
     coords0 = coords_grid(b * f, hs, w, images.device, y0=r0).reshape(
@@ -238,16 +256,16 @@ def _forward(model: StreamFlow, images: torch.Tensor, iters: int,
     for i in range(iters):
         corr = pyramid.lookup(coords1.reshape(b * f, hs, w, 2))
         net, m, delta = model.update_block(
-            net, inp, corr.reshape(b, f, hs, w, -1), coords1 - coords0,
-            attn, compute_mask=i == iters - 1, rows=dec)
+            net, inp, corr.reshape(b, f, hs, w, corr.shape[-1]),
+            coords1 - coords0, attn, compute_mask=i == iters - 1, rows=dec)
         if m is not None:
             mask = m
         coords1 = coords1 + delta.float()
     if mask is None:
         mask = coords1.new_zeros(b, f, hs, w, 9 * cfg.ratio ** 2)
     flow, top = dec.halo((coords1 - coords0).reshape(b * f, hs, w, 2), 1)
-    up = convex_upsample(flow, mask.reshape(b * f, hs, w, -1), cfg.ratio,
-                         top)
+    up = convex_upsample(flow, mask.reshape(b * f, hs, w, mask.shape[-1]),
+                         cfg.ratio, top)
     up = up.reshape(b, f, *up.shape[1:])
     return dec.gather(up, 2, unit=cfg.ratio)
 
@@ -257,16 +275,22 @@ def make_seq_sharded_forward(model, mesh, iters=None):
     over the seq axis of ``mesh`` and the batch over its data axis.
     Returns ``run(images)``: images (B, T, H, W, 3) in [0, 255], the
     global batch, the same on every rank, H and W multiples of 8 -> this
-    rank's data rows of the flows, (B / n_data, T-1, H, W, 2) f32, whole
-    in H and W on every rank of its seq group.
+    rank's data rows of the flows, (rows, T-1, H, W, 2) f32, whole in H
+    and W on every rank of its seq group. Data rank d takes the rows
+    ``even_split(B, n_data)[d]`` (B=3 over 2: 2 and 1; B=1 over 4: one
+    and three groups of none, which return (0, T-1, H, W, 2) and
+    exchange nothing): the data ranks' outputs, in order, are the
+    global batch's flows, each row computed once. (JAX's GSPMD, asked
+    for ``P("data")`` on a batch that n_data does not divide, keeps the
+    output whole on every device instead: B=1, 3, 5 or 7 over 4, on
+    JAX's CPU devices; the global array it returns is the same.)
 
     ``mesh`` is ``make_mesh(n_data, n_seq)``'s: a ``SeqMesh``, or for
     n_seq = 1 the data group (None in a single process), where each rank
     runs its rows whole. The parameters are the model's own, broadcast
-    once from rank 0 (``replicate``). The canonical StreamFlow only
-    (``twins_csc`` + ``sk_tam_v3`` + GMA, any T, every ``dw_impl``, f32
-    or bf16); any other model raises a NotImplementedError naming its
-    ROADMAP entry."""
+    once from rank 0 (``replicate``). Every Twins StreamFlow (the module
+    docstring); the CNN encoders, UMT and the two-frame models raise a
+    NotImplementedError naming their ROADMAP entry."""
     _check_model(model)
     if isinstance(mesh, SeqMesh):
         n_data, n_seq, d, s = mesh.n_data, mesh.n_seq, mesh.d, mesh.s
@@ -281,17 +305,16 @@ def make_seq_sharded_forward(model, mesh, iters=None):
         d = process_index()
     replicate(model)
     n_iters = model.cfg.iters if iters is None else iters
-    halo = _halo(model.cfg)
+    temporal = model.fnet.temporal
     device = next(model.parameters()).device
 
     def run(images):
         bsz, t, height, width = images.shape[:4]
-        if bsz % n_data:
-            raise ValueError(f"make_seq_sharded_forward: a batch of {bsz} "
-                             f"rows, not a multiple of n_data={n_data}")
-        plan = seq_plan(t, height, width, n_seq, halo)
-        rows = bsz // n_data
-        local = images[d * rows:(d + 1) * rows].to(device)
-        return _forward(model, local, n_iters, plan, s, group)
+        plan = seq_plan(t, height, width, n_seq, temporal)
+        a, e = even_split(bsz, n_data)[d]
+        if a == e:       # none of the batch's rows: nothing to exchange
+            return torch.zeros(0, t - 1, height, width, 2, device=device)
+        return _forward(model, images[a:e].to(device), n_iters, plan, s,
+                        group)
 
     return run

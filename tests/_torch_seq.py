@@ -1,0 +1,192 @@
+"""Shared harness of the sequence-sharded forward's CPU tests (the
+tests/test_torch_seq*.py files; not a test file): gloo ranks
+(tests/_torch_seq_worker.py, rendezvous through a file store) against
+the port's unsharded forward and JAX's unsharded ``model.apply(...,
+test_mode=True)``, f32, the same fan-in-scaled random JAX variables of
+each config through the bridge.
+
+Tolerance: tests/test_torch_model.py's f32 parity bound (rtol 1e-4, atol
+1e-5 x max(1, max |flow|)), tighter than JAX's own 2e-3 for its sharded
+forward (tests/test_training_infra.py:323-341). The ranks of a seq group
+return the same flows bit for bit. The slabs run the unsharded layers on
+other shapes, so the CPU's matmuls may round differently: bits are not
+required against the unsharded forward. A data rank d holds the rows
+``even_split(B, n_data)[d]`` of the batch, none included.
+"""
+
+import functools
+import json
+import os
+import subprocess
+import sys
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_seq_worker as worker
+from _torch_parity import randomize_params
+from streamflow_tpu.config import StreamFlowConfig as JaxConfig
+from streamflow_tpu.models import create_model as jax_create
+from streamflow_tpu_torch.parallel.exchange import even_split
+from streamflow_tpu_torch.training.checkpoint import save_params_npz
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def runs_of(groups):
+    """(group, case, iters) of every sharded run of ``groups``."""
+    return [(g, case, it) for g in groups
+            for case, c in worker.GROUPS[g].items() for it in c.iters]
+
+
+def close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * max(1.0, np.abs(want).max(
+                                   initial=0.0)))
+
+
+def variables(fields, seed=1):
+    """Fan-in-scaled random JAX variables of the config ``fields`` (f32,
+    T=4), from the init's shapes (nothing compiled): every leaf random,
+    the zero- and dirac-init hooks too."""
+    jm = jax_create("streamflow", cfg=JaxConfig(
+        T=worker.T, iters=1, mixed_precision=False, **fields))
+    shapes = jax.eval_shape(lambda k, a: jm.init(k, a, test_mode=True),
+                            jax.random.PRNGKey(0),
+                            jnp.zeros((1, worker.T, 64, 64, 3)))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   shapes)
+    return {"params": jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32),
+        randomize_params(zeros["params"], seed))}
+
+
+def _env():
+    return dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+
+
+def _spawn(group, out):
+    script = os.path.join(ROOT, "tests", "_torch_seq_worker.py")
+    store = os.path.join(out, f"store_{group}")
+    n = worker.WORLD[group]
+    return [subprocess.Popen(
+        [sys.executable, script, group, str(r), str(n), store, str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env()) for r in range(n)]
+
+
+def _wait(procs, timeout):
+    """Each process's (exit code, the end of its stderr); kills the rest
+    if one outlasts ``timeout`` seconds."""
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            out.append((p.returncode, err[-4000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(items, iters):
+    """JAX's unsharded test-mode forward of the config ``items`` (its
+    fields, sorted), jitted once for every clip of that shape."""
+    jm = jax_create("streamflow", cfg=JaxConfig(
+        T=worker.T, iters=iters, mixed_precision=False, **dict(items)))
+    return jax.jit(lambda p, x: jm.apply(p, x, iters=iters, test_mode=True))
+
+
+def _jax_flows(variables, fields, imgs, iters):
+    """JAX's forward one clip at a time (the rows of a batch are
+    independent; one compile serves every batch)."""
+    fn = _jax_forward(tuple(sorted(fields.items())), iters)
+    return np.concatenate([np.asarray(fn(variables, jnp.asarray(c[None])))
+                           for c in imgs])
+
+
+def start(groups, out):
+    """Every group's ranks started at once, then JAX's and the port's
+    unsharded forwards of each case computed while they run; returns
+    the references and each rank's record."""
+    configs = {worker.config_name(c.fields): c.fields for g in groups
+               for c in worker.GROUPS[g].values()}
+    jax_vars = {name: variables(fields) for name, fields in configs.items()}
+    for name, v in jax_vars.items():
+        save_params_npz(str(out / f"params_{name}.npz"), v)
+    procs = {g: _spawn(g, out) for g in groups}
+    jax_ref, port_ref = {}, {}
+    try:
+        for g, case, it in runs_of(groups):
+            c = worker.GROUPS[g][case]
+            imgs = worker.clip(c.h, c.w, c.b)
+            key = (c.h, c.w, c.b, it, worker.config_name(c.fields),
+                   c.fields.get("dw_impl", "auto"))
+            if key not in jax_ref:   # cases of one clip share their refs
+                jax_ref[key] = _jax_flows(
+                    jax_vars[worker.config_name(c.fields)], c.fields, imgs,
+                    it)
+                model = worker.port_model(c.fields, str(out))
+                port_ref[key] = model(torch.from_numpy(imgs), iters=it,
+                                      test_mode=True).numpy()
+            jax_ref[case, it], port_ref[case, it] = (jax_ref[key],
+                                                     port_ref[key])
+    finally:
+        done = {g: _wait(p, timeout=600) for g, p in procs.items()}
+    for g, results in done.items():
+        for rc, err in results:
+            assert rc == 0, f"{g}: {err}"
+    recs = {g: [json.loads((out / f"{g}_{r}.json").read_text())
+                for r in range(worker.WORLD[g])] for g in groups}
+    return SimpleNamespace(out=out, jax=jax_ref, port=port_ref, recs=recs)
+
+
+def rank_flows(runs, group, case, it):
+    """Each rank's flows, and the rows of the batch it holds."""
+    c = worker.GROUPS[group][case]
+    flows = []
+    for r in range(worker.WORLD[group]):
+        a, b = even_split(c.b, c.n_data)[r // c.n_seq]
+        flows.append((np.load(runs.out / f"{case}_{it}_{r}.npy"),
+                      slice(a, b)))
+    return flows
+
+
+def parity_tests(runs_list):
+    """The three tests of every sharded run in ``runs_list``, for a test
+    module to bind (each module's ``runs`` fixture starts its groups)."""
+    params = pytest.mark.parametrize("group,case,it", runs_list)
+
+    @params
+    def test_seq_sharded_matches_port_unsharded(runs, group, case, it):
+        for got, rows in rank_flows(runs, group, case, it):
+            want = runs.port[case, it][rows]
+            assert got.shape == want.shape and got.dtype == np.float32
+            close(got, want)
+
+    @params
+    def test_seq_sharded_matches_jax(runs, group, case, it):
+        for got, rows in rank_flows(runs, group, case, it):
+            close(got, runs.jax[case, it][rows])
+
+    @params
+    def test_seq_group_ranks_agree_bit_for_bit(runs, group, case, it):
+        """The ranks of a seq group return the same whole flows."""
+        n_seq = worker.GROUPS[group][case].n_seq
+        flows = rank_flows(runs, group, case, it)
+        for r, (got, _) in enumerate(flows):
+            first = flows[r - r % n_seq][0]
+            assert np.array_equal(got.view(np.uint32),
+                                  first.view(np.uint32))
+
+    return (test_seq_sharded_matches_port_unsharded,
+            test_seq_sharded_matches_jax,
+            test_seq_group_ranks_agree_bit_for_bit)

@@ -1,34 +1,84 @@
-"""Worker process of tests/test_torch_seq.py (not a test file): one rank of
-a gloo group on the CPU, rendezvous through a file store.
+"""Worker process of the tests/test_torch_seq*.py files (not a test file):
+one rank of a gloo group on the CPU, rendezvous through a file store.
 
     python tests/_torch_seq_worker.py GROUP RANK WORLD STORE OUT
 
-For each case of GROUPS[GROUP]: the port's canonical StreamFlow (f32,
-the case's ``dw_impl``) holding the JAX variables the parent wrote to
-OUT/params.npz, ``make_seq_sharded_forward`` over
+For each case of GROUPS[GROUP]: the port's StreamFlow of the case's
+config (f32) holding the JAX variables the parent wrote to
+OUT/params_<config>.npz, ``make_seq_sharded_forward`` over
 ``make_mesh(n_data, n_seq)`` on the case's clip (``clip``), its flows in
-OUT/<case>_<iters>_<rank>.npy. Then OUT/<group>_<rank>.json records:
-the mesh's (d, s); for the "two" group a data group of one seq rank each
-(``make_mesh(n_data=2)``) against ``model.forward`` on the rank's rows
-bit for bit, the exchanges' bit patterns (bf16 and f32, -0.0 and NaN
-included) and make_mesh's refusal of a world of another size; for
-"grid" the refusal of a batch that n_data does not divide.
+OUT/<case>_<iters>_<rank>.npy. Then OUT/<group>_<rank>.json records
+each case's mesh place (d, s); for the "two" group a data group of one
+seq rank each (``make_mesh(n_data=2)``) against ``model.forward`` on the
+rank's rows bit for bit, the exchanges' bit patterns (bf16 and f32,
+-0.0 and NaN included) and make_mesh's refusal of a world of another
+size; for "eight" the exchanges on thin and empty slabs.
 """
 
 import json
 import os
 import sys
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 4
-# case -> (dw_impl, H, W, B, iterations, n_data, n_seq)
+
+
+class Case(NamedTuple):
+    """A sharded run: the config's fields beyond the canonical ones (f32,
+    T=4), the clip (H, W, batch B), its iteration counts and the mesh."""
+    fields: dict
+    h: int
+    w: int
+    b: int
+    iters: tuple
+    n_data: int
+    n_seq: int
+
+
+FRAMES = ("twins", "twins_1dconv", "twins_temporal_attention",
+          "twins_3dconv")
+DECODERS = {"sk_tam_v1": {"update_block": "sk_tam_v1"},
+            "sk_tam_v3_noinit": {"update_block": "sk_tam_v3_noinit"},
+            "no_gma": {"use_gma": False}}
+# group -> case -> Case; a group's cases run one after the other
 GROUPS = {
-    "two": {"auto": ("auto", 112, 128, 1, (1, 2), 1, 2),
-            "pallas": ("pallas", 112, 128, 1, (1,), 1, 2)},
-    "three": {"three": ("auto", 168, 128, 1, (1,), 1, 3)},
-    "grid": {"grid": ("auto", 112, 128, 2, (1,), 2, 2)},
+    # 112x128: decoder 7/7, fnet 28/28, cnet 28/14 stage-2 rows
+    "two": {"auto": Case({}, 112, 128, 1, (1, 2), 1, 2),
+            "pallas": Case({"dw_impl": "pallas"}, 112, 128, 1, (1,), 1, 2)},
+    # 168x128: 7/7/7, a rank with two neighbours
+    "three": {"three": Case({}, 168, 128, 1, (1,), 1, 3)},
+    # 2 x 2; then B=1 over n_data=2: data group 1 holds no rows
+    "grid": {"grid": Case({}, 112, 128, 2, (1,), 2, 2),
+             "odd_batch": Case({}, 112, 128, 1, (1,), 2, 2)},
+    # 48x64 (a 6-row 1/8 grid; fnet 24 and cnet 18 stacked rows, one
+    # encoder unit): JAX's own case (tests/test_training_infra.py:
+    # 322-341, B=1 over make_mesh(n_data=4, n_seq=2)), decoder 3/3; then
+    # n_seq=8 (decoder 1,1,1,1,1,1,0,0, seven empty encoder slabs); then
+    # B=3 over n_data=2 at n_seq=4 (decoder 2/2/1/1: halos past the
+    # neighbour; data groups of 2 and 1 rows)
+    "eight": {"jax_mesh": Case({}, 48, 64, 1, (1,), 4, 2),
+              "empty": Case({}, 48, 64, 1, (1,), 1, 8),
+              "thin": Case({}, 48, 64, 3, (1,), 2, 4)},
+    # the per-frame encoders at 232x64: 29 rows a frame, two units, so
+    # encoder slabs of 28 and 1 rows (every frame alike), decoder 15/14
+    "frames": {name: Case({"encoder": name}, 232, 64, 1, (1,), 1, 2)
+               for name in FRAMES},
+    # one of them at n_seq=3: encoder slabs 28/1/0, decoder 10/10/9
+    "frames3": {"twins_temporal_attention_3": Case(
+        {"encoder": "twins_temporal_attention"}, 232, 64, 1, (1,), 1, 3)},
+    # the decoder ablations on Twins_CSC at 112x128 (as "two")
+    "decoders": {name: Case(fields, 112, 128, 1, (1,), 1, 2)
+                 for name, fields in DECODERS.items()},
 }
-WORLD = {"two": 2, "three": 3, "grid": 4}
+WORLD = {g: max(c.n_data * c.n_seq for c in cases.values())
+         for g, cases in GROUPS.items()}
+
+
+def config_name(fields) -> str:
+    """The file stem of a config's variables: its fields, sorted."""
+    return "_".join(f"{k}-{v}" for k, v in sorted(fields.items())
+                    if k != "dw_impl") or "canonical"
 
 
 def clip(h, w, b, seed=5):
@@ -39,28 +89,27 @@ def clip(h, w, b, seed=5):
         0, 255, (b, T, h, w, 3)).astype(np.float32)
 
 
-def port_model(dw_impl, out):
+def port_model(fields, out):
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
     from streamflow_tpu_torch.params import load_jax
     from streamflow_tpu_torch.training.checkpoint import load_params_npz
 
     model = create_model("streamflow", cfg=StreamFlowConfig(
-        T=T, iters=1, mixed_precision=False, dw_impl=dw_impl), device="cpu")
-    load_jax(model, load_params_npz(os.path.join(out, "params.npz")))
+        T=T, iters=1, mixed_precision=False, **fields), device="cpu")
+    load_jax(model, load_params_npz(os.path.join(
+        out, f"params_{config_name(fields)}.npz")))
     return model
 
 
-def exchanges_exact(mesh):
-    """Rows.gather and Rows.halo over the seq group return every rank's
-    bit patterns (bf16 and f32, -0.0, NaN and infinities included)."""
+def exchanges_exact(rows):
+    """Rows.gather and Rows.halo (k = 2 and 5) over the seq group of
+    ``rows`` return every rank's bit patterns (bf16 and f32, -0.0, NaN
+    and infinities included): the halo holds the grid's rows start - top
+    to stop + bottom, cut only at its edges, and an empty slab gets
+    none."""
     import torch
 
-    from streamflow_tpu_torch.parallel.exchange import Rows
-
-    n, s = mesh.n_seq, mesh.s
-    bounds = [(3 * r + min(r, 1), 3 * (r + 1) + 1) for r in range(n)]
-    rows = Rows(bounds, s, mesh.seq_group)
     ok = True
     for dt in (torch.bfloat16, torch.float32):
         whole = torch.randn(2, rows.total, 5, generator=torch.Generator(
@@ -71,12 +120,17 @@ def exchanges_exact(mesh):
         mine = whole[:, rows.start:rows.stop]
         got = rows.gather(mine, 1)
         ok &= got.view(torch.uint8).equal(whole.view(torch.uint8))
-        ext, top = rows.halo(mine, 2, dim=1)
-        a, b = rows.start - top, rows.start - top + ext.shape[1]
-        ok &= ext.view(torch.uint8).equal(whole[:, a:b].contiguous().view(
-            torch.uint8))
-        ok &= top == (2 if s > 0 else 0) and b == min(rows.stop + 2,
-                                                      rows.total)
+        for k in (2, 5):
+            ext, top = rows.halo(mine, k, dim=1)
+            a = rows.start - top
+            b = a + ext.shape[1]
+            ok &= ext.view(torch.uint8).equal(
+                whole[:, a:b].contiguous().view(torch.uint8))
+            if rows.size:
+                ok &= top == min(k, rows.start) and b == min(rows.stop + k,
+                                                             rows.total)
+            else:
+                ok &= top == 0 and ext.shape[1] == 0
     return bool(ok)
 
 
@@ -90,41 +144,47 @@ def main():
 
     torch.set_num_threads(1)
     from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.exchange import Rows
     from streamflow_tpu_torch.parallel.multihost import shutdown
 
     assert parallel.initialize(f"file://{store}", world, rank,
                                device="cpu") == (rank, world)
-    rec = {}
-    for case, (dw, h, w, b, iters, n_data, n_seq) in GROUPS[group].items():
-        model = port_model(dw, out)
-        mesh = parallel.make_mesh(n_data, n_seq)
-        rec["mesh"] = [mesh.d, mesh.s]
-        imgs = torch.from_numpy(clip(h, w, b))
-        for it in iters:
+    rec = {"mesh": {}}
+    for case, c in GROUPS[group].items():
+        model = port_model(c.fields, out)
+        mesh = parallel.make_mesh(c.n_data, c.n_seq)
+        rec["mesh"][case] = [mesh.d, mesh.s]
+        imgs = torch.from_numpy(clip(c.h, c.w, c.b))
+        for it in c.iters:
             flows = parallel.make_seq_sharded_forward(model, mesh, it)(imgs)
             np.save(os.path.join(out, f"{case}_{it}_{rank}.npy"),
                     flows.numpy())
-        if group == "grid":
-            try:
-                parallel.make_seq_sharded_forward(model, mesh, 1)(imgs[:1])
-                rec["odd_batch_refused"] = False
-            except ValueError:
-                rec["odd_batch_refused"] = True
     if group == "two":
-        rec["exchanges_exact"] = exchanges_exact(mesh)
+        n, s = mesh.n_seq, mesh.s
+        rec["exchanges_exact"] = exchanges_exact(Rows(
+            [(3 * r + min(r, 1), 3 * (r + 1) + 1) for r in range(n)], s,
+            mesh.seq_group))
         try:
             parallel.make_mesh(n_data=2, n_seq=2)
             rec["bad_world_refused"] = False
         except ValueError:
             rec["bad_world_refused"] = True
         # a seq group of one: each rank's data rows whole
-        model = port_model("auto", out)
+        model = port_model({}, out)
         imgs = torch.from_numpy(clip(112, 128, 2))
         fwd = parallel.make_seq_sharded_forward(
             model, parallel.make_mesh(n_data=2), 2)
         got = fwd(imgs)
         want = model(imgs[rank:rank + 1], iters=2, test_mode=True)
         rec["solo_bit_for_bit"] = bool(torch.equal(got, want))
+    if group == "eight":
+        # thin slabs (1 row) between empty ones, halos of 2 and 5 rows
+        # reaching past the neighbours, over the whole world of 8
+        mesh = parallel.make_mesh(n_seq=world)
+        sizes = [3, 1, 0, 2, 1, 0, 4, 0]
+        bounds = [(sum(sizes[:r]), sum(sizes[:r + 1])) for r in range(8)]
+        rec["exchanges_exact"] = exchanges_exact(
+            Rows(bounds, mesh.s, mesh.seq_group))
     with open(os.path.join(out, f"{group}_{rank}.json"), "w") as fh:
         json.dump(rec, fh)
     shutdown()

@@ -1,190 +1,60 @@
 """The port's sequence-sharded forward (streamflow_tpu_torch/parallel/
 seq.py, exchange.py; JAX's parallel/seq.py::make_seq_sharded_forward) on
-the CPU: gloo ranks (tests/_torch_seq_worker.py, rendezvous through a
-file store) against the port's unsharded forward and JAX's unsharded
-``model.apply(..., test_mode=True)``, f32, the same fan-in-scaled random
-JAX variables through the bridge.
+the CPU, through tests/_torch_seq.py's harness: gloo ranks against the
+port's unsharded forward and JAX's, f32.
 
 (i)   n_seq=2 at 112x128, T=4, iters 1 and 2 (decoder slabs 7/7, fnet
       28/28, cnet 28/14 stage-2 rows);
 (ii)  n_seq=3 at 168x128, iters 1 (7/7/7: a rank with two neighbours);
-(iii) n_data=2 x n_seq=2, B=2, at 112x128, iters 1;
+(iii) n_data=2 x n_seq=2, B=2, at 112x128, iters 1; then B=1 over the
+      same mesh (data group 1 holds no rows);
 (iv)  dw_impl='pallas' at n_seq=2, iters 1;
-(v)   a seq group of one (one process; and make_mesh(n_data=2)'s data
-      group of two) bit for bit with ``model.forward``;
-(vi)  the slab planner's boundaries;
+(v)   a seq group of one (one process, every Twins StreamFlow; and
+      make_mesh(n_data=2)'s data group of two) bit for bit with
+      ``model.forward``;
+(vi)  the slab planner's boundaries, thin and empty slabs included;
 (vii) the ValueErrors and NotImplementedErrors;
-(viii) GSA's flash switch on a slab follows the whole grid's tokens.
+(viii) GSA's flash switch on a slab follows the whole grid's tokens;
+(ix)  the kernel wrappers on no rows launch nothing.
 
-Tolerance: tests/test_torch_model.py's f32 parity bound (rtol 1e-4, atol
-1e-5 x max(1, max |flow|)), tighter than JAX's own 2e-3 for its sharded
-forward (tests/test_training_infra.py:323-341). The ranks of a seq group
-return the same flows bit for bit. The slabs run the unsharded layers on
-other shapes, so the CPU's matmuls may round differently: bits are not
-required against the unsharded forward.
+The thin and empty slabs at 48x64 (JAX's own case) are in
+test_torch_seq_thin.py, the per-frame encoders in
+test_torch_seq_frames.py, the decoder ablations in
+test_torch_seq_decoders.py.
 """
 
-import json
-import os
-import subprocess
-import sys
-from types import SimpleNamespace
-
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
+import _torch_seq as seq
 import _torch_seq_worker as worker
-from _torch_parity import randomize_params
-from streamflow_tpu.config import StreamFlowConfig as JaxConfig
-from streamflow_tpu.models import create_model as jax_create
 from streamflow_tpu_torch import parallel
 from streamflow_tpu_torch.config import StreamFlowConfig
 from streamflow_tpu_torch.models import create_model
 from streamflow_tpu_torch.params import load_jax
 from streamflow_tpu_torch.parallel.exchange import Rows, even_split
-from streamflow_tpu_torch.parallel.seq import encoder_unit, seq_plan
-from streamflow_tpu_torch.training.checkpoint import save_params_npz
+from streamflow_tpu_torch.parallel.seq import SeqPlan, encoder_unit, seq_plan
 
 torch.set_num_threads(2)
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (group, case, iters) of every sharded run
-RUNS = [(g, case, it) for g, cases in worker.GROUPS.items()
-        for case, spec in cases.items() for it in spec[4]]
-
-
-def _close(got, want):
-    want = np.asarray(want)
-    np.testing.assert_allclose(got, want, rtol=1e-4,
-                               atol=1e-5 * max(1.0, np.abs(want).max()))
-
-
-def _variables(seed=1):
-    """Fan-in-scaled random JAX variables from the init's shapes (nothing
-    compiled)."""
-    jm = jax_create("streamflow", cfg=JaxConfig(T=worker.T, iters=1,
-                                                mixed_precision=False))
-    shapes = jax.eval_shape(lambda k, a: jm.init(k, a, test_mode=True),
-                            jax.random.PRNGKey(0),
-                            jnp.zeros((1, worker.T, 64, 64, 3)))
-    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
-                                   shapes)
-    return {"params": jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32),
-        randomize_params(zeros["params"], seed))}
-
-
-def _env():
-    return dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-
-
-def _spawn(group, out):
-    script = os.path.join(ROOT, "tests", "_torch_seq_worker.py")
-    store = os.path.join(out, f"store_{group}")
-    n = worker.WORLD[group]
-    return [subprocess.Popen(
-        [sys.executable, script, group, str(r), str(n), store, str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=_env()) for r in range(n)]
-
-
-def _wait(procs, timeout):
-    """Each process's (exit code, the end of its stderr); kills the rest
-    if one outlasts ``timeout`` seconds."""
-    out = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=timeout)
-            out.append((p.returncode, err[-4000:]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    return out
-
-
-def _jax_flows(variables, dw, imgs, iters):
-    """JAX's unsharded test-mode forward, one clip at a time (the rows of
-    a batch are independent; one compile serves B=1 and B=2)."""
-    jm = jax_create("streamflow", cfg=JaxConfig(
-        T=worker.T, iters=iters, mixed_precision=False, dw_impl=dw))
-    fn = jax.jit(lambda p, x: jm.apply(p, x, iters=iters, test_mode=True))
-    return np.concatenate([np.asarray(fn(variables, jnp.asarray(c[None])))
-                           for c in imgs])
+GROUPS = ("two", "three", "grid")
+RUNS = seq.runs_of(GROUPS)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every group's ranks started at once, then JAX's and the port's
-    unsharded forwards of each case computed while they run."""
-    out = tmp_path_factory.mktemp("seq")
-    variables = _variables()
-    save_params_npz(str(out / "params.npz"), variables)
-    procs = {g: _spawn(g, out) for g in worker.GROUPS}
-    jax_ref, port_ref = {}, {}
-    try:
-        for g, case, it in RUNS:
-            dw, h, w, b = worker.GROUPS[g][case][:4]
-            imgs = worker.clip(h, w, b)
-            jax_ref[case, it] = _jax_flows(variables, dw, imgs, it)
-            model = worker.port_model(dw, str(out))
-            port_ref[case, it] = model(torch.from_numpy(imgs), iters=it,
-                                       test_mode=True).numpy()
-    finally:
-        done = {g: _wait(p, timeout=600) for g, p in procs.items()}
-    for g, results in done.items():
-        for rc, err in results:
-            assert rc == 0, f"{g}: {err}"
-    recs = {g: [json.loads((out / f"{g}_{r}.json").read_text())
-                for r in range(worker.WORLD[g])] for g in worker.GROUPS}
-    return SimpleNamespace(out=out, jax=jax_ref, port=port_ref, recs=recs)
+    return seq.start(GROUPS, tmp_path_factory.mktemp("seq"))
 
 
-def _rank_flows(runs, group, case, it):
-    """Each rank's flows, and the rows of the batch it holds."""
-    n_data, n_seq = worker.GROUPS[group][case][5:]
-    b = worker.GROUPS[group][case][3] // n_data
-    flows = []
-    for r in range(worker.WORLD[group]):
-        d = r // n_seq
-        flows.append((np.load(runs.out / f"{case}_{it}_{r}.npy"),
-                      slice(d * b, (d + 1) * b)))
-    return flows
-
-
-@pytest.mark.parametrize("group,case,it", RUNS)
-def test_seq_sharded_matches_port_unsharded(runs, group, case, it):
-    for got, rows in _rank_flows(runs, group, case, it):
-        want = runs.port[case, it][rows]
-        assert got.shape == want.shape and got.dtype == np.float32
-        _close(got, want)
-
-
-@pytest.mark.parametrize("group,case,it", RUNS)
-def test_seq_sharded_matches_jax(runs, group, case, it):
-    for got, rows in _rank_flows(runs, group, case, it):
-        _close(got, runs.jax[case, it][rows])
-
-
-@pytest.mark.parametrize("group,case,it", RUNS)
-def test_seq_group_ranks_agree_bit_for_bit(runs, group, case, it):
-    """The ranks of a seq group return the same whole flows."""
-    n_seq = worker.GROUPS[group][case][6]
-    flows = _rank_flows(runs, group, case, it)
-    for r, (got, _) in enumerate(flows):
-        first = flows[r - r % n_seq][0]
-        assert np.array_equal(got.view(np.uint32), first.view(np.uint32))
+(test_seq_sharded_matches_port_unsharded, test_seq_sharded_matches_jax,
+ test_seq_group_ranks_agree_bit_for_bit) = seq.parity_tests(RUNS)
 
 
 def test_mesh_places_ranks_on_the_grid(runs):
     """rank = d * n_seq + s, JAX's devices.reshape(n_data, n_seq)."""
-    assert [r["mesh"] for r in runs.recs["grid"]] == [[0, 0], [0, 1],
-                                                      [1, 0], [1, 1]]
-    assert [r["mesh"] for r in runs.recs["three"]] == [[0, 0], [0, 1],
-                                                       [0, 2]]
+    assert [r["mesh"]["grid"] for r in runs.recs["grid"]] == [
+        [0, 0], [0, 1], [1, 0], [1, 1]]
+    assert [r["mesh"]["three"] for r in runs.recs["three"]] == [
+        [0, 0], [0, 1], [0, 2]]
 
 
 def test_exchanges_keep_every_bit_pattern(runs):
@@ -198,20 +68,46 @@ def test_data_group_of_one_seq_rank_is_bit_for_bit(runs):
 
 
 def test_mesh_and_batch_refusals_across_ranks(runs):
+    """A world of another size is refused; a batch that n_data does not
+    divide is not: B=1 over n_data=2 gives data group 0 the clip and
+    group 1 no rows, (0, T-1, H, W, 2)."""
     assert all(r["bad_world_refused"] for r in runs.recs["two"])
-    assert all(r["odd_batch_refused"] for r in runs.recs["grid"])
+    shapes = [f.shape for f, _ in seq.rank_flows(runs, "grid", "odd_batch",
+                                                 1)]
+    assert shapes == [(1, 3, 112, 128, 2)] * 2 + [(0, 3, 112, 128, 2)] * 2
+
+
+def _model(fields, seed=2, **kw):
+    model = create_model("streamflow", cfg=StreamFlowConfig(
+        T=4, iters=2, mixed_precision=False, **fields, **kw), device="cpu")
+    load_jax(model, seq.variables(fields, seed))
+    return model
 
 
 @pytest.mark.parametrize("dw_impl", ["auto", "pallas"])
 def test_one_process_is_the_unsharded_forward_bit_for_bit(dw_impl):
     """A seq group of one (a single process, mesh None) runs the sharded
     code with no exchange: model.forward bit for bit."""
-    model = create_model("streamflow", cfg=StreamFlowConfig(
-        T=4, iters=2, mixed_precision=False, dw_impl=dw_impl), device="cpu")
-    load_jax(model, _variables(2))
+    model = _model({}, dw_impl=dw_impl)
     imgs = torch.from_numpy(worker.clip(112, 64, 1))
     got = parallel.make_seq_sharded_forward(model, parallel.make_mesh())(
         imgs)
+    assert torch.equal(got, model(imgs, test_mode=True))
+
+
+@pytest.mark.parametrize("fields", [
+    {"encoder": "twins"}, {"encoder": "twins_1dconv"},
+    {"encoder": "twins_temporal_attention"}, {"encoder": "twins_3dconv"},
+    {"update_block": "sk_tam_v1"}, {"update_block": "sk_tam_v3_noinit"},
+    {"use_gma": False}], ids=lambda f: "-".join(map(str, f.values())))
+def test_every_twins_model_is_sharded(fields):
+    """The per-frame Twins encoders and the decoder ablations (refused
+    until ROADMAP A10c) run the sharded code: in one process, with no
+    exchange, model.forward bit for bit (their gloo runs are
+    test_torch_seq_frames.py's and test_torch_seq_decoders.py's)."""
+    model = _model(fields)
+    imgs = torch.from_numpy(worker.clip(48, 64, 1))
+    got = parallel.make_seq_sharded_forward(model, None, 2)(imgs)
     assert torch.equal(got, model(imgs, test_mode=True))
 
 
@@ -230,6 +126,16 @@ def test_one_process_is_the_unsharded_forward_bit_for_bit(dw_impl):
      [(0, 28), (28, 56), (56, 84), (84, 100)],
      [(0, 13), (13, 26), (26, 38), (38, 50)]),
     (4, 64, 64, 1, [(0, 32)], [(0, 24)], [(0, 8)]),
+    # one 8-GPU node: decoder 7 x 7 + 6; the cnet's 6 units leave two
+    # ranks empty
+    (4, 440, 1024, 8, [(28 * i, min(28 * i + 28, 220)) for i in range(8)],
+     [(28 * i, 28 * i + 28) for i in range(5)] + [(140, 165)] * 1
+     + [(165, 165)] * 2, [(7 * i, min(7 * i + 7, 55)) for i in range(8)]),
+    # JAX's test shape: one encoder unit, 6 decoder rows over 8
+    (4, 48, 64, 8, [(0, 24)] + [(24, 24)] * 7, [(0, 18)] + [(18, 18)] * 7,
+     [(i, i + 1) for i in range(6)] + [(6, 6)] * 2),
+    (4, 48, 64, 4, [(0, 24)] + [(24, 24)] * 3, [(0, 18)] + [(18, 18)] * 3,
+     [(0, 2), (2, 4), (4, 5), (5, 6)]),
 ])
 def test_seq_plan_boundaries(t, h, w, n, fnet, cnet, dec):
     plan = seq_plan(t, h, w, n)
@@ -237,7 +143,28 @@ def test_seq_plan_boundaries(t, h, w, n, fnet, cnet, dec):
     unit = encoder_unit()
     for bounds, frames in ((plan.fnet, t), (plan.cnet, t - 1)):
         assert bounds[-1][1] == frames * h // 8
-        assert all(a % unit == 0 for a, _ in bounds)
+        assert all(a % unit == 0 for a, b in bounds if b > a)
+    assert [sum(plan.holds(s).values()) for s in range(n)] == [
+        sum(b - a for a, b in (g[s] for g in plan)) for s in range(n)]
+
+
+@pytest.mark.parametrize("t,h,w,n,frame,dec", [
+    # 440x1024 per frame: 55 rows, two units; decoder 14/14/14/13
+    (4, 440, 1024, 4, [(0, 28), (28, 55), (55, 55), (55, 55)],
+     [(0, 14), (14, 28), (28, 42), (42, 55)]),
+    (4, 232, 64, 2, [(0, 28), (28, 29)], [(0, 15), (15, 29)]),
+    (4, 232, 64, 3, [(0, 28), (28, 29), (29, 29)],
+     [(0, 10), (10, 20), (20, 29)]),
+    (3, 1440, 2560, 2, [(0, 112), (112, 180)], [(0, 90), (90, 180)]),
+])
+def test_seq_plan_per_frame(t, h, w, n, frame, dec):
+    """A per-frame encoder's slabs are the same rows of every frame, the
+    fnet's and the cnet's alike."""
+    plan = seq_plan(t, h, w, n, temporal=False)
+    assert plan == (frame, frame, dec)
+    assert plan.holds(n - 1) == {"fnet": frame[-1][1] - frame[-1][0],
+                                 "cnet": frame[-1][1] - frame[-1][0],
+                                 "decoder": dec[-1][1] - dec[-1][0]}
 
 
 def test_encoder_unit_and_even_split():
@@ -250,14 +177,37 @@ def test_encoder_unit_and_even_split():
     ((4, 100, 128, 2), "multiple of 8"),
     ((4, 112, 60, 2), "multiple of 8"),
     ((1, 112, 128, 2), "two frames"),
-    ((4, 104, 128, 2), "thinner than the 7-row halo"),   # 13 rows: 7/6
-    ((4, 224, 128, 5), "thinner than the 7-row halo"),
-    ((2, 224, 128, 2), "fewer than n_seq=2"),             # cnet: 28 rows
-    ((4, 168, 128, 4), "thinner"),
+    ((4, 112, 128, 0), "n_seq=0"),
 ])
 def test_seq_plan_refusals(args, match):
     with pytest.raises(ValueError, match=match):
         seq_plan(*args)
+
+
+@pytest.mark.parametrize("args,plan", [
+    # refused until the halo read past the neighbour: 13 rows, 7/6
+    ((4, 104, 128, 2), ([(0, 28), (28, 52)], [(0, 28), (28, 39)],
+                        [(0, 7), (7, 13)])),
+    # 28 rows in 5: 6,6,6,5,5; fnet 4 units, cnet 3: empty encoder slabs
+    ((4, 224, 128, 5), ([(0, 28), (28, 56), (56, 84), (84, 112),
+                         (112, 112)],
+                        [(0, 28), (28, 56), (56, 84), (84, 84), (84, 84)],
+                        [(0, 6), (6, 12), (12, 18), (18, 23), (23, 28)])),
+    # refused for fewer units than ranks: the cnet's 28 rows, one unit
+    ((2, 224, 128, 2), ([(0, 28), (28, 56)], [(0, 28), (28, 28)],
+                        [(0, 14), (14, 28)])),
+    ((4, 168, 128, 4), ([(0, 28), (28, 56), (56, 84), (84, 84)],
+                        [(0, 28), (28, 56), (56, 63), (63, 63)],
+                        [(0, 6), (6, 11), (11, 16), (16, 21)])),
+])
+def test_seq_plan_thin_and_empty_slabs(args, plan):
+    """The shapes refused for a slab thinner than the halo or fewer units
+    than ranks (until ROADMAP A10h) have a plan: thin slabs, and empty
+    ones past the last unit."""
+    got = seq_plan(*args)
+    assert isinstance(got, SeqPlan) and got == plan
+    empty = [s for s in range(args[3]) if not got.holds(s)["cnet"]]
+    assert empty == [s for s, (a, b) in enumerate(plan[1]) if a == b]
 
 
 def test_rows_refusals():
@@ -273,11 +223,6 @@ def test_rows_refusals():
 
 
 @pytest.mark.parametrize("name,fields,entry", [
-    ("streamflow", {"encoder": "twins"}, "A10c"),
-    ("streamflow", {"encoder": "twins_3dconv"}, "A10c"),
-    ("streamflow", {"update_block": "sk_tam_v1"}, "A10c"),
-    ("streamflow", {"update_block": "sk_tam_v3_noinit"}, "A10c"),
-    ("streamflow", {"use_gma": False}, "A10c"),
     ("streamflow", {"encoder": "basic"}, "A10d"),
     ("streamflow", {"encoder": "res18_3d"}, "A10d"),
     ("streamflow", {"encoder": "umt", "decoder_dim": 768}, "A10e"),
@@ -337,3 +282,104 @@ def test_gsa_flash_follows_the_whole_grid(monkeypatch):
     assert calls == [(1, 4, 56 * 160, 32)]
     gsa(x, (56, 160))                     # the slab alone is under it
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("size,flash", [((56, 256), True), ((28, 128), False)])
+def test_gsa_flash_per_frame_follows_one_frame(monkeypatch, size, flash):
+    """A per-frame encoder's GSA on a slab of each of 4 frames of 440x1024
+    takes K3 by one frame's whole token count: stage 1 (110 x 256 = 28160
+    tokens) does, stage 2 (55 x 128 = 7040) does not."""
+    from streamflow_tpu_torch.layers import twins
+
+    calls = []
+    flash_fn = twins.flash_attention
+    monkeypatch.setattr(twins, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or flash_fn(*a))
+    rows, w = size
+    dim, sr = (128, 8) if flash else (256, 4)
+    gsa = twins.GlobalSubSampleAttn(dim, dim // 32, sr)
+    x = torch.randn(4, rows * w, dim)
+    out = gsa(x, (rows, w), rows=_TwoSlabs([(0, rows), (rows, 2 * rows - 1)]))
+    assert out.shape == x.shape and len(calls) == int(flash)
+
+
+class _Card(torch.Tensor):
+    """A CPU tensor that passes for one on the card (is_cuda), so that a
+    wrapper takes its kernel path."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_no_rows_launch_no_kernel(monkeypatch):
+    """K1, K2 (both its fused and wide plans), K3 and K4 on an empty slab's
+    no rows, on the card's path: outputs of no rows, no launcher called,
+    no launch counted (a CUDA launch over an empty grid is an invalid
+    configuration)."""
+    from streamflow_tpu_torch import _build
+    from streamflow_tpu_torch.ops.kernels import (LAUNCHES, corr_lookup,
+                                                  ffn_pair, flash_attention,
+                                                  lga_attention)
+
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: calls.append(name) or 0
+    monkeypatch.setattr(_build, "library", Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 7)
+    before = dict(LAUNCHES)
+
+    def card(*shape):
+        return torch.zeros(*shape, dtype=torch.bfloat16).as_subclass(_Card)
+    f1 = card(3, 0, 16, 256)
+    levels = [card(3, 8 >> i, 16 >> i, 256) for i in range(4)]
+    coords = torch.zeros(3, 0, 16, 2).as_subclass(_Card)
+    assert corr_lookup.corr_lookup(f1, levels, coords).shape == (3, 0, 16,
+                                                                 324)
+    for c, ch, co in ((324, 486, 256), (1920, 2880, 384)):
+        x = card(3, 0, 16, c)
+        out = ffn_pair.ffn_pair_k1(x, card(ch, c), card(ch), card(co, ch),
+                                   card(co), card(co), card(co))
+        assert out.shape == (3, 0, 16, co)
+        out = ffn_pair.ln_ffn_pair(card(4, 0, c), card(c), card(c),
+                                   card(ch, c), card(ch), card(c, ch),
+                                   card(c))
+        assert out.shape == (4, 0, c)
+    q = card(3, 1, 0, 128)
+    kv = card(3, 1, 77, 128)
+    out, lse = flash_attention.flash_attention_fwd(q, kv, kv, True)
+    assert out.shape == q.shape and lse.shape == (3, 1, 0)
+    assert flash_attention.flash_attention(q, kv, kv).shape == q.shape
+    assert lga_attention.lga_attention(card(4, 0, 259, 384), 7, 4).shape == (
+        4, 0, 259, 128)
+    assert calls == [] and LAUNCHES == before
+
+
+def test_layers_on_no_rows():
+    """The layers an empty slab reaches: the kxk convs (``conv2d``: no
+    call) and each SK block layout return no rows of their output's
+    width."""
+    from streamflow_tpu_torch.layers.common import conv2d
+    from streamflow_tpu_torch.layers.sk import SKBlock
+
+    x = torch.zeros(3, 0, 16, 64)
+    for conv, width in ((torch.nn.Conv2d(64, 64, 3, padding=1, groups=64),
+                         16), (torch.nn.Conv2d(64, 32, 4, stride=4), 4),
+                        (torch.nn.Conv2d(64, 64, 8, stride=8), 2)):
+        assert conv2d(x, conv).shape == (3, 0, width, conv.out_channels)
+    for dw in ("auto", "pallas", "banded_mxu", "banded_chain"):
+        assert SKBlock(64, 6, (1, 15), dw)(x).shape == (3, 0, 16, 6)
+
+
+def test_halo_reach_reads_past_the_neighbours():
+    """The rows halo's buffer carries: k rows above and below each
+    non-empty slab, merged, within the grid; the empty slabs read none."""
+    rows = Rows([(0, 3), (3, 4), (4, 4), (4, 6), (6, 7), (7, 7), (7, 11),
+                 (11, 11)], 0, group=object())
+    assert rows.reach(2) == [(1, 9)] and rows.reach(1) == [(2, 8)]
+    assert Rows([(0, 28), (28, 55)], 1, group=object()).reach(7) == [
+        (21, 35)]
+    assert Rows([(0, 10), (10, 20), (20, 30)], 2, group=object()).reach(
+        2) == [(8, 12), (18, 22)]
