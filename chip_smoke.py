@@ -61,7 +61,7 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   7. the train step: seeded weights and batch, 432x960, T=4, 12
      iterations, bf16 compute with f32 parameters, remat, AdamW; launch
      counts checked exactly; ms/step, peak memory, every parameter moves,
-     a torch.profiler breakdown of one step;
+     a torch.profiler breakdown of one step (the card's activity);
   8. training guard: one step's loss and gradients at 128x256 through the
      kernel path on the card against the plain path on the CPU;
   9-26. the other SK layouts (StreamFlowConfig.dw_impl), at the same sizes
@@ -71,8 +71,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      ffn_pair, K5 dw_chain, K2 pw_ffn_pair), 'banded_mxu' (13-16: K6 in
      place of K5), 'banded_chain' (17-20: K8) and 'banded_mxu_t' (21-24:
      K7), phases 4 and 5 for 'banded' (25-26: the banded composite, no dw
-     kernel); their train steps' profiles record the card's activity
-     alone (phase 7's keeps the host ops);
+     kernel); their forwards' profiles and every train step's record
+     the card's activity alone (phase 4's keeps the host ops), as do
+     the serving profiles of phases 27, 29, 32 and 35;
   27. the graphed forward (evaluation.GraphedForward: one CUDA graph per
      input shape) of phase 4's clip in 'auto', 'banded_chain' and
      'banded_mxu_t' (K7's persistent kernel under replay): the replay's
@@ -98,9 +99,9 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
   30. the trainer (tools/train.py's loop, ``train``) at the sintel_kitti
      preset as given (B=8, 432x960, T=4, 12 iterations, bf16 with f32
      parameters, remat) on in-memory clips from the seed, after every
-     kernel of its step and B5 against its plain version at B=8: 6 steps, a
+     kernel of its step and B5 against its plain version at B=8: 4 steps, a
      checkpoint and a validation (phase 28's Sintel windows through the
-     run's one GraphedForward) at step 4; the loader's batches on the card
+     run's one GraphedForward) at step 3; the loader's batches on the card
      equal to its numpy batches bit for bit; launches per step and of the
      validation checked exactly; finite loss and grad_norm; every
      parameter moves; the last checkpoint restored into a fresh state
@@ -150,13 +151,13 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      rest within the card's own run-to-run spread (B5's atomic sums make
      the backward irreproducible; measured beside), launches as phase
      7's, wall and device ms a step of each, in turns;
-     (b) two ranks sharing the card over gloo, f32, 432x960, a global
+     (b) two ranks sharing the card over gloo, f32, 216x480, a global
      batch of 2 at 2 iterations: the canonical, 'basic', bithings (fold),
      'basic' bidirectional and RAFT two-frame steps against one process's
      step on the whole batch, at JAX's tolerances for its sharded step,
      the ranks equal bit for bit after two steps, launches exact on both;
      (c) tools/train.py::train on two ranks over gloo (global batch 2,
-     4 steps, a checkpoint and a validation every 2): checkpoints written
+     2 steps, a checkpoint and a validation every step): checkpoints written
      by rank 0 alone, validations and best.npz on rank 0 alone, each rank
      resuming the last checkpoint bit for bit, the ranks' states equal;
   35. StreamFlow with the UMT video-ViT encoder at decoder_dim=768 (the one
@@ -220,16 +221,32 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      one-process forward (the bound above, the share of bit-equal values),
      bf16 'auto' at iters 1 and 12 within phase 5's guard, every rank's
      launches exactly its slabs' (seq_rank_launches: an empty slab's
-     rank launches fewer), the ranks bit for bit, wall and device ms, the
-     exchanges' count and bytes, peak memory, one 1440x2560 run; (b) each
+     rank launches fewer), the ranks bit for bit, wall ms (device ms from
+     rank 0's profile), the exchanges' count and bytes, peak memory, one
+     1440x2560 run at one iteration (the peak memory a rank); (b) each
      Twins ablation config of ZOO (the per-frame encoders and the
      decoder ablations) at iters 1, bf16 'auto', B=1 over
      make_mesh(n_data=2, n_seq=4) (data group 1 holds no rows; a
      per-frame encoder's 55-row frames leave two ranks without encoder
      rows; decoder 14/14/14/13) within the same guard against its own
-     one-process forwards, launches exact, ms a clip. The kernels are
+     one-process forwards, launches exact, ms a clip; (d) the CNN
+     encoders 'basic' and 'res18_3d' over the same mesh (each frame's 55
+     rows at 1/8 split 14/14/14/13 in the encoders, their convs on slabs
+     with halos at every stride, InstanceNorm's statistics summed over
+     the seq group) and (e) UMT at 448x1024 (28 rows at 1/16, 7 a rank;
+     the ViT's keys and values gathered per block): f32 at iters 1
+     against the one-process f32 forward (the bound above, the share of
+     bit-equal values; for the CNN encoders plus coord_floor, one f32
+     ulp of the grid's largest coordinate times 8, 6.1e-5 px: their
+     InstanceNorm sums per slab, so their statistics differ in the last
+     bits, and the log shows the one-process flows moving by as much
+     under a last-bit change of the fnet's output), bf16 'auto' at
+     iters 1 (and 12 for UMT) within phase 5's guard, launches exact on
+     every rank, ms a clip, rank 0's device ms, the exchanges' count and
+     bytes; one 1440x2560 run of 'basic' at one iteration, its peak
+     memory a rank against the one-process forward's. The kernels are
      checked at the slab shapes of SEQ_PATHS (rank 0 of two, the last
-     rank of 8, rank 0 of 4 under 'twins').
+     rank of 8, rank 0 of 4 under 'twins', 'basic' and UMT).
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -246,16 +263,17 @@ iterations and per B=8 step; "inference_umt": phases 3 and 35, per
 TD_STEPS training steps at 192x384 and the trained weights' bf16 clip at
 216x512), with phase 37's kernel numbers per step times TD_STEPS plus
 per clip;
-"inference_seq", "inference_seq8", "inference_seq_frames": phase 39's
-SEQ_PATHS, per 440x1024 clip (12 iterations; 'twins' at 1) at that
-rank's slabs' shapes;
+"inference_seq", "inference_seq8", "inference_seq_frames",
+"inference_seq_cnn", "inference_seq_umt": phase 39's SEQ_PATHS, per
+440x1024 clip (448x1024 under UMT; 12 iterations, 'twins' and 'basic' at
+1) at that rank's slabs' shapes;
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
-34 (c)'s rank 0 launches over its 4 steps, with phase 6's numbers times
-4; "serving": phase 28's
+34 (c)'s rank 0 launches over its 2 steps, with phase 6's numbers times
+2; "serving": phase 28's
 launches, with phase 3's numbers per 440x1024 clip; "trainer": the
-launches of phase 30's 6 steps, with phase 30's B=8 kernel numbers
-summed over the same 6 steps, and its validation's launches apart under
+launches of phase 30's 4 steps, with phase 30's B=8 kernel numbers
+summed over the same 4 steps, and its validation's launches apart under
 "launches_validation"): "launches" is the
 path's count, "ms", "plain_ms", "bound_ms" and "library_ms" are summed
 over the same calls at the path's shapes (K1's under the jitter
@@ -568,14 +586,14 @@ def umt_train_launches(iters: int = ITERS) -> dict:
 # has 1200 s for all its phases), evaluated on one TD_EVAL_H x TD_EVAL_W
 # clip (the probe's 436x1024) at 12 iterations; its weights go through
 # TD_DIR; its path in the kernels line is "trained_dynamics"
-TD_STEPS = 30
+TD_STEPS = 10
 TD_H, TD_W = 192, 384
 TD_EVAL_H, TD_EVAL_W = 216, 512
 TD_DIR = os.path.join(ROOT, "build", "chip_smoke_probe")
 # phase 38: the sweep's specs (440x1024, in turns) and bench_input's short
 # instance (stage 2's crops and batch)
 SWEEP_SPECS = ("default", "dw=banded_chain")
-BENCH_INPUT_ARGS = ("--workers", "4", "8")
+BENCH_INPUT_ARGS = ("--workers", "8", "--nbatches", "6")
 
 # the training shapes (tools/train.py's sintel_kitti stage)
 TRAIN_H, TRAIN_W = 432, 960
@@ -1197,11 +1215,11 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                       flash_case((nb, 1), n2, n2, 128), calls2,
                       tuple(m for m in two if m != "raft")))
 
-    for tag, (n_seq, rank, temporal, iters) in SEQ_PATHS.items():
+    for tag, (n_seq, rank, temporal, iters, kind) in SEQ_PATHS.items():
         if tag in summaries:
             cases += seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case,
                                dw_case, hp, wp, tag, n_seq, rank, temporal,
-                               iters)
+                               iters, kind)
     if "umt" in summaries:
         cases += umt_cases(ffn_case, flash_case, corr_traffic_case,
                            mixed_tiles, edge_case,
@@ -1270,35 +1288,43 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
 
 
 def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
-              wp, tag, n_seq, s, temporal, iters) -> list:
+              wp, tag, n_seq, s, temporal, iters, kind="twins") -> list:
     """Phase 39's kernel shapes: rank ``s`` of ``n_seq`` ranks sharing an
-    hp x wp clip (its slabs from parallel/seq.py::seq_plan; ``temporal``:
-    Twins_CSC's stacked encoder grids, else a per-frame encoder's slabs of
-    each frame), each kernel's calls per clip of ``iters`` iterations (the
-    ``tag`` path; none for a grid where the rank's slab is empty): K2's
-    default forms on each SK block's slab extended by its halo (as many
-    rows above and below as the grid holds), the Twins MLPs on the
-    encoders' slabs, K3 for GMA (the slab's queries against the whole
-    grid's keys) and GSA (a slab against the whole reduced grid, or per
-    frame against one frame's), K4 on window-aligned slabs, K1 on the
-    slab's queries against the whole pyramid; for "seq", K5 on an
-    extended slab, checked (the 'pallas' run of phase 39 calls it
-    there)."""
+    hp x wp clip (448x1024 under UMT; its slabs from parallel/seq.py::
+    seq_plan of the encoder ``kind``; ``temporal``: Twins_CSC's stacked
+    encoder grids, else a per-frame encoder's slabs of each frame), each
+    kernel's calls per clip of ``iters`` iterations (the ``tag`` path;
+    none for a grid where the rank's slab is empty): K2's default forms
+    on each SK block's slab extended by its halo (as many rows above and
+    below as the grid holds; UMT's widths, its gru's and flow head's on
+    K2's wide path), the Twins MLPs on the encoders' slabs, K3 for GMA
+    (the slab's queries against the whole grid's keys; d=384 under UMT),
+    GSA (a slab against the whole reduced grid, or per frame against one
+    frame's) and UMT's ViT blocks (12 heads of d=64, the slab's tokens of
+    every frame against the whole clip's), K4 on window-aligned slabs, K1
+    on the slab's queries against the whole pyramid (C=768 under UMT); a
+    CNN encoder runs no kernel; for "seq", K5 on an extended slab,
+    checked (the 'pallas' run of phase 39 calls it there)."""
     from streamflow_tpu_torch.ops.corr import pool_pyramid
     from streamflow_tpu_torch.ops.kernels import corr_lookup as K1
     from streamflow_tpu_torch.parallel.seq import seq_plan
     from streamflow_tpu_torch.tools import kernel_bench as KB
 
-    plan = seq_plan(T, hp, wp, n_seq, temporal)
-    h8, w8 = hp // 8, wp // 8
+    ratio, fdim, widths = 8, 256, (
+        (324, 256, 3, 15), (256, 192, 3, 15), (128, 64, 3, 15),
+        (256, 126, 3, 15), (640, 128, 3, 7), (384, 6, 1, 15))
+    if kind == "umt":
+        hp, wp, ratio, fdim = UMT_H, UMT_W, 16, 768
+        widths = [(c, co, p, k) for (c, co), (_, _, p, k) in
+                  zip(UMT_SK, widths)]
+    plan = seq_plan(T, hp, wp, n_seq, temporal, kind)
+    h8, w8 = hp // ratio, wp // ratio
     (r0, r1), (f0, f1), (c0, c1) = (plan.decoder[s], plan.fnet[s],
                                     plan.cnet[s])
     hs = r1 - r0
     tags = (tag,)
     cases = []
-    for c, co, pairs, k in ((324, 256, 3, 15), (256, 192, 3, 15),
-                            (128, 64, 3, 15), (256, 126, 3, 15),
-                            (640, 128, 3, 7), (384, 6, 1, 15)):
+    for c, co, pairs, k in widths:
         ext = hs + min(k // 2, r0) + min(k // 2, h8 - r1)
         ch, rows = int(1.5 * c), pairs * ext * w8
         if not hs:
@@ -1309,9 +1335,40 @@ def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
                       f"{tag} dwres_pw_ffn_pair {rows}x{c}-{ch}-{co}",
                       ffn_case("dwres_pw_ffn_pair", rows, c, ch, co), iters,
                       tags))
-    # images of an encoder's grid: one stacked grid, or its T frames
-    imgs = {"fnet": 1 if temporal else T, "cnet": 1 if temporal else T - 1}
+    if hs:
+        d = 384 if kind == "umt" else 128
+        cases.append(("flash_attention",
+                      f"{tag} gma bh3 n{hs * w8} m{h8 * w8} d{d}",
+                      flash_case((3, 1), hs * w8, h8 * w8, d), iters, tags))
+
+    def corr_make(dt):
+        f1 = rnd(3, hs, w8, fdim, dt=dt)
+        levels = [lv.contiguous() for lv in
+                  pool_pyramid(rnd(3, h8, w8, fdim, dt=dt), 4)]
+        coords = KB.corr_coords("jitter30", 3, hs, w8, g, dev)
+        coords[..., 1] += r0                 # the slab's global rows
+        shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
+        return (lambda: K1.corr_lookup(f1, levels, coords, 4),
+                lambda: K1.corr_lookup_plain(f1, levels, coords, 4),
+                KB.corr_flops(coords, shapes, fdim, 4),
+                (f1, *levels, coords), None, None)
+    if hs:
+        cases.append(("corr_lookup",
+                      f"{tag} jitter30 3x{hs}x{w8} against 3x{h8}x{w8}x"
+                      f"{fdim} 4 levels r4", corr_make, iters, tags))
     grids = (("fnet", (f0, f1), T), ("cnet", (c0, c1), T - 1))
+    if kind == "umt":    # the ViT: the slab's tokens against every token
+        for enc, (a, b), t in grids:
+            if b > a:
+                cases.append((
+                    "flash_attention", f"{tag} vit {enc} bh12 "
+                    f"n{t * (b - a) * w8} m{t * h8 * w8} d64",
+                    flash_case((B, 12), t * (b - a) * w8, t * h8 * w8, 64),
+                    UMT_DEPTH, tags))
+    if kind != "twins":
+        return cases
+    # images of a Twins encoder's grid: one stacked grid, or its T frames
+    imgs = {"fnet": 1 if temporal else T, "cnet": 1 if temporal else T - 1}
     for stage, c, up in ((0, 128, 2), (1, 256, 1)):
         for enc, (a, b), _ in grids:
             rows = imgs[enc] * up * (b - a) * up * w8
@@ -1320,10 +1377,6 @@ def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
                               f"{tag} ln_ffn_pair {rows}x{c}-{4 * c}-{c}",
                               ffn_case("ln_ffn_pair", rows, c, 4 * c, c), 2,
                               tags))
-    if hs:
-        cases.append(("flash_attention",
-                      f"{tag} gma bh3 n{hs * w8} m{h8 * w8} d128",
-                      flash_case((3, 1), hs * w8, h8 * w8, 128), iters, tags))
     for stage, nh, sr, up in ((0, 4, 8, 2), (1, 8, 4, 1)):
         ww = up * w8
         for enc, (a, b), t in grids:
@@ -1344,22 +1397,6 @@ def seq_cases(rnd, g, dev, ffn_case, flash_case, lga_case, dw_case, hp,
                     "lga_attention", f"{tag} stage{stage} {enc} "
                     f"{imgs[enc]}x{hq}x{wq}x{3 * c} h{nh}",
                     lga_case(hq, wq, c, nh, imgs[enc]), 1, tags))
-
-    def corr_make(dt):
-        f1 = rnd(3, hs, w8, 256, dt=dt)
-        levels = [lv.contiguous() for lv in
-                  pool_pyramid(rnd(3, h8, w8, 256, dt=dt), 4)]
-        coords = KB.corr_coords("jitter30", 3, hs, w8, g, dev)
-        coords[..., 1] += r0                 # the slab's global rows
-        shapes = [(lv.shape[1], lv.shape[2]) for lv in levels]
-        return (lambda: K1.corr_lookup(f1, levels, coords, 4),
-                lambda: K1.corr_lookup_plain(f1, levels, coords, 4),
-                KB.corr_flops(coords, shapes, 256, 4),
-                (f1, *levels, coords), None, None)
-    if hs:
-        cases.append(("corr_lookup",
-                      f"{tag} jitter30 3x{hs}x{w8} against 3x{h8}x{w8}x256 "
-                      f"4 levels r4", corr_make, iters, tags))
     if tag == "seq":
         cases.append(("dw_chain", f"seq 3x{hs + 7}x{w8}x324 ks (1, 15)",
                       dw_case("dw_chain", 3, 324, 15, hs + 7), 0, tags))
@@ -1538,10 +1575,12 @@ def full_forward(dev, dw_impl, zoo=None):
         f"{float(mag.mean()):.4g} p99 "
         f"{float(torch.quantile(mag.flatten()[::7], 0.99)):.4g} max "
         f"{float(mag.max()):.4g}")
-    # the ZOO configs' profiles record the card alone (the same device
-    # numbers; the host's ops cost seconds of the command's 1200)
+    # the ZOO configs' and the other layouts' profiles record the card
+    # alone (the same device numbers; the host's ops cost seconds of the
+    # command's 1200): phase 4's table keeps them
     prof = profile_device(lambda: model(imgs, test_mode=True), ms,
-                          "forward" + suffix, host=zoo is None)
+                          "forward" + suffix,
+                          host=zoo is None and dw_impl == "auto")
     if zoo is not None:
         ZOO_TABLE[zoo] = dict(ms_clip=round(ms, 3),
                               device_ms=round(prof["total_ms"], 3),
@@ -1893,8 +1932,7 @@ def train_step_phase(dev, dw_impl, umt=False) -> dict:
     model (launches from umt_train_launches): a warm-up step, then
     TRAIN_STEPS timed ones, the first's launches exactly, finite loss and
     gradient norm, every parameter moved, peak memory, one profiled step
-    (the default layout's with the host ops, the others' of the card
-    alone). Returns the launches of one step."""
+    (the card's activity alone). Returns the launches of one step."""
     import torch
 
     from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -1939,10 +1977,10 @@ def train_step_phase(dev, dw_impl, umt=False) -> dict:
         f"{1e3 / ms:.4f}; max_memory_allocated {peak / 2 ** 30:.3f} GiB; "
         f"loss {loss:.6g} grad_norm {norm:.6g} epe {float(m['epe']):.6g}; "
         f"all {len(before)} parameters moved")
-    # the other layouts' steps: the card's activity alone (the host ops'
-    # trace of a step costs ~20 s; the default layout's table keeps them)
+    # the card's activity alone: the host ops' trace of a step costs ~20 s
+    # (phase 4's forward table keeps the host's ops)
     profile_device(lambda: step(state, batch), ms, "train_step" + suffix,
-                   host=dw_impl == "auto" and not umt)
+                   host=False)
     return counts
 
 
@@ -2137,8 +2175,11 @@ def eager_then_graph(model, imgs, label):
     capture_s = time.perf_counter() - t0
     ms_g = host_ms(lambda: fwd(imgs), REPS, imgs.device)
     peak_g = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof_e = profile_device(eager, ms_e[0], f"eager_{label}")
-    prof_g = profile_device(lambda: fwd(imgs), ms_g[0], f"graph_{label}")
+    # the card's activity alone: the same device numbers, and phase 4's
+    # table has the host's ops
+    prof_e = profile_device(eager, ms_e[0], f"eager_{label}", host=False)
+    prof_g = profile_device(lambda: fwd(imgs), ms_g[0], f"graph_{label}",
+                            host=False)
     log(f"serving {label} dw_impl={model.cfg.dw_impl!r} "
         f"{tuple(imgs.shape)}: ms/clip eager {ms_e[0]:.3f} (mean of {REPS}, "
         f"min {ms_e[1]:.3f}), graph {ms_g[0]:.3f} (min {ms_g[1]:.3f}); "
@@ -2388,7 +2429,7 @@ def high_res_phase(dev) -> None:
 # ---------------------------------------------------------------- phase 30
 # the trainer's run: steps, and the step of its one mid-run checkpoint and
 # validation; metrics read every TRAINER_PRINT steps
-TRAINER_STEPS, TRAINER_PRINT, TRAINER_VAL = 6, 2, 4
+TRAINER_STEPS, TRAINER_PRINT, TRAINER_VAL = 4, 2, 3
 TRAINER_DIR = os.path.join(ROOT, "build", "chip_smoke_trainer")
 
 
@@ -3219,6 +3260,9 @@ DP_A_METRIC_RTOL = 1e-3
 DP_A_METRIC_ATOL = 1e-4
 DP_TIMED = 1                 # (a): rounds of timed steps, 2 a side each
 DP2_B, DP2_ITERS = 2, 2      # (b): the global batch, iterations
+# (b): the clips' size, a quarter of the stage's 432x960 pixels (46 s of
+# f32 steps at that size, the phase's largest cost beside (a))
+DP2_H, DP2_W = 216, 480
 # (b): name -> (model, config fields, bidirectional)
 DP2_FORMS = {"canonical": ("streamflow", {}, False),
              "basic": ("streamflow", {"encoder": "basic"}, False),
@@ -3228,28 +3272,39 @@ DP2_FORMS = {"canonical": ("streamflow", {}, False),
 # (b): JAX's tolerances for its sharded step against the unsharded one
 # (tests/test_training_infra.py:173-182)
 DP2_LOSS_RTOL, DP2_PARAM_ATOL, DP2_PARAM_RTOL = 1e-5, 3e-5, 2e-3
-DP_TRAINER_STEPS, DP_TRAINER_VAL = 4, 2     # (c)
+DP_TRAINER_STEPS, DP_TRAINER_VAL = 2, 1     # (c)
 DP_TIMEOUT = 600             # seconds a part's processes may take
 
 
-def dp_run(part: str, world: int, backend: str) -> list:
-    """Part ``part`` of phase 34 (or "seq" and "seq8", phase 39) in ``world``
-    processes on the card (a file store under DP_DIR for the
-    rendezvous); returns each rank's record. Raises if a process fails or
-    outlasts DP_TIMEOUT; kills every process it started before it returns
-    or raises."""
+def dp_start(part: str, world: int, backend: str, gate=None) -> list:
+    """Start part ``part`` of phase 34 (or "seq" and "seq8", phase 39) in
+    ``world`` processes on the card (a file store under DP_DIR/<part> for
+    the rendezvous); returns the processes. With ``gate`` (a path), each
+    process brings up torch, the kernels and its CUDA context, then waits
+    for that file before it joins its group: its start overlaps whatever
+    runs until the file is made."""
     import shutil
 
-    shutil.rmtree(DP_DIR, ignore_errors=True)
-    os.makedirs(DP_DIR)
-    store = os.path.join(DP_DIR, f"store_{part}")
+    where = os.path.join(DP_DIR, part)
+    shutil.rmtree(where, ignore_errors=True)
+    os.makedirs(where)
     # (a) compares two steps bit for bit: cuBLAS needs a fixed workspace
     # for deterministic results
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    procs = [subprocess.Popen(
+    if gate:
+        env["CHIP_SMOKE_GATE"] = gate
+    return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--dp", part, str(r),
-         str(world), backend, store], cwd=ROOT, env=env)
-        for r in range(world)]
+         str(world), backend, os.path.join(where, "store")], cwd=ROOT,
+        env=env) for r in range(world)]
+
+
+def dp_wait(part: str, procs: list) -> list:
+    """Each rank's record of ``dp_start``'s processes. Raises if a process
+    fails or outlasts DP_TIMEOUT; kills every process before it returns
+    or raises."""
+    import shutil
+
     try:
         for p in procs:
             if p.wait(timeout=DP_TIMEOUT):
@@ -3261,12 +3316,18 @@ def dp_run(part: str, world: int, backend: str) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    where = os.path.join(DP_DIR, part)
     recs = []
-    for r in range(world):
-        with open(os.path.join(DP_DIR, f"{part}_{r}.json")) as fh:
+    for r in range(len(procs)):
+        with open(os.path.join(where, f"{r}.json")) as fh:
             recs.append(json.load(fh))
-    shutil.rmtree(DP_DIR, ignore_errors=True)
+    shutil.rmtree(where, ignore_errors=True)
     return recs
+
+
+def dp_run(part: str, world: int, backend: str) -> list:
+    """``dp_start`` then ``dp_wait``: each rank's record."""
+    return dp_wait(part, dp_start(part, world, backend))
 
 
 def dp_phase_of(part: str) -> int:
@@ -3274,8 +3335,9 @@ def dp_phase_of(part: str) -> int:
 
 
 def dp_worker(part, rank, world, backend, store) -> None:
-    """One process of phase 34 (or 39): joins the group, runs its part,
-    writes its record to DP_DIR/<part>_<rank>.json."""
+    """One process of phase 34 (or 39): joins the group (after the gate
+    file, where ``dp_start`` set one), runs its part, writes its record to
+    DP_DIR/<part>/<rank>.json."""
     t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
     import torch
@@ -3290,12 +3352,16 @@ def dp_worker(part, rank, world, backend, store) -> None:
     torch.cuda.set_device(dev)
     torch.zeros(1, device=dev)
     t1 = time.perf_counter()
+    gate = os.environ.get("CHIP_SMOKE_GATE")
+    while gate and not os.path.exists(gate):
+        time.sleep(0.2)
+    t2 = time.perf_counter()
     assert parallel.initialize(f"file://{store}", world, rank,
                                backend=backend, device=dev) == (rank, world)
     log(f"phase {dp_phase_of(part)} ({part}) rank {rank}: torch, the "
         f"kernels and the card "
-        f"{t1 - t0:.1f} s, the {backend} group {time.perf_counter() - t1:.1f}"
-        f" s")
+        f"{t1 - t0:.1f} s, the gate {t2 - t1:.1f} s, the {backend} group "
+        f"{time.perf_counter() - t2:.1f} s")
     try:
         if part == "a":
             rec = dp_one_rank(dev, rank, world)
@@ -3309,7 +3375,7 @@ def dp_worker(part, rank, world, backend, store) -> None:
             rec["c"] = dp_trainer(dev, rank, world)
     finally:
         multihost.shutdown()
-    with open(os.path.join(DP_DIR, f"{part}_{rank}.json"), "w") as fh:
+    with open(os.path.join(DP_DIR, part, f"{rank}.json"), "w") as fh:
         json.dump(rec, fh)
 
 
@@ -3548,21 +3614,22 @@ def dp_one_rank(dev, rank, world) -> dict:
 
 
 def dp_batch(kind, seed, dev):
-    """(b)'s seeded global batch of DP2_B clips at 432x960 (two frames for
-    RAFT, T for StreamFlow with the backward flows), valid masks of 90%
-    and 35% on the two rows, so that the ranks' valid counts differ."""
+    """(b)'s seeded global batch of DP2_B clips at DP2_H x DP2_W (two
+    frames for RAFT, T for StreamFlow with the backward flows), valid
+    masks of 90% and 35% on the two rows, so that the ranks' valid counts
+    differ."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     t = 2 if kind == "raft" else T
-    shape = (DP2_B, t - 1, TRAIN_H, TRAIN_W)
+    shape = (DP2_B, t - 1, DP2_H, DP2_W)
     dens = np.array([0.9, 0.35], np.float32)[:, None, None, None]
 
     def arr(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
-    out = {"images": arr(rng.integers(0, 256, (DP2_B, t, TRAIN_H, TRAIN_W,
+    out = {"images": arr(rng.integers(0, 256, (DP2_B, t, DP2_H, DP2_W,
                                                3))),
            "flows": arr(4.0 * rng.standard_normal(shape + (2,))),
            "valids": arr(rng.random(shape) < dens)}
@@ -3594,7 +3661,7 @@ def dp_state(dev, kind, fields):
 
 def dp_two_ranks(dev, rank, world) -> dict:
     """(b) Two ranks in two processes sharing the card over gloo, f32 (TF32
-    off), 432x960, global batch DP2_B (one clip a rank), DP2_ITERS
+    off), DP2_H x DP2_W, global batch DP2_B (one clip a rank), DP2_ITERS
     iterations: for each of DP2_FORMS, one shard_train_step step of the
     two ranks against one process's step on the whole global batch (run
     in rank 0's process first), at DP2_*'s tolerances; after a second
@@ -3615,9 +3682,10 @@ def dp_two_ranks(dev, rank, world) -> dict:
             want = raft_launches("raft", train=True, iters=DP2_ITERS)
         else:
             step = make_train_step(0.85, DP2_ITERS, bidirectional=bidir)
-            want = (train_launches(iters=DP2_ITERS) if "encoder" not in fields
+            want = (train_launches(h=DP2_H, w=DP2_W, iters=DP2_ITERS)
+                    if "encoder" not in fields
                     else zoo_launches(fields["encoder"], train=True, t=T,
-                                      h=TRAIN_H, w=TRAIN_W, iters=DP2_ITERS,
+                                      h=DP2_H, w=DP2_W, iters=DP2_ITERS,
                                       apps=2 if bidir else 1))
         batch = dp_batch(kind, SEED + 11, dev)
         t0 = time.perf_counter()
@@ -3674,7 +3742,7 @@ def dp_two_ranks(dev, rank, world) -> dict:
             rec.update(ref=m_ref, rel_err=errs, param_max_abs=worst)
             log(f"phase 34 (b) {name}: 2 ranks on one card (gloo) vs one "
                 f"process on the global batch of {DP2_B}, f32, "
-                f"{TRAIN_H}x{TRAIN_W}, iters {DP2_ITERS}: loss "
+                f"{DP2_H}x{DP2_W}, iters {DP2_ITERS}: loss "
                 f"{m1['loss']!r} vs "
                 f"{m_ref['loss']!r}, rel err "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -3711,7 +3779,7 @@ def dp_trainer(dev, rank, world) -> dict:
     from streamflow_tpu_torch.training import checkpoint
     from streamflow_tpu_torch.training.state import TrainState
 
-    out_dir = os.path.join(DP_DIR, "trainer")
+    out_dir = os.path.join(DP_DIR, "bc", "trainer")
     args = trainer.parse_args([
         "--preset", "sintel_kitti", "--validation", "sintel",
         "--batch_size", str(world), "--num_steps", str(DP_TRAINER_STEPS),
@@ -4086,34 +4154,54 @@ SEQ_NODE, SEQ_NODE_REPS = 8, 1
 SEQ_ZOO_SEQ = 4
 SEQ_ZOO = ("twins", "twins_1dconv", "twins_temporal_attention",
            "twins_3dconv", "sk_tam_v1", "sk_tam_v3_noinit", "no_gma")
+# (d): the CNN encoders over the same mesh as (b); (e): UMT at 448x1024
+SEQ_CNN = ("basic", "res18_3d")
+# the node's 1440x2560 runs ((a) and (d)'s 'basic') at one iteration: the
+# peak memory a rank is the 12-iteration forward's (test mode keeps no
+# iteration's activations), the exchanges of 12 cost ~15 s at n_seq=8
+SEQ_HIGH_ITERS = 1
 # the kernels line's paths of phase 39, "inference_<tag>": tag -> (n_seq,
-# rank, Twins_CSC's stacked grid, iterations a clip): rank 0 of two; the
-# last rank of SEQ_NODE (a 6-row decoder slab, the fnet's last 24 stacked
-# rows, no cnet rows); rank 0 of SEQ_ZOO_SEQ under a per-frame encoder
-# ((b)'s 'twins' at iters 1: 28 of each frame's 55 rows)
-SEQ_PATHS = {"seq": (SEQ_WORLD, 0, True, ITERS),
-             "seq8": (SEQ_NODE, SEQ_NODE - 1, True, ITERS),
-             "seq_frames": (SEQ_ZOO_SEQ, 0, False, 1)}
+# rank, Twins_CSC's stacked grid, iterations a clip, the planner's kind):
+# rank 0 of two; the last rank of SEQ_NODE (a 6-row decoder slab, the
+# fnet's last 24 stacked rows, no cnet rows); rank 0 of SEQ_ZOO_SEQ under
+# a per-frame encoder ((b)'s 'twins' at iters 1: 28 of each frame's 55
+# rows), under 'basic' ((d) at iters 1: the decoder's 14 of 55 rows, no
+# encoder kernel) and under UMT ((e) at 12 iterations, 448x1024: 7 of 28
+# rows, the ViT's K3 on them)
+SEQ_PATHS = {"seq": (SEQ_WORLD, 0, True, ITERS, "twins"),
+             "seq8": (SEQ_NODE, SEQ_NODE - 1, True, ITERS, "twins"),
+             "seq_frames": (SEQ_ZOO_SEQ, 0, False, 1, "twins"),
+             "seq_cnn": (SEQ_ZOO_SEQ, 0, False, 1, "cnn"),
+             "seq_umt": (SEQ_ZOO_SEQ, 0, False, ITERS, "umt")}
 
 
 def seq_rank_launches(plan, s: int, iters: int, dw_impl: str = "auto",
                       name=None, h: int = 440, w: int = 1024) -> dict:
     """Rank ``s``'s launches in one sharded forward of the canonical model
-    (or of the ZOO config ``name``), from the plan's slabs: a decoder
-    slab runs the refinement kernels of the one-process forward (K1, K2
-    2 per SK block, K3 for GMA, K5 under 'pallas'), and each encoder
+    (or of the ZOO config ``name``, or of UMT for "umt"), from the plan's
+    slabs: a decoder slab runs the refinement kernels of the one-process
+    forward (K1, K2 2 per SK block, K3 for GMA, K5 under 'pallas'; UMT:
+    K2 with its wide path's launches, umt_launches), and each encoder
     slab its 4 Twins MLPs (K2), 2 LGA blocks (K4) and the GSA blocks
     whose whole grid (a frame's, per frame) exceeds GSA_FLASH_TOKENS
-    (K3); an empty slab none of its grid's."""
-    kind = zoo_kind(name) if name else dict(csc=True, gma=True)
+    (K3), or UMT's 4 ViT blocks (K3); a CNN encoder launches none; an
+    empty slab none of its grid's."""
     holds = plan.holds(s)
     out = dict.fromkeys(KERNELS, 0)
+    if name == "umt":
+        if holds["decoder"]:
+            out.update(corr_lookup=iters, flash_attention=iters,
+                       ffn_pair=umt_launches(iters)["ffn_pair"])
+        out["flash_attention"] += UMT_DEPTH * (bool(holds["fnet"])
+                                               + bool(holds["cnet"]))
+        return out
+    kind = zoo_kind(name) if name else dict(twins=True, csc=True, gma=True)
     if holds["decoder"]:
         out.update(corr_lookup=iters, ffn_pair=12 * iters,
                    flash_attention=iters if kind["gma"] else 0,
                    dw_chain=6 * iters if dw_impl == "pallas" else 0)
     for enc, t in (("fnet", T), ("cnet", T - 1)):
-        if holds[enc]:
+        if holds[enc] and kind["twins"]:
             frames = t if kind["csc"] else 1
             out["ffn_pair"] += 4
             out["lga_attention"] += 2
@@ -4151,14 +4239,16 @@ def gloo_probe(dev) -> dict:
 
 
 def seq_model(dev, dtype, dw_impl="auto", name=None):
-    """Phase 39's StreamFlow (the ZOO config ``name``, else the canonical
-    one) at full width, seeded weights (the same in both dtypes)."""
+    """Phase 39's StreamFlow (the ZOO config ``name``, UMT for "umt", else
+    the canonical one) at full width, seeded weights (the same in both
+    dtypes)."""
     from streamflow_tpu_torch.config import StreamFlowConfig
     from streamflow_tpu_torch.models import create_model
 
+    fields = UMT_KW if name == "umt" else ZOO[name] if name else {}
     m = create_model("streamflow", cfg=StreamFlowConfig(
         T=T, iters=ITERS, mixed_precision=dtype == "bf16", dw_impl=dw_impl,
-        **(ZOO[name] if name else {})), device=dev)
+        **fields), device=dev)
     init_weights(m, SEED + 1)
     return m
 
@@ -4177,7 +4267,8 @@ def seq_sharded(dev, m, mesh, iters, x, expect):
     """The sharded forward of ``m`` over ``mesh``: its launches on this
     rank exactly ``expect``, and every rank of its seq group returning the
     same flows bit for bit (a broadcast from the group's first rank);
-    returns (the forward, its flows on the host, the launches)."""
+    returns (the forward, its flows on the host, the launches, the run's
+    wall ms: it runs warm after the same model's runs before it)."""
     import torch
     import torch.distributed as dist
 
@@ -4186,8 +4277,11 @@ def seq_sharded(dev, m, mesh, iters, x, expect):
 
     fwd = parallel.make_seq_sharded_forward(m, mesh, iters)
     reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out = fwd(x)
     torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
     counts = dict(LAUNCHES)
     assert counts == expect, (dist.get_rank(), counts, expect)
     if out.shape[0]:
@@ -4199,21 +4293,57 @@ def seq_sharded(dev, m, mesh, iters, x, expect):
                             device=dev)
         dist.all_reduce(same, group=mesh.seq_group)
         assert int(same.item()) == mesh.n_seq, "the ranks' flows differ"
-    return fwd, out.cpu(), counts
+    return fwd, out.cpu(), counts, wall
 
 
-def seq_f32_check(label, got, ref) -> str:
+def seq_f32_check(label, got, ref, floor=0.0) -> str:
     """The f32 sharded flows within SEQ_RTOL + SEQ_ATOL x max(1,
-    max|flow|) of the one-process forward's; returns the log's words."""
+    max|flow|) of the one-process forward's, plus ``floor`` (a
+    coordinate's resolution, ``coord_floor``, where the sharded forward
+    cannot give the one-process bits); returns the log's words."""
     bound = SEQ_ATOL * max(1.0, float(ref.abs().max()))
-    excess = float(((got - ref).abs() - bound - SEQ_RTOL * ref.abs()).max())
+    over = (got - ref).abs() - bound - SEQ_RTOL * ref.abs()
+    excess = float((over - floor).max())
     words = (f"max abs diff {float((got - ref).abs().max()):.3e} (|flow| "
              f"max {float(ref.abs().max()):.4g}; bound rtol {SEQ_RTOL} + atol "
-             f"{SEQ_ATOL} x max(1, max|flow|)), "
+             f"{SEQ_ATOL} x max(1, max|flow|)"
+             + (f" + {floor:.4e}, {int((over > 0).sum())} values beyond the "
+                f"bound without it" if floor else "") + "), "
              f"{float((got == ref).float().mean()):.4f} of the values equal "
              f"bit for bit")
     assert excess <= 0, f"{label}: sharded vs one process: {words}"
     return words
+
+
+def coord_floor(h: int, w: int, ratio: int) -> float:
+    """The px that one f32 ulp of the largest coordinate of an h x w clip's
+    grid at ``ratio`` (``coords1 = coords0 + delta``, as JAX's) becomes in
+    the upsampled flows: the resolution of the model's f32 output, below
+    which two forwards whose encoders round differently can disagree
+    (2^-17 at a 128-wide grid, x 8 = 6.1e-5 px)."""
+    top = max(h, w) // ratio - 1
+    return ratio * 2.0 ** (math.floor(math.log2(top)) - 23)
+
+
+def seq_self_spread(m, imgs, ref) -> float:
+    """How far the one-process f32 forward's own flows move when its fnet's
+    output changes by a seeded relative 1e-7 (a last-bit change): the
+    evidence for ``coord_floor``."""
+    import torch
+
+    g = torch.Generator(device=imgs.device).manual_seed(SEED)
+    inner = m.fnet.forward
+
+    def nudged(x, train=False):
+        y = inner(x, train)
+        return y * (1 + 1e-7 * torch.randn(y.shape, generator=g,
+                                           device=y.device, dtype=y.dtype))
+    m.fnet.forward = nudged
+    try:
+        moved = m(imgs, iters=1, test_mode=True).float().cpu()
+    finally:
+        del m.fnet.forward
+    return float((moved - ref).abs().max())
 
 
 def seq_guard(label, got, plain, ref, ranks) -> None:
@@ -4237,33 +4367,42 @@ def seq_guard(label, got, plain, ref, ranks) -> None:
         label, g, p)
 
 
-def seq_timed(dev, fwd, imgs, reps):
-    """Wall ms a clip (mean and min of ``reps``), device ms of a card-only
-    profile (kernels, and gloo's copies between the card and the host),
-    and the exchanges of an instrumented run: their count, bytes and host
-    seconds, beside that run's wall seconds and peak memory (GiB)."""
+def seq_timed(dev, fwd, imgs, reps, profile=True, ms=None):
+    """Wall ms a clip (mean and min of ``reps``, or the one run ``ms`` a
+    caller timed), device ms of a card-only
+    profile (kernels, and gloo's copies between the card and the host;
+    without ``profile`` the same two calls unprofiled, for the ranks that
+    only join the profiled rank's exchanges), and the exchanges of an
+    instrumented run (every all_reduce: halos, gathers and InstanceNorm's
+    sums): their count, bytes and host seconds, beside that run's wall
+    seconds and peak memory (GiB)."""
     import torch
 
     from streamflow_tpu_torch.parallel.exchange import Rows
     from streamflow_tpu_torch.tools.common import (device_events, host_ms,
                                                    profiled)
 
-    ms = host_ms(lambda: fwd(imgs), reps, dev)
-    events = [(k, t) for k, _, t in device_events(profiled(
-        lambda: fwd(imgs), host=False)) if t > 0]
-    dev_ms = sum(t for _, t in events) / 1e3
-    copy_ms = sum(t for k, t in events if k.startswith("Memcpy")) / 1e3
+    ms = host_ms(lambda: fwd(imgs), reps, dev) if ms is None else (ms, ms)
+    dev_ms = copy_ms = None
+    if profile:
+        events = [(k, t) for k, _, t in device_events(profiled(
+            lambda: fwd(imgs), host=False)) if t > 0]
+        dev_ms = sum(t for _, t in events) / 1e3
+        copy_ms = sum(t for k, t in events if k.startswith("Memcpy")) / 1e3
+    else:
+        fwd(imgs)
+        fwd(imgs)
     spent = []
-    inner = Rows._sum
+    inner = Rows._reduce
 
-    def timed(self, nbytes, parts, device):
+    def timed(self, buf):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(self, nbytes, parts, device)
+        inner(self, buf)
         torch.cuda.synchronize()
-        spent.append((time.perf_counter() - t0, nbytes))
-        return out
-    Rows._sum = timed
+        spent.append((time.perf_counter() - t0,
+                      buf.numel() * buf.element_size()))
+    Rows._reduce = timed
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4272,7 +4411,7 @@ def seq_timed(dev, fwd, imgs, reps):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        Rows._sum = inner
+        Rows._reduce = inner
     return dict(ms=ms, dev_ms=dev_ms, copy_ms=copy_ms, n=len(spent),
                 mib=sum(n for _, n in spent) / 2 ** 20,
                 ex_s=sum(t for t, _ in spent), wall=wall,
@@ -4280,24 +4419,28 @@ def seq_timed(dev, fwd, imgs, reps):
 
 
 def seq_timed_words(tm, reps) -> str:
+    device = ("device not profiled on this rank" if tm["dev_ms"] is None
+              else f"device {tm['dev_ms']:.3f} ms ({tm['copy_ms']:.3f} of "
+              f"it gloo's copies to and from the host)")
     return (f"{tm['ms'][0]:.3f} ms a clip (mean of {reps}, min "
-            f"{tm['ms'][1]:.3f}; the ranks share the one card), device "
-            f"{tm['dev_ms']:.3f} ms ({tm['copy_ms']:.3f} of it gloo's copies "
-            f"to and from the host); {tm['n']} exchanges of "
+            f"{tm['ms'][1]:.3f}; the ranks share the one card), {device}; "
+            f"{tm['n']} exchanges of "
             f"{tm['mib']:.1f} MiB in all, {1e3 * tm['ex_s']:.1f} of "
             f"{1e3 * tm['wall']:.1f} ms of an instrumented run "
             f"({tm['ex_s'] / tm['wall']:.3f})")
 
 
-def seq_high(dev, m, mesh, rank) -> float:
-    """One bf16 SEQ_HIGH clip, 12 iterations: finite flows of its shape;
-    logs and returns this rank's peak memory (GiB)."""
+def seq_high(dev, m, mesh, rank, iters=ITERS, label="") -> float:
+    """One bf16 SEQ_HIGH clip of ``iters`` iterations: finite flows of its
+    shape (none in a data group without rows); logs and returns this
+    rank's peak memory (GiB)."""
     import torch
 
     from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.exchange import even_split
 
     big = make_clip(dev, *SEQ_HIGH)
-    fwd = parallel.make_seq_sharded_forward(m, mesh, ITERS)
+    fwd = parallel.make_seq_sharded_forward(m, mesh, iters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4305,10 +4448,11 @@ def seq_high(dev, m, mesh, rank) -> float:
     torch.cuda.synchronize()
     high_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    assert flows.shape == (B, T - 1, *SEQ_HIGH, 2), flows.shape
+    a, b = even_split(B, mesh.n_data)[mesh.d]
+    assert flows.shape == (b - a, T - 1, *SEQ_HIGH, 2), flows.shape
     assert bool(torch.isfinite(flows).all()), "non-finite flows"
-    log(f"phase 39 rank {rank} of {mesh.n_seq} bf16 'auto' "
-        f"{tuple(big.shape)} iters {ITERS}, one run: {high_s:.2f} s (the "
+    log(f"phase 39 {label}rank {rank} of {mesh.n_seq} bf16 'auto' "
+        f"{tuple(big.shape)} iters {iters}, one run: {high_s:.2f} s (the "
         f"first at this shape), max_memory_allocated {peak:.3f} GiB")
     return peak
 
@@ -4339,7 +4483,8 @@ def seq_worker(dev, rank, world) -> dict:
     ref32 = {}
     for it in (1, 2):
         ref32[it] = seq_one(m32, it, imgs, rank == 0)
-        _, got, counts = seq_sharded(dev, m32, mesh, it, imgs, expect(it))
+        _, got, counts, _ = seq_sharded(dev, m32, mesh, it, imgs,
+                                        expect(it))
         if rank == 0:
             words = seq_f32_check(f"f32 iters {it}", got, ref32[it])
             nonzero = {k: v for k, v in counts.items() if v}
@@ -4354,8 +4499,8 @@ def seq_worker(dev, rank, world) -> dict:
     for dw_impl in ("pallas", "auto"):
         m16 = seq_model(dev, "bf16", dw_impl)
         plain = seq_one(m16, 1, imgs, rank == 0)
-        _, got, counts = seq_sharded(dev, m16, mesh, 1, imgs,
-                                     expect(1, dw_impl))
+        _, got, counts, _ = seq_sharded(dev, m16, mesh, 1, imgs,
+                                        expect(1, dw_impl))
         if rank == 0:
             seq_guard(f"bf16 dw_impl={dw_impl!r} iters 1", got, plain,
                       ref32[1], world)
@@ -4363,8 +4508,8 @@ def seq_worker(dev, rank, world) -> dict:
 
     # the main path: bf16 'auto', 12 iterations
     plain = seq_one(m16, ITERS, imgs, rank == 0)
-    fwd, got, counts = seq_sharded(dev, m16, mesh, ITERS, imgs,
-                                   expect(ITERS))
+    fwd, got, counts, _ = seq_sharded(dev, m16, mesh, ITERS, imgs,
+                                      expect(ITERS))
     if rank == 0:
         seq_guard(f"bf16 'auto' iters {ITERS}", got, plain, ref32[ITERS],
                   world)
@@ -4417,7 +4562,7 @@ def seq_node_worker(dev, rank, world) -> dict:
     m32 = seq_model(dev, "f32")
     ref32 = {it: seq_one(m32, it, imgs, first) for it in (1, ITERS)}
     expect = seq_rank_launches(plan, rank, 1)
-    _, got, counts = seq_sharded(dev, m32, mesh, 1, imgs, expect)
+    _, got, counts, _ = seq_sharded(dev, m32, mesh, 1, imgs, expect)
     if first:
         log(f"phase 39 (a) f32 'auto' {tuple(imgs.shape)} iters 1, {world} "
             f"ranks against one process: "
@@ -4428,20 +4573,21 @@ def seq_node_worker(dev, rank, world) -> dict:
     for it in (1, ITERS):
         plain = seq_one(m16, it, imgs, first)
         expect = seq_rank_launches(plan, rank, it)
-        fwd, got, counts = seq_sharded(dev, m16, mesh, it, imgs, expect)
+        fwd, got, counts, wall = seq_sharded(dev, m16, mesh, it, imgs,
+                                             expect)
         if first:
             seq_guard(f"(a) bf16 'auto' iters {it}, {world} ranks", got,
                       plain, ref32[it], world)
     launched(f"(a) bf16 'auto' iters {ITERS}", counts, expect)
     launches_a = counts
-    tm = seq_timed(dev, fwd, imgs, SEQ_NODE_REPS)
+    tm = seq_timed(dev, fwd, imgs, SEQ_NODE_REPS, profile=first, ms=wall)
     peak = tm["peak"]
     parallel.barrier("seq node timed")
     log(f"phase 39 (a) rank {rank} of {world} bf16 'auto' "
         f"{tuple(imgs.shape)} iters {ITERS}: " + seq_timed_words(
             tm, SEQ_NODE_REPS) + f"; max_memory_allocated {peak:.3f} GiB")
     del fwd
-    high = seq_high(dev, m16, mesh, rank)
+    high = seq_high(dev, m16, mesh, rank, SEQ_HIGH_ITERS, "(a) ")
     del m16
     torch.cuda.empty_cache()
 
@@ -4451,17 +4597,19 @@ def seq_node_worker(dev, rank, world) -> dict:
     zoo = {}
     for name in SEQ_ZOO:
         t0 = time.perf_counter()
+        # every rank builds its bf16 model while rank 0 also runs the f32
+        # reference, its alone
+        m16 = seq_model(dev, "bf16", name=name)
         ref = None
-        if first:        # the f32 reference is rank 0's alone
+        if first:
             ref = seq_one(seq_model(dev, "f32", name=name), 1, imgs, True)
         else:
             parallel.barrier("seq one-process")
-        m16 = seq_model(dev, "bf16", name=name)
         plain = seq_one(m16, 1, imgs, first)
         zplan = seq_plan(T, hp, wp, SEQ_ZOO_SEQ, m16.fnet.temporal)
         expect = (seq_rank_launches(zplan, mesh4.s, 1, name=name)
                   if mesh4.d == 0 else dict.fromkeys(KERNELS, 0))
-        fwd, got, counts = seq_sharded(dev, m16, mesh4, 1, imgs, expect)
+        fwd, got, counts, _ = seq_sharded(dev, m16, mesh4, 1, imgs, expect)
         assert got.shape[0] == (B if mesh4.d == 0 else 0), got.shape
         ms = None
         if mesh4.d == 0:
@@ -4489,8 +4637,102 @@ def seq_node_worker(dev, rank, world) -> dict:
         + json.dumps({k: [{n: c for n, c in v["launches"].items() if c},
                           None if v["ms"] is None else round(v["ms"], 3)]
                       for k, v in zoo.items()}))
+
+    # (d) the CNN encoders, (e) UMT at 448x1024, over the same mesh
+    for name in SEQ_CNN:
+        zoo[name] = seq_config(dev, rank, mesh4, "(d)", name, imgs, (1,))
+    zoo["umt"] = seq_config(dev, rank, mesh4, "(e)", "umt",
+                            make_clip(dev, factor=16), (1, ITERS))
     return {"launches": launches_a, "peak_gib": peak, "high_gib": high,
             "zoo": zoo}
+
+
+def seq_config(dev, rank, mesh, part, name, imgs, iters_bf16) -> dict:
+    """Phase 39 (d) or (e): the config ``name`` ('basic', 'res18_3d' or
+    'umt') over ``mesh`` (make_mesh(n_data=2, n_seq=SEQ_ZOO_SEQ), B=1:
+    data group 1 holds no rows): f32 at iters 1 against the one-process
+    f32 forward (SEQ_RTOL + SEQ_ATOL, the share of bit-equal values), bf16
+    'auto' at each of ``iters_bf16`` within phase 5's guard against the
+    f32 one-process forward of as many iterations, every rank's launches
+    exactly its slabs' and the seq group's flows bit for bit (each run);
+    the last bf16 forward's ms a clip (rank 0's card-only profile) and the
+    exchanges (count, bytes) of an instrumented run; for 'basic' one
+    SEQ_HIGH clip at SEQ_HIGH_ITERS, its peak memory a rank against the
+    one-process forward's. Returns the record of the last bf16 run."""
+    import torch
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.seq import encoder_kind, seq_plan
+
+    t0 = time.perf_counter()
+    first = rank == 0
+    hp, wp = imgs.shape[2:4]
+    plan = seq_plan(T, hp, wp, mesh.n_seq, False, encoder_kind(name))
+    label = (f"{part} {name} {hp}x{wp}, make_mesh(n_data={mesh.n_data}, "
+             f"n_seq={mesh.n_seq})")
+
+    def expect(iters):
+        return (seq_rank_launches(plan, mesh.s, iters, name=name)
+                if mesh.d == 0 else dict.fromkeys(KERNELS, 0))
+    m32 = seq_model(dev, "f32", name=name)
+    ref32 = {it: seq_one(m32, it, imgs, first) for it in {1, *iters_bf16}}
+    _, got, _, _ = seq_sharded(dev, m32, mesh, 1, imgs, expect(1))
+    if first:
+        # the CNN encoders' InstanceNorm sums its slabs' partial sums
+        # (Rows.sum): statistics that differ from one rank's in the last
+        # bits, by design; UMT's slabs keep the one-process bits
+        floor = (coord_floor(hp, wp, m32.cfg.ratio)
+                 if encoder_kind(name) == "cnn" else 0.0)
+        log(f"phase 39 {label} f32 iters 1 against one process: "
+            + seq_f32_check(f"{part} {name} f32 iters 1", got, ref32[1],
+                            floor)
+            + f"; the one-process forward itself moves "
+            f"{seq_self_spread(m32, imgs, ref32[1]):.4e} px under a 1e-7 "
+            f"relative change of its fnet's output")
+    del m32
+    torch.cuda.empty_cache()
+    m16 = seq_model(dev, "bf16", name=name)
+    for it in iters_bf16:
+        plain = seq_one(m16, it, imgs, first)
+        fwd, got, counts, wall = seq_sharded(dev, m16, mesh, it, imgs,
+                                             expect(it))
+        if first:
+            seq_guard(f"{label} bf16 'auto' iters {it}", got, plain,
+                      ref32[it], mesh.n_seq)
+    # the last run's wall where it ran warm, after the model's first run
+    tm = seq_timed(dev, fwd, imgs, SEQ_NODE_REPS, profile=first,
+                   ms=wall if len(iters_bf16) > 1 else None)
+    parallel.barrier(f"seq {name} timed")
+    if mesh.d == 0:
+        log(f"phase 39 {label} rank {rank} bf16 'auto' iters {it}: "
+            + seq_timed_words(tm, SEQ_NODE_REPS) + f"; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})} (slab "
+            f"rows {json.dumps(plan.holds(mesh.s))}); max_memory_allocated "
+            f"{tm['peak']:.3f} GiB")
+    del fwd
+    rec = {"launches": counts, "ms": tm["ms"][0], "peak_gib": tm["peak"]}
+    if name == "basic":
+        if first:        # the one-process forward's peak at SEQ_HIGH
+            big = make_clip(dev, *SEQ_HIGH)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m16(big, iters=SEQ_HIGH_ITERS, test_mode=True)
+            torch.cuda.synchronize()
+            rec["high_one_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"phase 39 {part} basic one process bf16 'auto' "
+                f"{tuple(big.shape)} iters {SEQ_HIGH_ITERS}: "
+                f"max_memory_allocated {rec['high_one_gib']:.3f} GiB")
+            del big
+        parallel.barrier("seq high one-process")
+        rec["high_gib"] = seq_high(dev, m16, mesh, rank, SEQ_HIGH_ITERS,
+                                   f"{part} basic ")
+    del m16
+    torch.cuda.empty_cache()
+    if first:
+        rows = [b - a for a, b in plan.decoder]
+        log(f"phase 39 {label}: slab rows a rank {rows} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return rec
 
 
 def slab_bits(dev) -> dict:
@@ -4558,28 +4800,49 @@ def slab_bits(dev) -> dict:
 def seq_phase(dev, summaries) -> dict:
     """Phase 39: the kernels at the slab shapes of SEQ_PATHS into
     ``summaries`` (paths "inference_<tag>"), then SEQ_WORLD ranks, then
-    SEQ_NODE ranks ((a), (b)) sharing the card; returns each path's
-    launches: rank 0's of the two-rank 12-iteration bf16 forward, the
-    last rank's of (a)'s, rank 0's of (b)'s 'twins'."""
+    SEQ_NODE ranks ((a), (b), (d), (e)) sharing the card; returns each
+    path's launches: rank 0's of the two-rank 12-iteration bf16 forward,
+    the last rank's of (a)'s, rank 0's of (b)'s 'twins', of (d)'s 'basic'
+    and of (e)'s 12-iteration UMT forward."""
     t0 = time.perf_counter()
     kernel_checks(dev, {tag: summaries["inference_" + tag]
                         for tag in SEQ_PATHS}, 440, 1024, False)
     slab_bits(dev)
     t1 = time.perf_counter()
-    recs = dp_run("seq", SEQ_WORLD, "gloo")
+    # the eight processes come up while the two ranks run, and wait for
+    # the gate to join their group
+    gate = os.path.join(DP_DIR, "seq8_gate")
+    if os.path.exists(gate):
+        os.remove(gate)
+    node_procs = dp_start("seq8", SEQ_NODE, "gloo", gate)
+    try:
+        recs = dp_run("seq", SEQ_WORLD, "gloo")
+    except BaseException:
+        for p in node_procs:
+            p.kill()
+            p.wait()
+        raise
     assert all(r["launches"] == recs[0]["launches"] for r in recs)
     t2 = time.perf_counter()
-    node = dp_run("seq8", SEQ_NODE, "gloo")
+    open(gate, "w").close()
+    node = dp_wait("seq8", node_procs)
+    os.remove(gate)
+    basic = [r["zoo"]["basic"] for r in node[:SEQ_ZOO_SEQ]]
     log(f"phase 39 parts: kernels {t1 - t0:.1f} s, {SEQ_WORLD} ranks "
-        f"{t2 - t1:.1f} s, {SEQ_NODE} ranks ((a), (b)) "
+        f"{t2 - t1:.1f} s, {SEQ_NODE} ranks ((a), (b), (d), (e)) "
         f"{time.perf_counter() - t2:.1f} s; peak GiB by rank of the "
         f"440x1024 clip at n_seq={SEQ_NODE} "
         f"{[round(r['peak_gib'], 3) for r in node]}; 1440x2560 at n_seq="
         f"{SEQ_WORLD} {[round(r['peak_gib'], 3) for r in recs]}, at n_seq="
-        f"{SEQ_NODE} {[round(r['high_gib'], 3) for r in node]}")
+        f"{SEQ_NODE} {[round(r['high_gib'], 3) for r in node]} (iters "
+        f"{SEQ_HIGH_ITERS}); 'basic' at 1440x2560, iters {SEQ_HIGH_ITERS}: "
+        f"one process {basic[0]['high_one_gib']:.3f}, n_seq={SEQ_ZOO_SEQ} "
+        f"{[round(r['high_gib'], 3) for r in basic]}")
     return {"inference_seq": recs[0]["launches"],
             "inference_seq8": node[-1]["launches"],
-            "inference_seq_frames": node[0]["zoo"]["twins"]["launches"]}
+            "inference_seq_frames": node[0]["zoo"]["twins"]["launches"],
+            "inference_seq_cnn": node[0]["zoo"]["basic"]["launches"],
+            "inference_seq_umt": node[0]["zoo"]["umt"]["launches"]}
 
 
 def main() -> None:

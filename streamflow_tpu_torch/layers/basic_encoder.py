@@ -14,6 +14,18 @@ outside any Pallas kernel. BatchNorm takes the ``train`` argument of
 ``forward``, JAX's ``train``: batch statistics and a running-statistics
 update with it, the running statistics without it.
 
+Each encoder takes ``rows`` (``parallel.exchange.Rows``, at its input's
+resolution): the input is one slab of the image's rows, in the
+sequence-sharded forward (``parallel/seq.py``), and the output the
+slab's rows at stride 8. Every conv runs on the slab through
+``conv2d_rows`` (its padding's rows from the neighbours, strided ones
+included: the stem's 7x7/s2, the 3x3/s2 and 1x1/s2 of layer2 and
+layer3), each InstanceNorm takes its plane's statistics over the seq
+group; BatchNorm (test mode: its running statistics) and Res18_3D's
+hooks over T are per pixel and run on the slab as they are. The fnet
+normalises after every conv, so each conv exchanges its own halo: one
+halo for a whole block would count its rows in the statistics.
+
 Module names follow the reference's torch keys where the JAX package's
 checkpoint table has them (``conv1``, ``norm1``, ``layer1.0.conv1``, ...,
 ``downsample.0``, ``norm3``, ``running_mean``); Res18_3D's hooks, which it
@@ -27,8 +39,9 @@ import torch
 import torch.nn as nn
 
 from streamflow_tpu_torch.layers.common import (BatchNorm, GroupNorm,
-                                                conv2d, instance_norm,
-                                                layer_norm, linear)
+                                                conv2d, conv2d_rows,
+                                                instance_norm, layer_norm,
+                                                linear)
 from streamflow_tpu_torch.layers.temporal import TinyAttention
 
 DIMS, STRIDES = (64, 96, 128), (1, 2, 2)
@@ -37,8 +50,8 @@ DIMS, STRIDES = (64, 96, 128), (1, 2, 2)
 class InstanceNorm(nn.Module):
     """Affine-free InstanceNorm2d on NHWC (``common.instance_norm``)."""
 
-    def forward(self, x):
-        return instance_norm(x)
+    def forward(self, x, rows=None):
+        return instance_norm(x, rows=rows)
 
 
 def make_norm(kind: str, channels: int) -> nn.Module:
@@ -53,8 +66,20 @@ def make_norm(kind: str, channels: int) -> nn.Module:
     raise ValueError(f"unknown norm {kind!r}")
 
 
-def norm(mod: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
-    return mod(x, train) if isinstance(mod, BatchNorm) else mod(x)
+def norm(mod: nn.Module, x: torch.Tensor, train: bool,
+         rows=None) -> torch.Tensor:
+    """``mod`` on x; ``rows``: x is a slab of the plane's rows (the
+    sequence-sharded forward, test mode: the fnet's InstanceNorm and the
+    cnet's BatchNorm), where only InstanceNorm exchanges."""
+    if isinstance(mod, BatchNorm):
+        return mod(x, train)
+    if isinstance(mod, InstanceNorm):
+        return mod(x, rows)
+    return mod(x)
+
+
+def _coarse(rows, stride: int):
+    return rows if rows is None or stride == 1 else rows.coarse(stride)
 
 
 class ResidualBlock(nn.Module):
@@ -72,14 +97,19 @@ class ResidualBlock(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x, train: bool = False, residual=None):
+    def forward(self, x, train: bool = False, residual=None, rows=None):
         """``residual`` overrides the skip connection's source (Res18_3D:
-        the input before the temporal hook, JAX :118-121)."""
+        the input before the temporal hook, JAX :118-121); ``rows``: x's
+        slab (the module docstring)."""
         r = x if residual is None else residual
-        y = torch.relu(norm(self.norm1, conv2d(x, self.conv1), train))
-        y = torch.relu(norm(self.norm2, conv2d(y, self.conv2), train))
+        out = _coarse(rows, self.conv1.stride[0])
+        y = torch.relu(norm(self.norm1, conv2d_rows(x, self.conv1, rows),
+                            train, out))
+        y = torch.relu(norm(self.norm2, conv2d_rows(y, self.conv2, out),
+                            train, out))
         if self.downsample is not None:
-            r = norm(self.norm3, conv2d(r, self.downsample[0]), train)
+            r = norm(self.norm3, conv2d_rows(r, self.downsample[0], rows),
+                     train, out)
         return torch.relu(r + y)
 
 
@@ -104,14 +134,17 @@ class BasicEncoder(nn.Module):
                                                         norm_fn)
         self.conv2 = nn.Conv2d(DIMS[-1], output_dim, 1)
 
-    def stem(self, x, train):
-        return torch.relu(norm(self.norm1, conv2d(x, self.conv1), train))
+    def stem(self, x, train, rows=None):
+        return torch.relu(norm(self.norm1, conv2d_rows(x, self.conv1, rows),
+                               train, _coarse(rows, 2)))
 
-    def forward(self, x, train: bool = False):
-        x = self.stem(x, train)
+    def forward(self, x, train: bool = False, rows=None):
+        x = self.stem(x, train, rows)
+        rows = _coarse(rows, 2)
         for layer in (self.layer1, self.layer2, self.layer3):
             for blk in layer:
-                x = blk(x, train)
+                x = blk(x, train, rows=rows)
+                rows = _coarse(rows, blk.conv1.stride[0])
         return conv2d(x, self.conv2)
 
 
@@ -120,9 +153,10 @@ class PerFrameBasicEncoder(BasicEncoder):
     _PerFrameBasicEncoder``): (B, T, H, W, 3) -> (B, T, H/8, W/8,
     output_dim), T folded into the batch."""
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rows=None):
+        """``rows``: the same slab of every frame's rows."""
         b, t = x.shape[:2]
-        y = super().forward(x.reshape(b * t, *x.shape[2:]), train)
+        y = super().forward(x.reshape(b * t, *x.shape[2:]), train, rows)
         return y.reshape(b, t, *y.shape[1:])
 
 
@@ -144,13 +178,13 @@ class TemporalResidualBlock(nn.Module):
         nn.init.zeros_(self.temporal_fc.bias)
         self.spatial = ResidualBlock(c_in, planes, norm_fn, stride)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rows=None):
         b, t, h, w, c = x.shape
         tok = layer_norm(x.permute(0, 2, 3, 1, 4), self.norm0)
         gate = linear(self.temporal_attn(tok), self.temporal_fc)
         y = x + gate.permute(0, 3, 1, 2, 4)
         y = self.spatial(y.reshape(b * t, h, w, c), train,
-                         residual=x.reshape(b * t, h, w, c))
+                         residual=x.reshape(b * t, h, w, c), rows=rows)
         return y.reshape(b, t, *y.shape[1:])
 
 
@@ -167,14 +201,17 @@ class Res18_3D(nn.Module):
             TemporalResidualBlock, norm_fn)
         self.conv2 = nn.Conv2d(DIMS[-1], output_dim, 1)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, rows=None):
+        """``rows``: the same slab of every frame's rows."""
         b, t = x.shape[:2]
-        y = conv2d(x.reshape(b * t, *x.shape[2:]), self.conv1)
-        y = torch.relu(norm(self.norm1, y, train))
+        y = conv2d_rows(x.reshape(b * t, *x.shape[2:]), self.conv1, rows)
+        rows = _coarse(rows, 2)
+        y = torch.relu(norm(self.norm1, y, train, rows))
         y = y.reshape(b, t, *y.shape[1:])
         for layer in (self.layer1, self.layer2, self.layer3):
             for blk in layer:
-                y = blk(y, train)
+                y = blk(y, train, rows)
+                rows = _coarse(rows, blk.spatial.conv1.stride[0])
         out = conv2d(y.reshape(b * t, *y.shape[2:]), self.conv2)
         return out.reshape(b, t, *out.shape[1:])
 

@@ -62,6 +62,32 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, bias: bool = True
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_rows(x: torch.Tensor, conv: nn.Conv2d, rows=None
+                ) -> torch.Tensor:
+    """``conv2d`` of any stride; with ``rows`` (``parallel.exchange.Rows``:
+    x is one slab of the grid's rows, in the sequence-sharded forward) on
+    this rank's slab, returning its rows of the output (``rows.coarse``
+    of the stride; every slab starts at a multiple of the stride). The
+    slab is extended by the conv's H padding in rows from the ranks that
+    hold them, and by zero rows only where the grid itself ends, then
+    convolved without H padding: each output row reads the input rows of
+    the zero-padded whole grid that it reads on one rank. A 1x1 conv
+    exchanges nothing; an empty slab joins the exchange and returns no
+    rows."""
+    if rows is None or rows.alone:
+        return conv2d(x, conv)
+    p, pw = conv.padding
+    ext, top = rows.halo(x, p)
+    if not rows.size:
+        return conv2d(x, conv)
+    bottom = ext.shape[1] - top - x.shape[1]
+    ext = F.pad(ext, (0, 0, 0, 0, p - top, p - bottom))
+    y = F.conv2d(ext.permute(0, 3, 1, 2), cast(conv.weight, x),
+                 cast(conv.bias, x), conv.stride, (0, pw), conv.dilation,
+                 conv.groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def on_slab(fn, x: torch.Tensor, k: int, rows=None) -> torch.Tensor:
     """``fn(x)``, a layer that reaches ``k`` rows along x's dim 1; with
     ``rows`` (``parallel.exchange.Rows``: x is one slab of the grid's
@@ -92,14 +118,24 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
     return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5,
+                  rows=None) -> torch.Tensor:
     """InstanceNorm2d without affine parameters on NHWC (JAX
     ``layers/common.py::InstanceNorm``): each (H, W) plane of each image
-    and channel normalised, the statistics in f32, the result in x's
-    dtype."""
+    and channel normalised, the statistics in f32 (the mean, then the
+    mean of the squared deviations), the result in x's dtype. With
+    ``rows`` (x is one slab of the plane's rows, in the sequence-sharded
+    forward) the same two passes over the whole plane: each a sum over
+    the slab, summed over the seq group (``Rows.sum``; an empty slab adds
+    zeros), over the whole plane's count."""
     xf = x.float()
-    mean = xf.mean((1, 2), keepdim=True)
-    var = (xf - mean).square().mean((1, 2), keepdim=True)
+    if rows is None or rows.alone:
+        mean = xf.mean((1, 2), keepdim=True)
+        var = (xf - mean).square().mean((1, 2), keepdim=True)
+    else:
+        n = rows.total * x.shape[2]
+        mean = rows.sum(xf.sum((1, 2), keepdim=True)) / n
+        var = rows.sum((xf - mean).square().sum((1, 2), keepdim=True)) / n
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

@@ -1,7 +1,7 @@
 """Row exchanges of the sequence-sharded forward (``parallel/seq.py``): a
 grid split along its rows into contiguous slabs, one per rank of a seq
-group, and the two exchanges its layers need. A slab may hold any number
-of rows, none included.
+group, and the three exchanges its layers need. A slab may hold any
+number of rows, none included.
 
 - ``halo``: a slab extended by the ``k`` rows above and below it, for a
   layer whose window reaches ``k`` rows across a slab edge (a kxk conv
@@ -12,17 +12,25 @@ of rows, none included.
 - ``gather``: the whole grid from every rank's slab, for a layer that
   needs it all (attention keys and values, the correlation pyramid, the
   output). Slabs may differ in size, and may be empty.
+- ``sum``: an f32 tensor summed over the group (the slabs' partial sums
+  of a statistic over the whole grid: InstanceNorm's mean and variance);
+  an empty slab adds zeros.
 
-Both are carried by ``all_reduce``, the collective that gloo also runs on
-CUDA tensors (with ``broadcast``), so the same code runs two ranks that
-share one card over gloo and ranks on cards of their own over NCCL. Each
-rank writes its rows into their zeroed place in one buffer and the
-buffer is summed over the group, as int32 words of the rows' bytes: x +
-0 is x's bit pattern in every dtype (-0.0 and NaN included). Every rank,
-an empty one too, joins every exchange with a buffer of the same size,
-which follows from the bounds and the rows' trailing shape alone. Under
-NCCL a gather moves about twice the bytes of an ``all_gather``
-(ROADMAP).
+All three are carried by ``all_reduce``, the collective that gloo also
+runs on CUDA tensors (with ``broadcast``), so the same code runs two
+ranks that share one card over gloo and ranks on cards of their own over
+NCCL. For ``halo`` and ``gather`` each rank writes its rows into their
+zeroed place in one buffer and the buffer is summed over the group, as
+int32 words of the rows' bytes: x + 0 is x's bit pattern in every dtype
+(-0.0 and NaN included). Every rank, an empty one too, joins every
+exchange with a buffer of the same size, which follows from the bounds
+and the rows' trailing shape alone. Under NCCL a gather moves about
+twice the bytes of an ``all_gather`` (ROADMAP). ``sum`` is a real f32
+sum, the one exchange whose result depends on the split: the slabs'
+partial sums add in another order than one rank's sum over the whole
+grid, so the statistic may differ in its last bits. The ranks still
+agree bit for bit: gloo's ring reduces each chunk once and passes the
+result on to every rank.
 """
 
 from __future__ import annotations
@@ -63,11 +71,22 @@ class Rows:
     def size(self) -> int:
         return self.stop - self.start
 
+    @property
+    def alone(self) -> bool:
+        """One slab, the whole grid: nothing to exchange."""
+        return len(self.bounds) == 1
+
     def coarse(self, div: int) -> "Rows":
         """The same split of the grid subsampled by ``div`` (a stride-div
         conv without padding): rank r's rows start // div to stop // div.
         Exact where every start is a multiple of div."""
         return Rows([(a // div, b // div) for a, b in self.bounds],
+                    self.index, self.group)
+
+    def fine(self, mul: int) -> "Rows":
+        """The same split of a grid of ``mul`` times the rows (an
+        encoder's input, whose stride-``mul`` output these rows are)."""
+        return Rows([(a * mul, b * mul) for a, b in self.bounds],
                     self.index, self.group)
 
     def _sum(self, nbytes: int, parts, device) -> torch.Tensor:
@@ -80,9 +99,25 @@ class Rows:
         raw = buf.view(torch.uint8)
         for off, part in parts:
             raw[off:off + part.numel()].copy_(part)
+        self._reduce(buf)
+        return raw
+
+    def _reduce(self, buf: torch.Tensor) -> None:
+        """``buf`` summed in place over the group; every exchange's one
+        collective (none for an empty buffer, on every rank alike)."""
         if buf.numel():
             dist.all_reduce(buf, group=self.group)
-        return raw
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in f32 summed over the group, the same on every rank;
+        every rank joins with a tensor of x's shape (an empty slab's
+        zeros). A group of one returns x in f32."""
+        out = x.float().contiguous()
+        if self.alone:
+            return out
+        out = out.clone()
+        self._reduce(out)
+        return out
 
     def gather(self, x: torch.Tensor, dim: int = 1,
                unit: int = 1) -> torch.Tensor:

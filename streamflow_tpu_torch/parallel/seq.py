@@ -78,6 +78,7 @@ import torch
 
 from streamflow_tpu_torch.config import CNN_ENCODERS
 from streamflow_tpu_torch.layers.twins import SVT_LARGE, TwinsEncoder
+from streamflow_tpu_torch.layers.umt import UMT
 from streamflow_tpu_torch.models.streamflow import StreamFlow
 from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.kernels.corr_lookup import FusedCorr
@@ -89,17 +90,18 @@ from streamflow_tpu_torch.parallel.multihost import (is_initialized,
                                                      process_index)
 
 __all__ = ["make_seq_sharded_forward", "seq_plan", "encoder_unit",
-           "SeqPlan"]
+           "encoder_kind", "SeqPlan"]
 
 Bounds = List[Tuple[int, int]]
 
 
 class SeqPlan(NamedTuple):
     """Every rank's (start, stop) rows, in rank order: of the fnet's and
-    the cnet's token grids, in stage-2 rows (Twins_CSC: the stacked grids
-    of the T and T-1 frames; a per-frame encoder: each frame's H/8 rows,
-    the same bounds in every frame), and of each frame pair's 1/8 grid in
-    the decoder. A slab may be empty."""
+    the cnet's output grids (Twins_CSC: the stacked stage-2 grids of the T
+    and T-1 frames; a per-frame Twins encoder or a CNN encoder: each
+    frame's H/8 rows; UMT: each frame's H/16 rows; a per-frame slab is
+    the same rows of every frame), and of each frame pair's grid at the
+    model's ratio in the decoder. A slab may be empty."""
     fnet: Bounds
     cnet: Bounds
     decoder: Bounds
@@ -121,28 +123,44 @@ def encoder_unit(cfg=SVT_LARGE) -> int:
     return math.lcm(-(-stage1 // p2), ws, sr2)
 
 
+def encoder_kind(encoder: str) -> str:
+    """The planner's kind of a config's encoder: "twins", "cnn" (the RAFT
+    CNN per frame, Res18_3D) or "umt"."""
+    if encoder == "umt":
+        return "umt"
+    return "cnn" if encoder in CNN_ENCODERS else "twins"
+
+
 def seq_plan(t: int, height: int, width: int, n_seq: int,
-             temporal: bool = True) -> SeqPlan:
+             temporal: bool = True, kind: str = "twins") -> SeqPlan:
     """The slabs of a T=t clip of height x width over ``n_seq`` ranks.
-    The decoder splits each pair's H/8 rows as evenly as possible (55 in
-    2: 28, 27; 55 in 8: seven of 7, one of 6; 6 in 8: six of 1, two
-    empty). Each encoder splits its grid (``temporal``: Twins_CSC's
-    stacked T-frame grid; else one frame's H/8 rows) into whole runs of
-    ``encoder_unit()`` rows, as evenly as possible, the last slab taking
-    the rest; where the grid has fewer units than ranks, the ranks past
-    them get empty slabs. Whole units rather than cuts through windows
-    and cells completed by halos: no layer of the encoder then exchanges
-    more than PEG's 1-row halo and GSA's gather, and each window and cell
-    is summed at the unsharded grid's place. Raises a ValueError, naming
-    the shape, for H or W not a multiple of 8 or T < 2."""
-    if height % 8 or width % 8 or min(height, width, t) < 1:
+    The decoder splits each pair's H/8 rows (H/16 under UMT) as evenly as
+    possible (55 in 2: 28, 27; 55 in 8: seven of 7, one of 6; 6 in 8: six
+    of 1, two empty). A Twins encoder (``kind`` "twins") splits its grid
+    (``temporal``: Twins_CSC's stacked T-frame grid; else one frame's H/8
+    rows) into whole runs of ``encoder_unit()`` rows, as evenly as
+    possible, the last slab taking the rest; where the grid has fewer
+    units than ranks, the ranks past them get empty slabs. Whole units
+    rather than cuts through windows and cells completed by halos: no
+    layer of the encoder then exchanges more than PEG's 1-row halo and
+    GSA's gather, and each window and cell is summed at the unsharded
+    grid's place. The CNN encoders ("cnn") have no windows or cells: they
+    split each frame's H/8 rows as the decoder does (their convs take
+    halos at every stride); UMT ("umt") splits each frame's H/16 rows,
+    its 16-row patches, likewise. Raises a ValueError, naming the shape,
+    for H or W not a multiple of 8 (16 under UMT) or T < 2."""
+    ratio = 16 if kind == "umt" else 8
+    if height % ratio or width % ratio or min(height, width, t) < 1:
         raise ValueError(f"seq_plan: {height}x{width} is not a multiple of "
-                         f"8 (pad the clip, ops/padding.py)")
+                         f"{ratio} (pad the clip, ops/padding.py)")
     if t < 2:
         raise ValueError(f"seq_plan: T={t}; a clip has two frames or more")
     if n_seq < 1:
         raise ValueError(f"seq_plan: n_seq={n_seq}")
-    h, unit = height // 8, encoder_unit()
+    h, unit = height // ratio, encoder_unit()
+    if kind != "twins":
+        split = even_split(h, n_seq)
+        return SeqPlan(split, split, split)
 
     def encoder(rows):
         return [(min(a * unit, rows), min(b * unit, rows))
@@ -154,23 +172,12 @@ def seq_plan(t: int, height: int, width: int, n_seq: int,
 
 
 def _check_model(model) -> None:
-    """Every Twins StreamFlow; the other models raise, naming the ROADMAP
-    entry that queues them."""
+    """Every StreamFlow; the two-frame models raise, naming the ROADMAP
+    entry that keeps them out (JAX's version cannot run them either)."""
     if not isinstance(model, StreamFlow):
         raise NotImplementedError(
             f"make_seq_sharded_forward: {type(model).__name__} (the "
-            f"two-frame models) is not sharded yet; ROADMAP.md A10f")
-    cfg = model.cfg
-    if cfg.encoder == "umt":
-        raise NotImplementedError(
-            "make_seq_sharded_forward: encoder='umt' (K3 over the ViT's "
-            "tokens, gathered per block) is not sharded yet; ROADMAP.md "
-            "A10e")
-    if cfg.encoder in CNN_ENCODERS:
-        raise NotImplementedError(
-            f"make_seq_sharded_forward: encoder={cfg.encoder!r} (the CNN "
-            f"encoders: instance-norm statistics over the seq group) is "
-            f"not sharded yet; ROADMAP.md A10d")
+            f"two-frame models) is not sharded; ROADMAP.md A10f")
 
 
 def _frames(x: torch.Tensor, start: int, per_frame: int) -> torch.Tensor:
@@ -191,8 +198,7 @@ def _encode(enc: TwinsEncoder, x: torch.Tensor, rows2: Rows) -> torch.Tensor:
     b, t, height, width, c_in = x.shape
     svt = enc.svt
     p1, p2 = (pe.proj.stride[0] for pe in svt.patch_embeds)
-    rows1 = Rows([(a * p2, e * p2) for a, e in rows2.bounds], rows2.index,
-                 rows2.group)
+    rows1 = rows2.fine(p2)
     scale = p1 * p2
     if enc.temporal:     # Twins_CSC: slabs of the stacked grid
         stacked = x.reshape(b, t * height, width, c_in)
@@ -218,6 +224,26 @@ def _encode(enc: TwinsEncoder, x: torch.Tensor, rows2: Rows) -> torch.Tensor:
     return enc.conv3d(out.reshape(b, t, per_frame, *out.shape[2:]))
 
 
+def _encode_cnn(enc, x: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """A CNN encoder (``PerFrameBasicEncoder``, ``Res18_3D``) on this
+    rank's slab ``rows`` of each frame's H/8 rows, the frames' input rows
+    8 times those, in the batch; returns the whole output (B, T, H/8,
+    W/8, C), gathered."""
+    fine = rows.fine(8)
+    return rows.gather(enc(x[:, :, fine.start:fine.stop], rows=fine), 2)
+
+
+def _encode_umt(enc: UMT, x: torch.Tensor, rows: Rows) -> torch.Tensor:
+    """UMT on this rank's slab ``rows`` of each frame's H/16 token rows
+    (``layers/umt.py``: keys and values gathered whole in every block);
+    returns the whole output (B, T, H/16, W/16, 768), gathered."""
+    fine = rows.fine(16)
+    return rows.gather(enc(x[:, :, fine.start:fine.stop], rows=rows), 2)
+
+
+ENCODE = {"twins": _encode, "cnn": _encode_cnn, "umt": _encode_umt}
+
+
 @torch.no_grad()
 def _forward(model: StreamFlow, images: torch.Tensor, iters: int,
              plan: SeqPlan, index: int, group) -> torch.Tensor:
@@ -228,8 +254,9 @@ def _forward(model: StreamFlow, images: torch.Tensor, iters: int,
     f = t - 1
     assert t == cfg.T, f"model is configured for T={cfg.T}, got {t}"
     x = (2.0 * (images.float() / 255.0) - 1.0).to(model.dtype)
-    fmaps = _encode(model.fnet, x, Rows(plan.fnet, index, group))
-    cnets = _encode(model.cnet, x[:, :-1], Rows(plan.cnet, index, group))
+    encode = ENCODE[encoder_kind(cfg.encoder)]
+    fmaps = encode(model.fnet, x, Rows(plan.fnet, index, group))
+    cnets = encode(model.cnet, x[:, :-1], Rows(plan.cnet, index, group))
     dec = Rows(plan.decoder, index, group)
     r0, r1 = dec.start, dec.stop
     h, w, c = fmaps.shape[2:]
@@ -274,7 +301,8 @@ def make_seq_sharded_forward(model, mesh, iters=None):
     """The test-mode forward of ``model`` with the image's H axis split
     over the seq axis of ``mesh`` and the batch over its data axis.
     Returns ``run(images)``: images (B, T, H, W, 3) in [0, 255], the
-    global batch, the same on every rank, H and W multiples of 8 -> this
+    global batch, the same on every rank, H and W multiples of 8 (of 16
+    under UMT) -> this
     rank's data rows of the flows, (rows, T-1, H, W, 2) f32, whole in H
     and W on every rank of its seq group. Data rank d takes the rows
     ``even_split(B, n_data)[d]`` (B=3 over 2: 2 and 1; B=1 over 4: one
@@ -288,9 +316,9 @@ def make_seq_sharded_forward(model, mesh, iters=None):
     ``mesh`` is ``make_mesh(n_data, n_seq)``'s: a ``SeqMesh``, or for
     n_seq = 1 the data group (None in a single process), where each rank
     runs its rows whole. The parameters are the model's own, broadcast
-    once from rank 0 (``replicate``). Every Twins StreamFlow (the module
-    docstring); the CNN encoders, UMT and the two-frame models raise a
-    NotImplementedError naming their ROADMAP entry."""
+    once from rank 0 (``replicate``). Every StreamFlow (the module
+    docstring); the two-frame models raise a NotImplementedError naming
+    ROADMAP.md A10f."""
     _check_model(model)
     if isinstance(mesh, SeqMesh):
         n_data, n_seq, d, s = mesh.n_data, mesh.n_seq, mesh.d, mesh.s
@@ -305,12 +333,13 @@ def make_seq_sharded_forward(model, mesh, iters=None):
         d = process_index()
     replicate(model)
     n_iters = model.cfg.iters if iters is None else iters
-    temporal = model.fnet.temporal
+    kind = encoder_kind(model.cfg.encoder)
+    temporal = kind == "twins" and model.fnet.temporal
     device = next(model.parameters()).device
 
     def run(images):
         bsz, t, height, width = images.shape[:4]
-        plan = seq_plan(t, height, width, n_seq, temporal)
+        plan = seq_plan(t, height, width, n_seq, temporal, kind)
         a, e = even_split(bsz, n_data)[d]
         if a == e:       # none of the batch's rows: nothing to exchange
             return torch.zeros(0, t - 1, height, width, 2, device=device)

@@ -50,10 +50,24 @@ def close(got, want):
                                    initial=0.0)))
 
 
+def _stats(tree, seed):
+    """Running statistics: means 0.1 r, variances 0.5 + u (as
+    tests/test_torch_zoo_model.py's)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node):
+        return {k: walk(v) if hasattr(v, "items") else (
+            (0.5 + rng.random(np.shape(v))) if k == "var"
+            else 0.1 * rng.standard_normal(np.shape(v))).astype(np.float32)
+            for k, v in node.items()}
+    return walk(tree)
+
+
 def variables(fields, seed=1):
     """Fan-in-scaled random JAX variables of the config ``fields`` (f32,
     T=4), from the init's shapes (nothing compiled): every leaf random,
-    the zero- and dirac-init hooks too."""
+    the zero- and dirac-init hooks too, and the CNN cnet's BatchNorm
+    running statistics where the config has them."""
     jm = jax_create("streamflow", cfg=JaxConfig(
         T=worker.T, iters=1, mixed_precision=False, **fields))
     shapes = jax.eval_shape(lambda k, a: jm.init(k, a, test_mode=True),
@@ -61,9 +75,12 @@ def variables(fields, seed=1):
                             jnp.zeros((1, worker.T, 64, 64, 3)))
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
                                    shapes)
-    return {"params": jax.tree_util.tree_map(
+    v = {"params": jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32),
         randomize_params(zeros["params"], seed))}
+    if "batch_stats" in zeros:
+        v["batch_stats"] = _stats(zeros["batch_stats"], seed + 1)
+    return v
 
 
 def _env():

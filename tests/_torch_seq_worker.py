@@ -12,7 +12,9 @@ each case's mesh place (d, s); for the "two" group a data group of one
 seq rank each (``make_mesh(n_data=2)``) against ``model.forward`` on the
 rank's rows bit for bit, the exchanges' bit patterns (bf16 and f32,
 -0.0 and NaN included) and make_mesh's refusal of a world of another
-size; for "eight" the exchanges on thin and empty slabs.
+size; for "eight" the exchanges on thin and empty slabs; for "cnn" the
+RAFT CNN's convs and InstanceNorm on thin and empty slabs against the
+whole layer (``slab_layers``).
 """
 
 import json
@@ -38,6 +40,8 @@ class Case(NamedTuple):
 
 FRAMES = ("twins", "twins_1dconv", "twins_temporal_attention",
           "twins_3dconv")
+CNN = ("basic", "res18_3d")
+UMT = {"encoder": "umt", "decoder_dim": 768}
 DECODERS = {"sk_tam_v1": {"update_block": "sk_tam_v1"},
             "sk_tam_v3_noinit": {"update_block": "sk_tam_v3_noinit"},
             "no_gma": {"use_gma": False}}
@@ -70,6 +74,20 @@ GROUPS = {
     # the decoder ablations on Twins_CSC at 112x128 (as "two")
     "decoders": {name: Case(fields, 112, 128, 1, (1,), 1, 2)
                  for name, fields in DECODERS.items()},
+    # the CNN encoders at 48x64: a 6-row 1/8 grid split as the decoder's
+    # (3/3; 2/2/1/1; six of 1 and two empty), the input's slabs 8 times
+    # those rows; B=1 over make_mesh(n_data=4, n_seq=2), (2, 4), (1, 8)
+    "cnn": {f"{name}_{n_seq}": Case({"encoder": name}, 48, 64, 1, (1,),
+                                    8 // n_seq, n_seq)
+            for name in CNN for n_seq in (2, 4, 8)},
+    # B=3 over make_mesh(n_data=2, n_seq=2): data groups of 2 and 1 rows
+    "cnn_grid": {f"{name}_grid": Case({"encoder": name}, 48, 64, 3, (1,),
+                                      2, 2) for name in CNN},
+    # UMT (decoder_dim=768) at 64x128: a 4-row 1/16 grid, B=1 over
+    # make_mesh(n_data=3, n_seq=2) (2/2), (2, 3) (2/1/1) and (1, 6)
+    # (1/1/1/1 and two empty slabs)
+    "umt": {f"umt_{n_seq}": Case(UMT, 64, 128, 1, (1,), 6 // n_seq, n_seq)
+            for n_seq in (2, 3, 6)},
 }
 WORLD = {g: max(c.n_data * c.n_seq for c in cases.values())
          for g, cases in GROUPS.items()}
@@ -134,6 +152,46 @@ def exchanges_exact(rows):
     return bool(ok)
 
 
+# slab_layers: the RAFT CNN's conv kinds (c_in, c_out, k, stride,
+# padding) on slabs of SLAB_ROWS input rows (a world of 8: thin ones,
+# thinner than the stem's 3-row halo, and empty ones)
+SLAB_CONVS = {"stem_7x7_s2_p3": (3, 16, 7, 2, 3),
+              "3x3_s1_p1": (8, 16, 3, 1, 1),
+              "3x3_s2_p1": (8, 16, 3, 2, 1),
+              "downsample_1x1_s2": (8, 16, 1, 2, 0)}
+SLAB_ROWS = [6, 2, 0, 2, 4, 0, 34, 0]
+
+
+def slab_layers(rows):
+    """Each of SLAB_CONVS through ``conv2d_rows`` and InstanceNorm through
+    ``instance_norm(rows=...)`` on this rank's slab ``rows`` of a (2, 48,
+    20, C) grid, against the whole layer's rows of the slab (the conv's
+    output rows start // stride to stop // stride): label -> [shapes
+    equal, max abs difference]."""
+    import torch
+
+    from streamflow_tpu_torch.layers.common import (conv2d, conv2d_rows,
+                                                    instance_norm)
+
+    def compare(got, want):
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        return [got.shape == want.shape, err]
+
+    torch.manual_seed(3)          # the same weights and grids on every rank
+    out = {}
+    for label, (c_in, c_out, k, s, p) in SLAB_CONVS.items():
+        conv = torch.nn.Conv2d(c_in, c_out, k, s, p)
+        x = torch.randn(2, rows.total, 20, c_in)
+        got = conv2d_rows(x[:, rows.start:rows.stop], conv, rows)
+        want = conv2d(x, conv)[:, rows.start // s:rows.stop // s]
+        out[label] = compare(got, want)
+    x = 3.0 + torch.randn(2, rows.total, 20, 16)
+    got = instance_norm(x[:, rows.start:rows.stop], rows=rows)
+    want = instance_norm(x)[:, rows.start:rows.stop]
+    out["instance_norm"] = compare(got, want)
+    return out
+
+
 def main():
     group, rank, world, store, out = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -177,6 +235,12 @@ def main():
         got = fwd(imgs)
         want = model(imgs[rank:rank + 1], iters=2, test_mode=True)
         rec["solo_bit_for_bit"] = bool(torch.equal(got, want))
+    if group == "cnn":
+        mesh = parallel.make_mesh(n_seq=world)
+        bounds = [(sum(SLAB_ROWS[:r]), sum(SLAB_ROWS[:r + 1]))
+                  for r in range(world)]
+        rec["slab_layers"] = slab_layers(Rows(bounds, mesh.s,
+                                              mesh.seq_group))
     if group == "eight":
         # thin slabs (1 row) between empty ones, halos of 2 and 5 rows
         # reaching past the neighbours, over the whole world of 8

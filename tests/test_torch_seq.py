@@ -9,10 +9,11 @@ port's unsharded forward and JAX's, f32.
 (iii) n_data=2 x n_seq=2, B=2, at 112x128, iters 1; then B=1 over the
       same mesh (data group 1 holds no rows);
 (iv)  dw_impl='pallas' at n_seq=2, iters 1;
-(v)   a seq group of one (one process, every Twins StreamFlow; and
+(v)   a seq group of one (one process, every StreamFlow; and
       make_mesh(n_data=2)'s data group of two) bit for bit with
       ``model.forward``;
-(vi)  the slab planner's boundaries, thin and empty slabs included;
+(vi)  the slab planner's boundaries, thin and empty slabs included, for
+      the Twins, CNN and UMT encoders;
 (vii) the ValueErrors and NotImplementedErrors;
 (viii) GSA's flash switch on a slab follows the whole grid's tokens;
 (ix)  the kernel wrappers on no rows launch nothing.
@@ -20,7 +21,8 @@ port's unsharded forward and JAX's, f32.
 The thin and empty slabs at 48x64 (JAX's own case) are in
 test_torch_seq_thin.py, the per-frame encoders in
 test_torch_seq_frames.py, the decoder ablations in
-test_torch_seq_decoders.py.
+test_torch_seq_decoders.py, the CNN encoders in test_torch_seq_cnn.py,
+UMT in test_torch_seq_umt.py.
 """
 
 import pytest
@@ -33,7 +35,8 @@ from streamflow_tpu_torch.config import StreamFlowConfig
 from streamflow_tpu_torch.models import create_model
 from streamflow_tpu_torch.params import load_jax
 from streamflow_tpu_torch.parallel.exchange import Rows, even_split
-from streamflow_tpu_torch.parallel.seq import SeqPlan, encoder_unit, seq_plan
+from streamflow_tpu_torch.parallel.seq import (SeqPlan, encoder_kind,
+                                               encoder_unit, seq_plan)
 
 torch.set_num_threads(2)
 GROUPS = ("two", "three", "grid")
@@ -99,14 +102,20 @@ def test_one_process_is_the_unsharded_forward_bit_for_bit(dw_impl):
     {"encoder": "twins"}, {"encoder": "twins_1dconv"},
     {"encoder": "twins_temporal_attention"}, {"encoder": "twins_3dconv"},
     {"update_block": "sk_tam_v1"}, {"update_block": "sk_tam_v3_noinit"},
-    {"use_gma": False}], ids=lambda f: "-".join(map(str, f.values())))
+    {"use_gma": False}, {"encoder": "basic"}, {"encoder": "res18_3d"},
+    {"encoder": "umt", "decoder_dim": 768}],
+    ids=lambda f: "-".join(map(str, f.values())))
 def test_every_twins_model_is_sharded(fields):
     """The per-frame Twins encoders and the decoder ablations (refused
-    until ROADMAP A10c) run the sharded code: in one process, with no
-    exchange, model.forward bit for bit (their gloo runs are
-    test_torch_seq_frames.py's and test_torch_seq_decoders.py's)."""
+    until ROADMAP A10c), the CNN encoders (A10d) and UMT (A10e) run the
+    sharded code: in one process, with no exchange, model.forward bit for
+    bit (their gloo runs are test_torch_seq_frames.py's,
+    test_torch_seq_decoders.py's, test_torch_seq_cnn.py's and
+    test_torch_seq_umt.py's). The first forward of a CPU process may
+    round its convs otherwise: one call first."""
     model = _model(fields)
     imgs = torch.from_numpy(worker.clip(48, 64, 1))
+    model(imgs, iters=1, test_mode=True)
     got = parallel.make_seq_sharded_forward(model, None, 2)(imgs)
     assert torch.equal(got, model(imgs, test_mode=True))
 
@@ -167,6 +176,29 @@ def test_seq_plan_per_frame(t, h, w, n, frame, dec):
                                  "decoder": dec[-1][1] - dec[-1][0]}
 
 
+@pytest.mark.parametrize("encoder,t,h,w,n,rows", [
+    # the CNN encoders: each frame's H/8 rows, as the decoder's
+    ("basic", 4, 440, 1024, 4, [(0, 14), (14, 28), (28, 42), (42, 55)]),
+    ("res18_3d", 4, 48, 64, 8, [(i, i + 1) for i in range(6)]
+     + [(6, 6)] * 2),
+    ("mf_basic", 3, 1440, 2560, 2, [(0, 90), (90, 180)]),
+    # UMT: each frame's H/16 rows, the decoder's too
+    ("umt", 4, 448, 1024, 4, [(0, 7), (7, 14), (14, 21), (21, 28)]),
+    ("umt", 4, 64, 128, 3, [(0, 2), (2, 3), (3, 4)]),
+    ("umt", 4, 64, 128, 6, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 4),
+                            (4, 4)]),
+])
+def test_seq_plan_cnn_and_umt(encoder, t, h, w, n, rows):
+    """The CNN encoders and UMT split their grids as the decoder does, with
+    no encoder unit; an empty slab holds none of the three."""
+    kind = encoder_kind(encoder)
+    assert kind == ("umt" if encoder == "umt" else "cnn")
+    plan = seq_plan(t, h, w, n, temporal=False, kind=kind)
+    assert plan == (rows, rows, rows)
+    assert [plan.holds(s) for s in range(n)] == [
+        dict.fromkeys(("fnet", "cnet", "decoder"), b - a) for a, b in rows]
+
+
 def test_encoder_unit_and_even_split():
     assert encoder_unit() == 28   # lcm(ws 7, sr 4); stage 1: lcm(7, 8) / 2
     assert even_split(55, 2) == [(0, 28), (28, 55)]
@@ -178,6 +210,9 @@ def test_encoder_unit_and_even_split():
     ((4, 112, 60, 2), "multiple of 8"),
     ((1, 112, 128, 2), "two frames"),
     ((4, 112, 128, 0), "n_seq=0"),
+    ((4, 440, 1024, 2, False, "umt"), "440x1024 is not a multiple of 16"),
+    ((4, 448, 1000, 2, False, "umt"), "448x1000 is not a multiple of 16"),
+    ((4, 100, 128, 2, False, "cnn"), "multiple of 8"),
 ])
 def test_seq_plan_refusals(args, match):
     with pytest.raises(ValueError, match=match):
@@ -223,17 +258,12 @@ def test_rows_refusals():
 
 
 @pytest.mark.parametrize("name,fields,entry", [
-    ("streamflow", {"encoder": "basic"}, "A10d"),
-    ("streamflow", {"encoder": "res18_3d"}, "A10d"),
-    ("streamflow", {"encoder": "umt", "decoder_dim": 768}, "A10e"),
     ("raft", {}, "A10f"),
 ])
 def test_other_models_raise_naming_their_roadmap_entry(name, fields, entry):
-    if name == "raft":
-        model = create_model("raft", device="cpu", mixed_precision=False)
-    else:
-        model = create_model(name, cfg=StreamFlowConfig(
-            T=4, mixed_precision=False, **fields), device="cpu")
+    """Only the two-frame models are refused (the CNN encoders and UMT,
+    refused until A10d and A10e, run: test_every_twins_model_is_sharded)."""
+    model = create_model(name, device="cpu", mixed_precision=False, **fields)
     with pytest.raises(NotImplementedError, match=entry):
         parallel.make_seq_sharded_forward(model, None)
 
