@@ -213,7 +213,12 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      against the f32 one-process forward at most 1.5x the one-process
      bf16 forward's, global and p99); each rank's launches exact (the
      one-process counts) and both ranks' flows equal bit for bit; each
-     rank's wall and device ms, the exchanges' share, peak memory; then
+     rank's wall and device ms, the exchanges (exchange.recording: halos
+     by point-to-point sends, gathers by all_gather, sums by all_reduce,
+     each staged through the host, its bytes the plan's) by kind, count
+     and MiB beside the old all_reduce form's (exchange.traffic), their
+     share, peak memory; the forward over a one-rank NCCL seq group,
+     which exchanges nothing, bit for bit with one process; then
      one 1440x2560 bf16 run (peak memory, wall ms). Then 8 processes
      sharing the card over gloo: (a) the same clip over one seq group of
      8 (one 8-GPU node: decoder slabs 7 x 7 + 6, the cnet's 6 encoder
@@ -229,7 +234,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      make_mesh(n_data=2, n_seq=4) (data group 1 holds no rows; a
      per-frame encoder's 55-row frames leave two ranks without encoder
      rows; decoder 14/14/14/13) within the same guard against its own
-     one-process forwards, launches exact, ms a clip; (d) the CNN
+     one-process forwards, launches exact, ms a clip, the exchanges;
+     (d) the CNN
      encoders 'basic' and 'res18_3d' over the same mesh (each frame's 55
      rows at 1/8 split 14/14/14/13 in the encoders, their convs on slabs
      with halos at every stride, InstanceNorm's statistics summed over
@@ -4158,7 +4164,8 @@ SEQ_ZOO = ("twins", "twins_1dconv", "twins_temporal_attention",
 SEQ_CNN = ("basic", "res18_3d")
 # the node's 1440x2560 runs ((a) and (d)'s 'basic') at one iteration: the
 # peak memory a rank is the 12-iteration forward's (test mode keeps no
-# iteration's activations), the exchanges of 12 cost ~15 s at n_seq=8
+# iteration's activations), the all_reduce form's exchanges of 12 cost
+# ~15 s at n_seq=8
 SEQ_HIGH_ITERS = 1
 # the kernels line's paths of phase 39, "inference_<tag>": tag -> (n_seq,
 # rank, Twins_CSC's stacked grid, iterations a clip, the planner's kind):
@@ -4367,18 +4374,48 @@ def seq_guard(label, got, plain, ref, ranks) -> None:
         label, g, p)
 
 
+def seq_exchanges(rec) -> dict:
+    """An ``exchange.recording`` record by kind: count, MiB this rank
+    sent and received, the MiB the all_reduce form sent (and received)
+    there (``traffic``), seconds. Each exchange's bytes must be its
+    plan's, and each must have gone through the host (gloo on the
+    card)."""
+    kinds = {}
+    for e in rec:
+        plan = e.planned()
+        assert (e.sent, e.received) == plan[:2], (e, plan)
+        assert e.staged, f"a {e.kind} over gloo was not staged on the host"
+        k = kinds.setdefault(e.kind, dict(n=0, sent=0.0, received=0.0,
+                                          old=0.0, s=0.0))
+        k["n"] += 1
+        k["s"] += e.seconds
+        for key, v in (("sent", e.sent), ("received", e.received),
+                       ("old", plan.old)):
+            k[key] += v / 2 ** 20
+    return kinds
+
+
+def seq_exchange_words(kinds) -> str:
+    return "; ".join(
+        f"{kind} x{k['n']} sent {k['sent']:.3f} / received "
+        f"{k['received']:.3f} MiB (the all_reduce form "
+        f"{k['old']:.3f} MiB each way), {1e3 * k['s']:.1f} ms"
+        for kind, k in sorted(kinds.items()))
+
+
 def seq_timed(dev, fwd, imgs, reps, profile=True, ms=None):
     """Wall ms a clip (mean and min of ``reps``, or the one run ``ms`` a
     caller timed), device ms of a card-only
-    profile (kernels, and gloo's copies between the card and the host;
+    profile (kernels, and the copies between the card and the host;
     without ``profile`` the same two calls unprofiled, for the ranks that
     only join the profiled rank's exchanges), and the exchanges of an
-    instrumented run (every all_reduce: halos, gathers and InstanceNorm's
-    sums): their count, bytes and host seconds, beside that run's wall
+    instrumented run (``exchange.recording``, the card synchronised
+    around each: halos, gathers and InstanceNorm's sums) by kind
+    (``seq_exchanges``), their seconds in all, beside that run's wall
     seconds and peak memory (GiB)."""
     import torch
 
-    from streamflow_tpu_torch.parallel.exchange import Rows
+    from streamflow_tpu_torch.parallel.exchange import recording
     from streamflow_tpu_torch.tools.common import (device_events, host_ms,
                                                    profiled)
 
@@ -4392,42 +4429,28 @@ def seq_timed(dev, fwd, imgs, reps, profile=True, ms=None):
     else:
         fwd(imgs)
         fwd(imgs)
-    spent = []
-    inner = Rows._reduce
-
-    def timed(self, buf):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inner(self, buf)
-        torch.cuda.synchronize()
-        spent.append((time.perf_counter() - t0,
-                      buf.numel() * buf.element_size()))
-    Rows._reduce = timed
-    try:
+    with recording(sync=torch.cuda.synchronize) as rec:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fwd(imgs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        Rows._reduce = inner
-    return dict(ms=ms, dev_ms=dev_ms, copy_ms=copy_ms, n=len(spent),
-                mib=sum(n for _, n in spent) / 2 ** 20,
-                ex_s=sum(t for t, _ in spent), wall=wall,
-                peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return dict(ms=ms, dev_ms=dev_ms, copy_ms=copy_ms, n=len(rec),
+                kinds=seq_exchanges(rec), ex_s=sum(e.seconds for e in rec),
+                wall=wall, peak=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
 def seq_timed_words(tm, reps) -> str:
     device = ("device not profiled on this rank" if tm["dev_ms"] is None
               else f"device {tm['dev_ms']:.3f} ms ({tm['copy_ms']:.3f} of "
-              f"it gloo's copies to and from the host)")
+              f"it copies between the card and the host)")
     return (f"{tm['ms'][0]:.3f} ms a clip (mean of {reps}, min "
             f"{tm['ms'][1]:.3f}; the ranks share the one card), {device}; "
-            f"{tm['n']} exchanges of "
-            f"{tm['mib']:.1f} MiB in all, {1e3 * tm['ex_s']:.1f} of "
+            f"{tm['n']} exchanges, {1e3 * tm['ex_s']:.1f} of "
             f"{1e3 * tm['wall']:.1f} ms of an instrumented run "
-            f"({tm['ex_s'] / tm['wall']:.3f})")
+            f"({tm['ex_s'] / tm['wall']:.3f}): "
+            + seq_exchange_words(tm["kinds"]))
 
 
 def seq_high(dev, m, mesh, rank, iters=ITERS, label="") -> float:
@@ -4523,10 +4546,43 @@ def seq_worker(dev, rank, world) -> dict:
         + (f"; the one-process forward {one_ms:.3f} ms" if rank == 0
            else ""))
     del fwd
+    seq_nccl_one(m16, rank, world, imgs, plain)
 
     # 1440x2560 once: each rank's peak memory and wall time
     peak = seq_high(dev, m16, mesh, rank)
     return {"launches": counts, "peak_gib": peak}
+
+
+def seq_nccl_one(m, rank, world, imgs, plain) -> None:
+    """The sharded forward of ``m`` (ITERS iterations) over a seq group of
+    one under NCCL, which places no two ranks of a group on one card:
+    every rank of the gloo world makes a one-rank NCCL group of each rank,
+    joins its own (``exchange.join``, the group's first collective) and
+    runs the forward there, which exchanges nothing; rank 0's flows bit
+    for bit with the one-process forward's, ``plain``."""
+    import torch
+    import torch.distributed as dist
+
+    from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.exchange import join, recording
+
+    t0 = time.perf_counter()
+    groups = [dist.new_group([r], backend="nccl") for r in range(world)]
+    group = groups[rank]
+    assert dist.get_backend(group) == "nccl", dist.get_backend(group)
+    join(group)
+    fwd = parallel.make_seq_sharded_forward(
+        m, parallel.SeqMesh(1, 1, 0, 0, group, group), ITERS)
+    with recording() as rec:
+        got = fwd(imgs).float().cpu()
+    assert rec == [], rec
+    if rank == 0:
+        same = torch.equal(got, plain)
+        log(f"phase 39 rank 0, a one-rank NCCL seq group, bf16 'auto' "
+            f"{tuple(imgs.shape)} iters {ITERS}: no exchange, bit for bit "
+            f"with the one-process forward: {same} "
+            f"({time.perf_counter() - t0:.1f} s with the group's setup)")
+        assert same, "the one-rank NCCL group's flows differ"
 
 
 def seq_node_worker(dev, rank, world) -> dict:
@@ -4539,6 +4595,7 @@ def seq_node_worker(dev, rank, world) -> dict:
     import torch
 
     from streamflow_tpu_torch import parallel
+    from streamflow_tpu_torch.parallel.exchange import recording
     from streamflow_tpu_torch.parallel.seq import seq_plan
 
     mesh = parallel.make_mesh(n_seq=world)
@@ -4611,13 +4668,15 @@ def seq_node_worker(dev, rank, world) -> dict:
                   if mesh4.d == 0 else dict.fromkeys(KERNELS, 0))
         fwd, got, counts, _ = seq_sharded(dev, m16, mesh4, 1, imgs, expect)
         assert got.shape[0] == (B if mesh4.d == 0 else 0), got.shape
-        ms = None
+        ms, kinds = None, {}
         if mesh4.d == 0:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            fwd(imgs)
+            with recording() as rec:
+                fwd(imgs)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t1)
+            kinds = seq_exchanges(rec)
         parallel.barrier("seq zoo timed")   # the card to data group 0 alone
         if first:
             seq_guard(f"(b) {name} bf16 'auto' iters 1, make_mesh(n_data="
@@ -4628,14 +4687,18 @@ def seq_node_worker(dev, rank, world) -> dict:
                 f"{[b - a for a, b in zplan.cnet]} decoder "
                 f"{[b - a for a, b in zplan.decoder]} "
                 f"({time.perf_counter() - t0:.1f} s)")
-        zoo[name] = {"launches": counts, "ms": ms}
+        zoo[name] = {"launches": counts, "ms": ms, "exchanges": kinds}
         del fwd, m16
         torch.cuda.empty_cache()
     parallel.barrier("seq zoo")
     log(f"phase 39 (b) rank {rank} (data group {mesh4.d}, seq rank "
-        f"{mesh4.s}): launches and ms a clip (iters 1) by config "
+        f"{mesh4.s}): launches, ms a clip (iters 1) and the exchanges by "
+        f"kind [count, MiB sent, received, the all_reduce form's] by config "
         + json.dumps({k: [{n: c for n, c in v["launches"].items() if c},
-                          None if v["ms"] is None else round(v["ms"], 3)]
+                          None if v["ms"] is None else round(v["ms"], 3),
+                          {kind: [e["n"], round(e["sent"], 3),
+                                  round(e["received"], 3), round(e["old"], 3)]
+                           for kind, e in v["exchanges"].items()}]
                       for k, v in zoo.items()}))
 
     # (d) the CNN encoders, (e) UMT at 448x1024, over the same mesh

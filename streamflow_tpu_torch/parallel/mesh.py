@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from streamflow_tpu_torch.layers.common import sync_batchnorm
+from streamflow_tpu_torch.parallel.exchange import join
 from streamflow_tpu_torch.parallel.multihost import (is_initialized,
                                                      process_count,
                                                      process_index)
@@ -47,8 +48,9 @@ def make_mesh(n_data: Optional[int] = None, n_seq: int = 1):
     ``n_data`` processes (every process when None); None without a group
     (a single process). ``n_seq > 1``: a ``SeqMesh`` over the default
     group of n_data x n_seq processes (n_data = processes / n_seq when
-    None); every rank creates every group, in the same order. A world of
-    another size, or no group, raises a ValueError."""
+    None); every rank creates every group, in the same order, and joins
+    its seq group (``exchange.join``). A world of another size, or no
+    group, raises a ValueError."""
     world = process_count()
     if n_seq < 1 or (n_data is not None and n_data < 1):
         raise ValueError(f"make_mesh: n_data={n_data}, n_seq={n_seq}")
@@ -75,6 +77,7 @@ def make_mesh(n_data: Optional[int] = None, n_seq: int = 1):
     for i in range(n_data):
         g = dist.new_group([i * n_seq + j for j in range(n_seq)])
         seq = g if i == d else seq
+    join(seq)       # a collective before the first halo's sends (NCCL)
     return SeqMesh(n_data, n_seq, d, s, data, seq)
 
 

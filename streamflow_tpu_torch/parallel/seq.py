@@ -4,9 +4,10 @@ group, and the batch over the data axis, as JAX's
 ``make_seq_sharded_forward`` (``seq.py:22-51``).
 
 JAX lets GSPMD partition the whole forward; here each layer runs on its
-rank's slab of rows and the exchanges are written by hand
-(``parallel/exchange.py``: halo rows from whichever ranks hold them, the
-whole grid gathered from every slab). The numerics are the unsharded
+rank's slab of rows and the exchanges are written by hand, with the
+collectives GSPMD inserts (``parallel/exchange.py``: halo rows by
+point-to-point sends from whichever ranks hold them, the whole grid by
+an all_gather of every slab, statistics by an all_reduce). The numerics are the unsharded
 model's: every op is either per row (per token, per pixel) or reads its
 neighbours' rows through a halo or the whole grid through a gather, so
 each output row is computed from the same values as on one rank.

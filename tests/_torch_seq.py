@@ -207,3 +207,93 @@ def parity_tests(runs_list):
     return (test_seq_sharded_matches_port_unsharded,
             test_seq_sharded_matches_jax,
             test_seq_group_ranks_agree_bit_for_bit)
+
+
+def record_tests(groups):
+    """The test of every case's recorded forward in ``groups``, for a test
+    module to bind (its ``runs`` fixture starts the groups)."""
+
+    @pytest.mark.parametrize("group,case", [
+        (g, case) for g in groups for case in worker.GROUPS[g]])
+    def test_forward_exchanges_follow_the_plan(runs, group, case):
+        """Every rank's last forward of the case (``exchange.recording``):
+        halos, gathers and, under a CNN encoder alone, InstanceNorm's sums;
+        each exchange's bytes sent and received ``traffic``'s; one
+        all_reduce for each sum and none else (no halo or gather goes
+        through an all_reduce of a zeroed buffer); the ranks of a seq
+        group making the same exchanges in the same order; a data group
+        without rows, or a seq group of one, none."""
+        c = worker.GROUPS[group][case]
+        recs = [r["forward"][case] for r in runs.recs[group]]
+        for r, got in enumerate(recs):
+            kinds = got["kinds"]
+            a, b = even_split(c.b, c.n_data)[r // c.n_seq]
+            assert got["planned"] and got["all_reduces"] == kinds.count(
+                "sum")
+            assert kinds == recs[r - r % c.n_seq]["kinds"]
+            if a == b or c.n_seq == 1:
+                assert kinds == []
+                continue
+            assert {"halo", "gather"} <= set(kinds) <= {"halo", "gather",
+                                                        "sum"}
+            assert ("sum" in kinds) == (c.fields.get("encoder")
+                                        in worker.CNN)
+
+    return test_forward_exchanges_follow_the_plan
+
+
+def _halo_bytes(bounds, i, k, row):
+    """Rank i's (sent, received) bytes of a halo of ``k`` by counting
+    rows: it receives the rows of its window outside its slab, and sends
+    each other rank the rows of its slab inside that rank's window."""
+    total = bounds[-1][1]
+
+    def window(j):
+        a, b = bounds[j]
+        return (set(range(max(a - k, 0), a)) | set(range(b, min(
+            b + k, total)))) if b > a else set()
+    mine = set(range(*bounds[i]))
+    sent = sum(len(window(j) & mine) for j in range(len(bounds)) if j != i)
+    return sent * row, len(window(i)) * row
+
+
+def exchange_tests(group, sizes):
+    """The tests of ``exchange_record`` on the slabs ``sizes`` in the
+    world of ``group``, for a test module to bind."""
+    bounds = worker._bounds(sizes)
+    n = len(sizes)
+
+    def test_halos_and_gathers_match_the_whole_grid(runs):
+        """Halos of 1, 3 and 7 rows, slabs thinner than k included, hold
+        the whole grid's rows; the gathers (unit 1 and 2) the whole grid,
+        empty slabs present."""
+        for r in runs.recs[group]:
+            rec = r["exchange_record"]
+            assert rec["halos"] == [True] * 3 and rec["gathers"] == [True] * 2
+
+    def test_exchange_bytes_follow_the_plan(runs):
+        """Each rank's recorded bytes sent and received: those of
+        ``traffic``, and those counted row by row (halos: a (2, rows, 6)
+        f32 slab, 48 bytes a row; gathers: n - 1 chunks of the largest
+        slab each way, 48 bytes an entry, then a (3, 4, 2 x rows) bf16
+        one, 24 bytes; the sum: 2(n-1)/n of its 8 bytes)."""
+        most = max(sizes)
+        for i, r in enumerate(runs.recs[group]):
+            want = [_halo_bytes(bounds, i, k, 48) for k in (1, 3, 7)] + [
+                ((n - 1) * most * 48,) * 2, ((n - 1) * most * 2 * 24,) * 2,
+                (2 * (n - 1) * 8 / n,) * 2]
+            got = r["exchange_record"]["bytes"]
+            assert [e[0] for e in got] == ["halo"] * 3 + ["gather"] * 2 + [
+                "sum"]
+            assert [tuple(e[1:3]) for e in got] == want
+            assert [tuple(e[3:5]) for e in got] == want
+
+    def test_no_exchange_goes_through_an_all_reduce(runs):
+        """One all_reduce, the sum's: the halos and gathers call none."""
+        for r in runs.recs[group]:
+            rec = r["exchange_record"]
+            assert rec["all_reduces"] == rec["kinds"].count("sum") == 1
+
+    return (test_halos_and_gathers_match_the_whole_grid,
+            test_exchange_bytes_follow_the_plan,
+            test_no_exchange_goes_through_an_all_reduce)

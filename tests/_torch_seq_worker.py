@@ -12,9 +12,12 @@ each case's mesh place (d, s); for the "two" group a data group of one
 seq rank each (``make_mesh(n_data=2)``) against ``model.forward`` on the
 rank's rows bit for bit, the exchanges' bit patterns (bf16 and f32,
 -0.0 and NaN included) and make_mesh's refusal of a world of another
-size; for "eight" the exchanges on thin and empty slabs; for "cnn" the
-RAFT CNN's convs and InstanceNorm on thin and empty slabs against the
-whole layer (``slab_layers``).
+size; for "eight" the exchanges on thin and empty slabs; for "eight" and
+"three" each exchange's bytes against ``traffic`` (``exchange_record``);
+for "cnn" the RAFT CNN's convs and InstanceNorm on thin and empty slabs
+against the whole layer (``slab_layers``). Every case's last forward
+runs under ``exchange.recording`` with ``dist.all_reduce`` counted
+(``forward_record``).
 """
 
 import json
@@ -152,6 +155,91 @@ def exchanges_exact(rows):
     return bool(ok)
 
 
+def _bounds(sizes):
+    return [(sum(sizes[:r]), sum(sizes[:r + 1])) for r in range(len(sizes))]
+
+
+def _counting_all_reduce(calls):
+    """(torch.distributed.all_reduce, a stand-in that counts its calls
+    into ``calls`` and calls it)."""
+    import torch.distributed as dist
+
+    inner = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+    return inner, counted
+
+
+def summarize(rec, calls):
+    """A record of exchanges: their kinds in order, whether every one's
+    bytes sent and received are ``traffic``'s, the all_reduce calls made
+    (``calls``), and the bytes sent, received and of the all_reduce
+    form."""
+    plans = [e.planned() for e in rec]
+    return {"kinds": [e.kind for e in rec],
+            "planned": all((e.sent, e.received) == (p.sent, p.received)
+                           for e, p in zip(rec, plans)),
+            "all_reduces": len(calls),
+            "sent": sum(e.sent for e in rec),
+            "received": sum(e.received for e in rec),
+            "old": sum(p.old for p in plans)}
+
+
+def recorded(fn):
+    """``fn()`` under ``exchange.recording``, every ``dist.all_reduce``
+    call counted; returns (its result, ``summarize``'s record, the
+    record)."""
+    import torch.distributed as dist
+
+    from streamflow_tpu_torch.parallel import exchange
+
+    calls = []
+    inner, dist.all_reduce = _counting_all_reduce(calls)
+    try:
+        with exchange.recording() as rec:
+            out = fn()
+    finally:
+        dist.all_reduce = inner
+    return out, summarize(rec, calls), rec
+
+
+def exchange_record(rows):
+    """Rows.halo at k = 1, 3 and 7, Rows.gather (unit 1 along dim 1, unit 2
+    along dim 2) and Rows.sum over the seq group of ``rows``, recorded:
+    whether each halo holds the grid's rows start - top to stop + bottom
+    (none on an empty slab) and each gather the whole grid, bit for bit,
+    and each exchange's bytes sent and received, the record's beside
+    ``traffic``'s."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    whole = torch.randn(2, rows.total, 6, generator=gen)
+    mine = whole[:, rows.start:rows.stop]
+    wide = torch.randn(3, 4, 2 * rows.total, generator=gen).to(
+        torch.bfloat16)
+
+    def exchanges():
+        halos = []
+        for k in (1, 3, 7):
+            ext, top = rows.halo(mine, k)
+            a = rows.start - top
+            halos.append(bool(ext.equal(
+                whole[:, a:min(rows.stop + k, rows.total)]
+                if rows.size else mine)))
+        gathers = [bool(rows.gather(mine, 1).equal(whole)), bool(
+            rows.gather(wide[:, :, 2 * rows.start:2 * rows.stop], 2,
+                        unit=2).view(torch.int16).equal(
+                            wide.view(torch.int16)))]
+        rows.sum(mine.sum((1, 2)))
+        return halos, gathers
+    (halos, gathers), summary, rec = recorded(exchanges)
+    return {"halos": halos, "gathers": gathers,
+            "bytes": [[e.kind, e.sent, e.received, *e.planned()[:2]]
+                      for e in rec], **summary}
+
+
 # slab_layers: the RAFT CNN's conv kinds (c_in, c_out, k, stride,
 # padding) on slabs of SLAB_ROWS input rows (a world of 8: thin ones,
 # thinner than the stem's 3-row halo, and empty ones)
@@ -160,6 +248,9 @@ SLAB_CONVS = {"stem_7x7_s2_p3": (3, 16, 7, 2, 3),
               "3x3_s2_p1": (8, 16, 3, 2, 1),
               "downsample_1x1_s2": (8, 16, 1, 2, 0)}
 SLAB_ROWS = [6, 2, 0, 2, 4, 0, 34, 0]
+# the exchanges' own checks: slabs of the worlds of 8 ("eight") and 3
+EIGHT_ROWS = [3, 1, 0, 2, 1, 0, 4, 0]
+THREE_ROWS = [5, 1, 2]
 
 
 def slab_layers(rows):
@@ -207,14 +298,15 @@ def main():
 
     assert parallel.initialize(f"file://{store}", world, rank,
                                device="cpu") == (rank, world)
-    rec = {"mesh": {}}
+    rec = {"mesh": {}, "forward": {}}
     for case, c in GROUPS[group].items():
         model = port_model(c.fields, out)
         mesh = parallel.make_mesh(c.n_data, c.n_seq)
         rec["mesh"][case] = [mesh.d, mesh.s]
         imgs = torch.from_numpy(clip(c.h, c.w, c.b))
         for it in c.iters:
-            flows = parallel.make_seq_sharded_forward(model, mesh, it)(imgs)
+            fwd = parallel.make_seq_sharded_forward(model, mesh, it)
+            flows, rec["forward"][case], _ = recorded(lambda: fwd(imgs))
             np.save(os.path.join(out, f"{case}_{it}_{rank}.npy"),
                     flows.numpy())
     if group == "two":
@@ -237,18 +329,21 @@ def main():
         rec["solo_bit_for_bit"] = bool(torch.equal(got, want))
     if group == "cnn":
         mesh = parallel.make_mesh(n_seq=world)
-        bounds = [(sum(SLAB_ROWS[:r]), sum(SLAB_ROWS[:r + 1]))
-                  for r in range(world)]
-        rec["slab_layers"] = slab_layers(Rows(bounds, mesh.s,
+        rec["slab_layers"] = slab_layers(Rows(_bounds(SLAB_ROWS), mesh.s,
                                               mesh.seq_group))
     if group == "eight":
         # thin slabs (1 row) between empty ones, halos of 2 and 5 rows
         # reaching past the neighbours, over the whole world of 8
         mesh = parallel.make_mesh(n_seq=world)
-        sizes = [3, 1, 0, 2, 1, 0, 4, 0]
-        bounds = [(sum(sizes[:r]), sum(sizes[:r + 1])) for r in range(8)]
-        rec["exchanges_exact"] = exchanges_exact(
-            Rows(bounds, mesh.s, mesh.seq_group))
+        rows = Rows(_bounds(EIGHT_ROWS), mesh.s, mesh.seq_group)
+        rec["exchanges_exact"] = exchanges_exact(rows)
+        rec["exchange_record"] = exchange_record(rows)
+    if group == "three":
+        # an uneven split: a 1-row slab between two, halos of 3 and 7
+        # rows reaching across it
+        mesh = parallel.make_mesh(n_seq=world)
+        rec["exchange_record"] = exchange_record(
+            Rows(_bounds(THREE_ROWS), mesh.s, mesh.seq_group))
     with open(os.path.join(out, f"{group}_{rank}.json"), "w") as fh:
         json.dump(rec, fh)
     shutdown()

@@ -16,7 +16,12 @@ port's unsharded forward and JAX's, f32.
       the Twins, CNN and UMT encoders;
 (vii) the ValueErrors and NotImplementedErrors;
 (viii) GSA's flash switch on a slab follows the whole grid's tokens;
-(ix)  the kernel wrappers on no rows launch nothing.
+(ix)  the kernel wrappers on no rows launch nothing;
+(x)   the exchanges' forms: every forward's exchanges, recorded, follow
+      ``exchange.traffic`` (halos by point-to-point sends, gathers by
+      all_gather, an all_reduce for sums alone); halos of 1, 3 and 7 rows
+      and gathers on slabs of 5, 1, 2 rows; ``traffic`` against the
+      all_reduce form; the form follows the group's backend.
 
 The thin and empty slabs at 48x64 (JAX's own case) are in
 test_torch_seq_thin.py, the per-frame encoders in
@@ -34,7 +39,8 @@ from streamflow_tpu_torch import parallel
 from streamflow_tpu_torch.config import StreamFlowConfig
 from streamflow_tpu_torch.models import create_model
 from streamflow_tpu_torch.params import load_jax
-from streamflow_tpu_torch.parallel.exchange import Rows, even_split
+from streamflow_tpu_torch.parallel.exchange import (Rows, even_split,
+                                                   traffic)
 from streamflow_tpu_torch.parallel.seq import (SeqPlan, encoder_kind,
                                                encoder_unit, seq_plan)
 
@@ -50,6 +56,11 @@ def runs(tmp_path_factory):
 
 (test_seq_sharded_matches_port_unsharded, test_seq_sharded_matches_jax,
  test_seq_group_ranks_agree_bit_for_bit) = seq.parity_tests(RUNS)
+test_forward_exchanges_follow_the_plan = seq.record_tests(GROUPS)
+(test_halos_and_gathers_match_the_whole_grid,
+ test_exchange_bytes_follow_the_plan,
+ test_no_exchange_goes_through_an_all_reduce) = seq.exchange_tests(
+    "three", worker.THREE_ROWS)
 
 
 def test_mesh_places_ranks_on_the_grid(runs):
@@ -413,3 +424,73 @@ def test_halo_reach_reads_past_the_neighbours():
         (21, 35)]
     assert Rows([(0, 10), (10, 20), (20, 30)], 2, group=object()).reach(
         2) == [(8, 12), (18, 22)]
+
+
+def test_traffic_prices_both_forms():
+    """``traffic`` at the canonical 1/8 grid of 55 rows, R bytes a row:
+    n_seq=2, a 15x15 conv's 7-row halo sends and receives 7 rows, where
+    the all_reduce form's buffer held the 14 rows that either halo reads
+    (2(n-1)/n = 1 of it); the gather sends and receives the other slab's
+    28-row chunk, against the whole 55-row buffer. n_seq=8 (seven of 7
+    rows, one of 6): a middle rank's halo moves 7 rows each way against
+    2(7)/8 of 49 reached rows."""
+    r = 1000
+    two = even_split(55, 2)
+    assert traffic("halo", two, 0, r, 7) == (7 * r, 7 * r, 14 * r)
+    assert traffic("gather", two, 1, r) == (28 * r, 28 * r, 55 * r)
+    assert traffic("sum", two, 0, 8) == (8.0, 8.0, 8.0)
+    eight = even_split(55, 8)
+    assert traffic("halo", eight, 3, r, 7) == (14 * r, 14 * r,
+                                               2 * 7 * 55 * r / 8)
+    assert traffic("halo", eight, 0, r, 7) == (7 * r, 7 * r,
+                                               2 * 7 * 55 * r / 8)
+    # an empty slab sends and receives nothing, and joined the all_reduce
+    assert traffic("halo", [(0, 3), (3, 3), (3, 5)], 1, r, 2) == (
+        0, 0, 2 * 2 * 4 * r / 3)
+    # the buffer was whole int32 words
+    assert traffic("gather", two, 0, 2).old == 112
+
+
+class _Group:
+    """A stand-in for a process group, of the backend ``name``."""
+
+    def __init__(self, name):
+        self.name = name
+
+
+def test_exchange_form_follows_the_backend(monkeypatch):
+    """Gloo: CPU tensors as they are, CUDA tensors staged through the
+    host; NCCL: CUDA tensors as they are, CPU tensors refused; another
+    backend refused: no form is tried after another."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "get_backend", lambda g: g.name)
+    cpu = torch.zeros(2)
+    card = cpu.as_subclass(_Card)
+    rows = {b: Rows([(0, 1), (1, 2)], 0, _Group(b))
+            for b in ("gloo", "nccl", "mpi")}
+    assert rows["gloo"]._staged(cpu) is False
+    assert rows["gloo"]._staged(card) is True
+    assert rows["nccl"]._staged(card) is False
+    for backend, x in (("nccl", cpu), ("mpi", cpu), ("mpi", card)):
+        with pytest.raises(ValueError, match=f"over {backend}"):
+            rows[backend]._staged(x)
+
+
+def test_seq_traffic_prices_records_at_the_width():
+    """tools/seq_traffic.py: a record priced by ``traffic`` with a halo's
+    and a gather's row bytes times the width's ratio, a sum's as it is;
+    a record whose own bytes are not its plan's raises."""
+    from streamflow_tpu_torch.parallel.exchange import Exchange
+    from streamflow_tpu_torch.tools.seq_traffic import priced
+
+    two = tuple(even_split(55, 2))
+    recs = [Exchange("halo", 700, 700, False, 0.0, two, 0, 100, 7),
+            Exchange("gather", 2800, 2800, False, 0.0, two, 0, 100, 1),
+            Exchange("sum", 8.0, 8.0, False, 0.0, two, 0, 8, 1)]
+    assert priced(recs, 8) == {
+        "halo": dict(n=1, sent=5600, received=5600, old=11200.0),
+        "gather": dict(n=1, sent=22400, received=22400, old=44000.0),
+        "sum": dict(n=1, sent=8.0, received=8.0, old=8.0)}
+    with pytest.raises(AssertionError, match="plan"):
+        priced([recs[0]._replace(sent=1)], 1)

@@ -28,3 +28,4 @@ def runs(tmp_path_factory):
 
 (test_seq_sharded_matches_port_unsharded, test_seq_sharded_matches_jax,
  test_seq_group_ranks_agree_bit_for_bit) = seq.parity_tests(RUNS)
+test_forward_exchanges_follow_the_plan = seq.record_tests(GROUPS)

@@ -10,13 +10,18 @@ unsharded forward and JAX's, one case after the other:
 (iii) B=3 over make_mesh(n_data=2, n_seq=4): decoder 2/2/1/1, data
       groups of 2 and 1 rows;
 (iv)  Rows.gather and Rows.halo (2 and 5 rows) on slabs of 3, 1, 0, 2,
-      1, 0, 4, 0 rows keep every bit pattern.
+      1, 0, 4, 0 rows keep every bit pattern; on the same slabs, halos of
+      1, 3 and 7 rows and gathers hold the whole grid's rows, and each
+      rank's bytes sent and received are ``exchange.traffic``'s;
+(v)   every forward's exchanges, recorded, follow the plan: no halo or
+      gather through an all_reduce.
 """
 
 import pytest
 import torch
 
 import _torch_seq as seq
+import _torch_seq_worker as worker
 
 torch.set_num_threads(2)
 GROUPS = ("eight",)
@@ -30,6 +35,11 @@ def runs(tmp_path_factory):
 
 (test_seq_sharded_matches_port_unsharded, test_seq_sharded_matches_jax,
  test_seq_group_ranks_agree_bit_for_bit) = seq.parity_tests(RUNS)
+test_forward_exchanges_follow_the_plan = seq.record_tests(GROUPS)
+(test_halos_and_gathers_match_the_whole_grid,
+ test_exchange_bytes_follow_the_plan,
+ test_no_exchange_goes_through_an_all_reduce) = seq.exchange_tests(
+    "eight", worker.EIGHT_ROWS)
 
 
 @pytest.mark.parametrize("case,rows", [
