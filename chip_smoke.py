@@ -78,8 +78,8 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      input shape) of phase 4's clip in 'auto', 'banded_chain' and
      'banded_mxu_t' (K7's persistent kernel under replay): the replay's
      flows against the eager forward's ('banded_mxu_t' bit for bit); the
-     kernels of one
-     profiled replay, by name, against EXPECTED_LAUNCHES (the Python
+     kernel nodes of the graph a replay runs, read from the graph through
+     the driver API, by name, against EXPECTED_LAUNCHES (the Python
      launch counters count at capture, not at replay); ms/clip eager and
      graphed, each path's device time, idle share and peak memory; for
      'auto' also a KITTI bucket (375x1242 padded in 'kitti' mode to
@@ -252,7 +252,19 @@ Phases, each printed on its own line; any failure raises (exit code != 0):
      bytes; one 1440x2560 run of 'basic' at one iteration, its peak
      memory a rank against the one-process forward's. The kernels are
      checked at the slab shapes of SEQ_PATHS (rank 0 of two, the last
-     rank of 8, rank 0 of 4 under 'twins', 'basic' and UMT).
+     rank of 8, rank 0 of 4 under 'twins', 'basic' and UMT);
+  40. the kernel probes (the JAX package's tools/probe_lookup.py,
+     probe_cmajor_ffn.py, probe_gelu_ffn.py and probe_1080p_fault.py,
+     ported to streamflow_tpu_torch/tools/): K2 under the poly and tanh
+     gelus in all five forms at a fused width (C=384) and on the wide
+     path (1920 -> 2880), f32 and bf16, each against the plain version of
+     its variant with its launch count; the probes' path, a call of each
+     of K1's six work-split modes at 440x1024 and of the C-major FFN pair
+     at C=256 and 384 over 21120 tokens, launches exact, each against its
+     plain version and the mode 'full' bit for bit with production K1;
+     the four tools at PROBE_REPS (ms a mode beside K1's bound; row-major
+     against C-major ms and TFLOP/s; erf, poly and tanh in turns), the
+     1080p probes (P1080_APART each in a process of its own).
 The line before the kernels line gives ms/clip for the six layouts and
 the graphed 'auto'. The line before the last is a JSON object with one
 entry per kernel and path ("inference": phases 3-4, per clip;
@@ -273,6 +285,8 @@ per clip;
 "inference_seq_cnn", "inference_seq_umt": phase 39's SEQ_PATHS, per
 440x1024 clip (448x1024 under UMT; 12 iterations, 'twins' and 'basic' at
 1) at that rank's slabs' shapes;
+"probes": phase 40's counted run (a call of each K1 mode, and of the
+C-major pair at each width);
 "train_step_dp": phase 34 (a)'s
 launches per step, with phase 6's numbers per step; "trainer_dp": phase
 34 (c)'s rank 0 launches over its 2 steps, with phase 6's numbers times
@@ -303,9 +317,9 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 B, T, H, W = 1, 4, 436, 1024
 ITERS = 12
 SEED = 0
-REPS = 5  # timed repetitions, after warm-up
+REPS = 3  # timed repetitions, after warm-up
 # the plain versions' (yardsticks 10-50x slower than their kernels)
-PLAIN_REPS, PLAIN_WARMUP = 2, 1
+PLAIN_REPS, PLAIN_WARMUP = 1, 1
 
 # Tolerances of the kernel-vs-plain checks, elementwise.
 # f32: |kernel - plain| <= 1e-4 + 1e-4 |plain|. Both sides accumulate in
@@ -317,9 +331,9 @@ PLAIN_REPS, PLAIN_WARMUP = 2, 1
 # one ulp of that element (every bf16 reading on an H100 so far is at most
 # one ulp of the output's largest magnitude). The 2^-9 max|plain| term
 # covers a flipped intermediate reaching an output near zero. A wrong tile,
-# mask or rounding point is many ulps.
-F32_TOL = 1e-4
-BF16_ULPS, BF16_FLOOR = 2, 2.0 ** -9
+# mask or rounding point is many ulps. The rule and its constants
+# (F32_TOL, BF16_ULPS, BF16_FLOOR) are tools/common.py::close_err's, which
+# the kernel probes check with too.
 
 # Accuracy guards (phase 5), on the global relative EPE (max EPE /
 # max(1, max |flow_ref|), as bench.py) and the per-pixel p99 of EPE /
@@ -356,6 +370,10 @@ KERNELS = {
                         "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:223"),
     "sk_chain_banded": ("streamflow_tpu_torch/csrc/dw_banded.cu",
                         "streamflow_tpu/ops/pallas/_banded_dw_kernel.py:343"),
+    "corr_lookup_probe": ("streamflow_tpu_torch/csrc/corr_lookup.cu",
+                          "tools/probe_lookup.py:177"),
+    "ffn_pair_cmajor": ("streamflow_tpu_torch/csrc/ffn_pair_cmajor.cu",
+                        "tools/probe_cmajor_ffn.py:62"),
 }
 # the Twins GSA blocks run K3 above this many tokens an image
 # (layers/twins.py)
@@ -599,6 +617,7 @@ TD_DIR = os.path.join(ROOT, "build", "chip_smoke_probe")
 # phase 38: the sweep's specs (440x1024, in turns) and bench_input's short
 # instance (stage 2's crops and batch)
 SWEEP_SPECS = ("default", "dw=banded_chain")
+SWEEP_REPS = 5
 BENCH_INPUT_ARGS = ("--workers", "8", "--nbatches", "6")
 
 # the training shapes (tools/train.py's sintel_kitti stage)
@@ -642,12 +661,6 @@ def chain_inputs(rnd, nb, h, w, c, ks, dt):
     return x, ws, bs
 
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
-# larger of FLOPs / peak rate of its io type and bytes / memory rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-HBM_BYTES_PER_S = 3.35e12
-
-
 def log(msg: str) -> None:
     """Print a line, and keep it in OUT_DIR/chip_smoke.log (the whole
     run's lines, each after the seconds since the process started: a
@@ -667,26 +680,18 @@ def smi() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    import torch
+    """ms a call of ``fn`` by CUDA events (tools/common.py::cuda_ms)."""
+    from streamflow_tpu_torch.tools.common import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return timed(fn, reps, "cuda", warmup)
 
 
 def bound_ms(flops: float, nbytes: float, dt) -> tuple:
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops = flops / PEAK_FLOPS[str(dt)[6:]]
-    t_mem = nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_mem),
-            "operations" if t_ops >= t_mem else "bytes")
+    """(least ms the card could take, "operations" or "bytes"): the H100's
+    peaks of tools/common.py::bound_ms."""
+    from streamflow_tpu_torch.tools.common import bound_ms as bound
+
+    return bound(flops, nbytes, dt)
 
 
 def nbytes(*ts) -> int:
@@ -701,35 +706,25 @@ def init_weights(model, seed: int) -> None:
     init(model, seed)
 
 
-def bf16_ulp(x):
-    """Spacing of bf16 numbers at |x| (8 significant bits)."""
-    import torch
-
-    e = torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126)))
-    return torch.exp2(e - 7)
-
-
 # ---------------------------------------------------------------- phase 3
 def check_close(label, got, want, dt) -> float:
     """Elementwise check of a kernel output against its plain version
-    (F32_TOL / the bf16 ulp rule); returns the max abs error."""
+    (tools/common.py::close_err: F32_TOL / the bf16 ulp rule); returns the
+    max abs error."""
     import torch
+    from streamflow_tpu_torch.tools.common import (BF16_ULPS, F32_TOL,
+                                                   bf16_ulp, close_err)
 
     assert got.shape == want.shape and got.dtype == want.dtype, (
         label, got.shape, want.shape, got.dtype, want.dtype)
-    want_abs = want.float().abs()
-    top = float(want_abs.max())
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
+    top = float(want.float().abs().max())
+    err, ok = close_err(got, want, dt)
     if dt == torch.float32:
-        bound = F32_TOL + F32_TOL * want_abs
         rule = f"atol = rtol = {F32_TOL}"
     else:
-        bound = BF16_ULPS * bf16_ulp(want_abs) + BF16_FLOOR * top
         rule = (f"{BF16_ULPS} ulp + 2^-9 max|plain|; err = "
                 f"{err / float(bf16_ulp(torch.tensor(top))):.3g} ulp of "
                 f"max|plain|")
-    ok = bool((diff <= bound).all()) and math.isfinite(err)
     line = (f"check {label} {str(dt)[6:]}: max_abs_err {err:.3e} "
             f"max_rel_err {err / max(top, 1e-30):.3e} ({rule}; |plain| max "
             f"{top:.3e})")
@@ -765,12 +760,15 @@ def scaled_summary(summary, n):
 
 def add_timing(s, calls, ms, pms, flops, nbytes_, dt, lib_ms=None):
     """Add one case's per-call numbers, times its calls, to summary s."""
+    from streamflow_tpu_torch.tools.common import roofline_ms
+
     b, _ = bound_ms(flops, nbytes_, dt)
+    ops_ms, mem_ms = roofline_ms(flops, nbytes_, dt)
     s["ms"] += calls * ms
     s["plain_ms"] += calls * pms
     s["bound_ms"] += calls * b
-    s["ops_ms"] += calls * 1e3 * flops / PEAK_FLOPS[str(dt)[6:]]
-    s["mem_ms"] += calls * 1e3 * nbytes_ / HBM_BYTES_PER_S
+    s["ops_ms"] += calls * ops_ms
+    s["mem_ms"] += calls * mem_ms
     if lib_ms is not None:
         s["library_ms"] = (s["library_ms"] or 0.0) + calls * lib_ms
     return b
@@ -800,6 +798,7 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
     from streamflow_tpu_torch.ops.kernels import flash_attention as K3
     from streamflow_tpu_torch.ops.kernels import lga_attention as K4
     from streamflow_tpu_torch.tools import kernel_bench as KB
+    from streamflow_tpu_torch.tools.common import roofline_ms
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1267,7 +1266,7 @@ def kernel_checks(dev, summaries, hp, wp, train, batch=1, tails=True):
                     extra = f"; {aside[0]} {cuda_ms(aside[1], REPS):.4f} ms"
                 if kernel in ("dw_chain", "sk_chain_banded"):
                     extra += (f", f32 FMA floor (67 TFLOP/s) "
-                              f"{1e3 * flops / PEAK_FLOPS['float32']:.4f} ms")
+                              f"{roofline_ms(flops, 0, 'float32')[0]:.4f} ms")
                 log(f"time {kernel} [{label}] bf16: kernel {ms:.4f} ms "
                     f"plain {pms:.4f} ms bound {b:.4f} ms ({flops:.4g} "
                     f"FLOP, {io:.4g} B; achieved {flops / ms / 1e9:.1f} "
@@ -1820,6 +1819,8 @@ def backward_checks(dev, summaries, batch=1, zoo=None,
     # saved inputs, so the gradient check tests only the wiring (each
     # gradient reaches its argument; it reads 0); the kernels' numerics are
     # held by the forward checks and by phase 8.
+    from streamflow_tpu_torch.tools.common import F32_TOL
+
     def grad_check(label, fn, plain, inputs):
         for dt in (torch.bfloat16, torch.float32):
             ins = [t.detach().to(t.dtype if name == "coords" else dt)
@@ -2095,7 +2096,7 @@ HIGH_RES = ((1080, 1920), (1440, 2560))
 
 def node_kernel(name: str):
     """The port kernel (a key of KERNELS) of a CUDA kernel's name as the
-    profiler gives it, mangled or not; None for PyTorch's and its
+    profiler or the driver gives it, mangled or not; None for PyTorch's and its
     libraries' kernels. The engine's kernel sk_chain_kernel<P, V> is K8,
     K5 or K6 by its policy P (csrc/sk_chain.cuh); dw_banded_t_kernel is
     K7 (csrc/dw_banded_t.cu). dw_banded_kernel is the f32 body of K6-K8
@@ -2118,35 +2119,21 @@ def node_kernel(name: str):
     return None
 
 
-# throwaway kernels that open a counted call's profile window: its first
-# kernels can go unrecorded even after a traced warm-up (on an H100 one
-# 'auto' replay once lost its first ~50, 4 of them port kernels)
-PROFILE_PAD = 256
+def graph_kernel_counts(fwd):
+    """The kernel nodes of ``fwd``'s one bucket graph (a GraphedForward
+    made with keep_graphs=True; tools/common.py::graph_kernel_nodes), by
+    port kernel ({kernel: count}, the nonzero ones), and the count of the
+    others (PyTorch's and its libraries')."""
+    from streamflow_tpu_torch.tools.common import graph_kernel_nodes
 
-
-def replay_kernel_counts(fn):
-    """Kernels run by one profiled call of ``fn`` (a graph replay), by port
-    kernel ({kernel: count}, the nonzero ones), and the count of all
-    other kernels (PROFILE_PAD tiny PyTorch kernels run first in the same
-    window, so that any it misses at its start are theirs)."""
-    import torch
-
-    from streamflow_tpu_torch.tools.common import device_events, profiled
-
-    pad = torch.zeros(1, device="cuda")
-
-    def padded():
-        for _ in range(PROFILE_PAD):
-            pad.add_(1)
-        fn()
-
+    (bucket,) = fwd.buckets.values()
     counts, other = {}, 0
-    for name, count, _ in device_events(profiled(padded)):
+    for name in graph_kernel_nodes(bucket.graph):
         k = node_kernel(name)
         if k is None:
-            other += count
+            other += 1
         else:
-            counts[k] = counts.get(k, 0) + count
+            counts[k] = counts.get(k, 0) + 1
     return counts, other
 
 
@@ -2172,7 +2159,7 @@ def eager_then_graph(model, imgs, label):
     want = eager()
     ms_e = host_ms(eager, REPS, imgs.device)
     peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
-    fwd = GraphedForward(model, model.cfg.iters)
+    fwd = GraphedForward(model, model.cfg.iters, keep_graphs=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2203,12 +2190,11 @@ def check_nodes(fwd, imgs, dw_impl, expected=None) -> None:
     """One replay of ``fwd``'s bucket of ``imgs`` runs each port kernel as
     many times as the eager forward launches it (LAYOUTS, or
     ``expected``)."""
-    got, other = replay_kernel_counts(lambda: fwd(imgs))
     want = {k: v for k, v in (expected or LAYOUTS[dw_impl][1]).items() if v}
+    got, other = graph_kernel_counts(fwd)
     log(f"graph dw_impl={dw_impl!r} kernel nodes in one replay "
         f"{json.dumps(got)} expected {json.dumps(want)} (and {other} "
-        f"kernels of PyTorch and its libraries, {PROFILE_PAD} of them the "
-        f"window's opening pad)")
+        f"kernels of PyTorch and its libraries; read from the graph)")
     assert got == want, "the graph's kernels differ from the eager launches"
 
 
@@ -2925,18 +2911,18 @@ def raft_forward(dev, name) -> dict:
     ms_e = host_ms(eager, REPS, dev)
     prof_e = profile_device(eager, ms_e[0], f"forward_{name}", host=False)
 
-    fwd = GraphedForward2F(model, RAFT_ITERS)
+    fwd = GraphedForward2F(model, RAFT_ITERS, keep_graphs=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     got = fwd(im1, im2)
     assert torch.equal(got, flow), "the graph's flows differ from eager"
     assert torch.equal(fwd(im1, im2), flow), "a second replay differs"
     peak_g = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-    nodes, other = replay_kernel_counts(lambda: fwd(im1, im2))
     want = {k: v for k, v in expected.items() if v}
+    nodes, other = graph_kernel_counts(fwd)
     log(f"graph 2f {name!r} kernel nodes in one replay {json.dumps(nodes)} "
         f"expected {json.dumps(want)} (and {other} kernels of PyTorch and "
-        f"its libraries)")
+        f"its libraries; read from the graph)")
     assert nodes == want, "the graph's kernels differ from the eager launches"
     ms_g = host_ms(lambda: fwd(im1, im2), REPS, dev)
     prof_g = profile_device(lambda: fwd(im1, im2), ms_g[0],
@@ -4075,7 +4061,7 @@ def tools_phase(dev) -> None:
     from streamflow_tpu_torch.tools import sweep_e2e, trace_e2e
 
     t0 = time.perf_counter()
-    rows = sweep_e2e.main(list(SWEEP_SPECS) + ["--reps", "10"])
+    rows = sweep_e2e.main(list(SWEEP_SPECS) + ["--reps", str(SWEEP_REPS)])
     for r in rows:
         assert math.isfinite(r["ms_per_clip"]) and r["device_ms"] > 0, r
     log("sweep_e2e 440x1024 T=4 12 iterations bf16, graphed, in turns: "
@@ -4149,7 +4135,7 @@ def tools_phase(dev) -> None:
 
 # ---------------------------------------------------------------- phase 39
 SEQ_WORLD = 2            # ranks of the seq group, sharing the card
-SEQ_REPS = 3             # timed sharded forwards a rank, after a warm-up
+SEQ_REPS = 2             # timed sharded forwards a rank, after a warm-up
 SEQ_HIGH = (1440, 2560)
 # f32 against the one-process forward: tests/test_torch_seq.py's bound
 SEQ_RTOL, SEQ_ATOL = 1e-4, 1e-5
@@ -4908,6 +4894,195 @@ def seq_phase(dev, summaries) -> dict:
             "inference_seq_umt": node[0]["zoo"]["umt"]["launches"]}
 
 
+# ---------------------------------------------------------------- phase 40
+# K2's gelu variants at a fused width (the gelu probe's C=384) and on the
+# wide path (UMT's gru, 1920 -> 2880 -> 1920 / 384): (c, hidden, out, rows)
+GELU_WIDTHS = ((384, 576, 384, 2048), (1920, 2880, 384, 512))
+GELU_FORMS = ("ffn_pair_k1", "dwres_pw_ffn_pair", "ffn_pair", "pw_ffn_pair",
+              "ln_ffn_pair")
+PROBE_REPS = 10
+# the 1080p probes run in processes of their own (the rest in this one)
+P1080_APART = ("lookup", "flash_gsa1", "ffn_alone")
+
+
+def k2_form(form, a, gelu, plain=False):
+    """One K2 form (or its plain version) on kernel_bench's named
+    arguments, under a gelu variant."""
+    from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
+    from streamflow_tpu_torch.tools import kernel_bench as KB
+
+    x, w1, b1, w2, b2 = (a[k] for k in ("x", "w1", "b1", "w2", "b2"))
+    if plain:
+        residual, add_res = KB.ffn_flags(form)
+        ln = (a["ln_g"], a["ln_b"]) if "ln_g" in a else None
+        return K2.ffn_pair_plain(x, w1, b1, w2, b2, residual,
+                                 wp=a.get("wp"), bp=a.get("bp"),
+                                 kw=a.get("kw"), kb=a.get("kb"),
+                                 yres=a.get("yres"), db=a.get("db"), ln=ln,
+                                 add_res=add_res, gelu=gelu)
+    if form == "ffn_pair_k1":
+        return K2.ffn_pair_k1(x, w1, b1, w2, b2, a["kw"], a["kb"], gelu=gelu)
+    if form == "dwres_pw_ffn_pair":
+        return K2.dwres_pw_ffn_pair(x, a["yres"], a["db"], a["wp"], a["bp"],
+                                    w1, b1, w2, b2, gelu=gelu)
+    if form == "ffn_pair":
+        return K2.ffn_pair(x, w1, b1, w2, b2, gelu=gelu)
+    if form == "pw_ffn_pair":
+        return K2.pw_ffn_pair(x, a["wp"], a["bp"], w1, b1, w2, b2,
+                              gelu=gelu)
+    return K2.ln_ffn_pair(x, a["ln_g"], a["ln_b"], w1, b1, w2, b2,
+                          gelu=gelu)
+
+
+def gelu_checks(dev) -> None:
+    """K2 under the poly and tanh gelus in each form, at GELU_WIDTHS (the
+    fused kernel and the wide path's launches), f32 and bf16, against the
+    plain version of the same variant; each launch count the form's
+    (wide_launches); the f32 poly and tanh outputs differ from erf's."""
+    import torch
+
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES
+    from streamflow_tpu_torch.ops.kernels import ffn_pair as K2
+    from streamflow_tpu_torch.tools import kernel_bench as KB
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for c, ch, co, rows in GELU_WIDTHS:
+        for form in GELU_FORMS:
+            pw = form in ("pw_ffn_pair", "dwres_pw_ffn_pair")
+            out = co if pw else c
+            if (form == "ln_ffn_pair" and K2._fused_smem(
+                    torch.float32, c, ch, out, False) is None):
+                continue    # ln_ffn_pair takes the fused widths only
+            for dt in (torch.float32, torch.bfloat16):
+                def rnd(*shape, scale=1.0, dt=dt):
+                    return (scale * torch.randn(*shape, generator=g,
+                                                device=dev)).to(dt)
+                a = KB.ffn_inputs(form, rows, c, ch, out, rnd)
+                erf = k2_form(form, a, "erf")
+                for gelu in ("poly", "tanh"):
+                    before = LAUNCHES["ffn_pair"]
+                    got = k2_form(form, a, gelu)
+                    torch.cuda.synchronize()
+                    n = LAUNCHES["ffn_pair"] - before
+                    want = K2.wide_launches(c, ch, out, pw,
+                                            form == "dwres_pw_ffn_pair", dt)
+                    assert n == want, (form, gelu, c, dt, n, want)
+                    check_close(f"ffn_pair [{form} gelu={gelu} "
+                                f"{rows}x{c}-{ch}-{out}, {n} launch"
+                                f"{'es' if n > 1 else ''}]", got,
+                                k2_form(form, a, gelu, plain=True), dt)
+                    if dt == torch.float32:
+                        assert not torch.equal(got, erf), (form, gelu)
+
+
+def probes_phase(dev) -> tuple:
+    """Phase 40, the four kernel probes (tools/probe_*.py): K2's gelu
+    variants (gelu_checks); the probes' main path, one call of each of
+    K1's six work-split modes at 440x1024 (55x128, C=256, bf16) and of
+    the C-major FFN pair at C=256 and 384 over 21120 tokens, with its
+    launches counted and each output held against its plain version
+    (``full`` bit for bit with production K1); the tools themselves at
+    PROBE_REPS (probe_lookup's ms a mode beside K1's bound,
+    probe_cmajor_ffn's row-major against C-major ms and TFLOP/s,
+    probe_gelu_ffn's erf / poly / tanh in turns at 21120x384) and the
+    1080p probes (P1080_APART in processes of their own). Returns the
+    path's launch counts and kernel numbers (each probe kernel's calls of
+    the counted run: a call of each mode, of each width)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from streamflow_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from streamflow_tpu_torch.ops.kernels import ffn_pair_cmajor as KC
+    from streamflow_tpu_torch.ops.kernels.corr_lookup import corr_lookup
+    from streamflow_tpu_torch.ops.kernels.corr_lookup_probe import (
+        corr_lookup_probe, corr_lookup_probe_plain)
+    from streamflow_tpu_torch.tools import (probe_1080p_fault,
+                                            probe_cmajor_ffn, probe_gelu_ffn,
+                                            probe_lookup)
+
+    t0 = time.perf_counter()
+    gelu_checks(dev)
+    log(f"phase 40 K2 gelu variants checked ({time.perf_counter() - t0:.1f}"
+        f" s)")
+
+    f1, levels, coords = probe_lookup.make_inputs(440, 1024, dev)
+    n_tok = 3 * 55 * 128
+    rng = np.random.default_rng(0)
+    cm = [probe_cmajor_ffn.make_inputs(c, n_tok, rng, dev)
+          for c in probe_cmajor_ffn.WIDTHS]
+    cm = [(x.t().contiguous(), *w) for x, *w in cm]
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {m: corr_lookup_probe(f1, levels, coords, m)
+            for m in probe_lookup.ORDER}
+    ys = [KC.ffn_pair_cmajor(*ops, residual=True) for ops in cm]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    expect = dict(dict.fromkeys(KERNELS, 0), corr_lookup_probe=len(outs),
+                  ffn_pair_cmajor=len(ys))
+    assert counts == expect, (counts, expect)
+    s = new_summary()
+    for m, out in outs.items():
+        s["corr_lookup_probe"]["err"] = max(
+            s["corr_lookup_probe"]["err"], check_close(
+                f"corr_lookup_probe [{m} 1x55x128x256]", out,
+                corr_lookup_probe_plain(f1, levels, coords, m),
+                torch.bfloat16))
+    assert torch.equal(outs["full"], corr_lookup(f1, levels, coords)), \
+        "corr_lookup_probe full is not production K1 bit for bit"
+    for ops, y in zip(cm, ys):
+        s["ffn_pair_cmajor"]["err"] = max(
+            s["ffn_pair_cmajor"]["err"], check_close(
+                f"ffn_pair_cmajor [{ops[0].shape[0]}x{n_tok}]", y,
+                KC.ffn_pair_cmajor_plain(*ops, residual=True),
+                torch.bfloat16))
+    log(f"phase 40 probes' path: launches {json.dumps(counts)}; "
+        f"corr_lookup_probe full bit for bit with corr_lookup")
+
+    t0 = time.perf_counter()
+    for r in probe_lookup.main(["--reps", str(PROBE_REPS)]):
+        add_timing(s["corr_lookup_probe"], 1, r["ms"], r["plain_ms"],
+                   r["flops"], r["nbytes"], torch.bfloat16)
+        log(f"probe_lookup {r['mode']}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}, {r['bound_by']}; plain "
+            f"{r['plain_ms']:.4f}) max|err| {r['max_abs_err']:.3e}")
+    for r in probe_cmajor_ffn.main(["--reps", str(PROBE_REPS)]):
+        add_timing(s["ffn_pair_cmajor"], 1, r["ms"], r["plain_ms"],
+                   r["flops"], r["nbytes"], torch.bfloat16, r["library_ms"])
+        rate = {k: r["flops"] / r[k] / 1e9 for k in ("ms_row_major", "ms")}
+        log(f"probe_cmajor_ffn C={r['c']}: row-major "
+            f"{r['ms_row_major']:.4f} ms ({rate['ms_row_major']:.1f} "
+            f"TFLOP/s), C-major {r['ms']:.4f} ms ({rate['ms']:.1f} "
+            f"TFLOP/s), yT vs row-major {r['err_vs_row_major']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ms, composite on the transpose "
+            f"{r['library_ms']:.4f} ms")
+    rows = probe_gelu_ffn.main(["--all", "--reps", str(2 * PROBE_REPS)])
+    log("probe_gelu_ffn 21120x384 dwres_pw_ffn_pair, in turns: " + "; ".join(
+        f"{r['gelu']} {r['ms']:.4f} ms (max|err| vs f32 erf "
+        f"{r['max_abs_err_vs_f32_erf']:.3e})" for r in rows)
+        + f"; bound {rows[0]['bound_ms']:.4f} ms")
+    log(f"phase 40 probe tools ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    a = argparse.Namespace(device="cuda", reps=3, lkp_h=135, lkp_w=240)
+    for name in probe_1080p_fault.PROBES:
+        if name in P1080_APART:
+            rc, tail = probe_1080p_fault.run_subprocess(name, a, timeout=300)
+            assert rc == 0, f"1080p probe {name} failed (rc {rc}): {tail}"
+            log(f"probe_1080p_fault {name} (own process): {tail}")
+        else:
+            r = probe_1080p_fault.run_probe(name, a)
+            log(f"probe_1080p_fault {name}: OK ({r['value']:.5f}) "
+                f"{r['ms']:.4f} ms, max|err| vs plain "
+                f"{r['max_abs_err']:.3e}")
+    log(f"phase 40 1080p probes ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    return counts, s
+
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "streamflow_tpu_torch")):
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
@@ -5038,7 +5213,9 @@ def main() -> None:
     phase(38, "tools", tools_phase, dev)
     counts.update(phase(39, "sequence-sharded forward", seq_phase, dev,
                         summary))
-    log(f"phases 3-39: {time.perf_counter() - t_start:.1f} s after the "
+    counts["probes"], summary["probes"] = phase(40, "probes", probes_phase,
+                                                dev)
+    log(f"phases 3-40: {time.perf_counter() - t_start:.1f} s after the "
         f"build")
     log("ms/clip by SK layout (dw_impl), 440x1024 T=4 12 iterations bf16: "
         + json.dumps({dw: round(v, 3) for dw, v in ms_clip.items()})

@@ -37,8 +37,15 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "sf_ffn_pair": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _P],
-    "sf_ffn_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sf_ffn_prologue": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "sf_ffn_pair_v": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sf_ffn_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sf_ffn_prologue": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sf_corr_lookup_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _P],
+    "sf_ffn_pair_cmajor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
     "sf_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sf_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _P],
@@ -79,7 +86,9 @@ def build(csrc: Path, out_dir: Path, only=None):
     one library under ``out_dir`` and load it with the launchers' argument
     types (``tools/attn_bench.py`` builds another checkout's kernels
     beside this tree's). ``only``: the stems of the ``.cu`` files to
-    compile (default all); the launchers of the others are not bound."""
+    compile (default all); the launchers of the others are not bound,
+    nor, in another checkout's library, the launchers it does not have
+    (those added since)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     digest = _digest(csrc)
     if only is not None:
@@ -122,7 +131,8 @@ def build(csrc: Path, out_dir: Path, only=None):
                 f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
-        if only is not None and not hasattr(lib, name):
+        if ((only is not None or csrc.resolve() != _CSRC)
+                and not hasattr(lib, name)):
             continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -23,11 +23,16 @@ keeps the edge-fused layout that JAX's ``resolve()`` picks on a TPU
 (``xla_cond``: K2 ``ffn_pair_k1``, the depthwise conv alone, K2
 ``dwres_pw_ffn_pair``).
 
+``ffn_gelu`` is the gelu of every K2 call (the SK blocks' and the Twins
+MLPs'), as JAX's model passes it to its FFN kernels: ``'erf'`` or
+``'poly'`` as given, ``'auto'`` the exact ``'erf'`` (JAX resolves
+``'poly'`` only on a TPU, and its model turns a leftover ``'auto'`` into
+``'erf'``); anything else raises (``ffn_gelu_of``).
+
 The other fields that steer the JAX package's TPU kernels are accepted and
 ignored: ``corr_impl``, ``corr_store``, ``attn_impl``, ``lga_impl``,
 ``twins_ffn_fused``, ``lookup_block_q``, ``lookup_unroll``,
-``lookup_f2_major``, ``lookup_rows``, ``scan_unroll``, ``dropout`` and
-``ffn_gelu`` (the port's gelu is always the exact erf, ``torch.erf``).
+``lookup_f2_major``, ``lookup_rows``, ``scan_unroll`` and ``dropout``.
 ``gsa_flash`` is honoured by the Twins encoders and ``remat`` by the
 train-mode forward (each refinement step recomputed in the backward).
 """
@@ -52,6 +57,20 @@ TWINS_ENCODERS = {"twins_csc": (True, "none", False),
 CNN_ENCODERS = ("basic", "resnet18", "mf_basic", "res18_3d")
 
 
+FFN_GELUS = ("erf", "poly")
+
+
+def ffn_gelu_of(cfg) -> str:
+    """The K2 gelu of ``cfg.ffn_gelu``: 'auto' -> 'erf' (JAX's
+    models/streamflow.py::_gelu_of off a TPU), 'erf' and 'poly' as
+    given."""
+    gelu = "erf" if cfg.ffn_gelu == "auto" else cfg.ffn_gelu
+    if gelu not in FFN_GELUS:
+        raise ValueError(f"ffn_gelu must be 'auto' or one of {FFN_GELUS}, "
+                         f"got {cfg.ffn_gelu!r}")
+    return gelu
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamFlowConfig:
     T: int = 4
@@ -69,8 +88,8 @@ class StreamFlowConfig:
     mixed_precision: bool = True
     gsa_flash: bool = False
 
-    # TPU kernel choices: dw_impl picks the SK layout, the rest are
-    # accepted and ignored (remat aside; see above)
+    # TPU kernel choices: dw_impl picks the SK layout and ffn_gelu K2's
+    # gelu, the rest are accepted and ignored (remat aside; see above)
     corr_impl: str = "auto"
     corr_store: str = "auto"
     attn_impl: str = "auto"

@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels: io-type conversion, rounding
-// to the io type at the points where the JAX reference rounds, exact gelu.
+// to the io type at the points where the JAX reference rounds, gelu.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -35,10 +35,39 @@ __device__ __forceinline__ float round_io(float x) {
   return to_f(from_f<T>(x));
 }
 
-// exact (erf) gelu, torch F.gelu / jax.nn.gelu(approximate=False)
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
+// gelu variants (K2's compile-time `gelu` argument, JAX's
+// _ffn_kernel.py _GELUS, and the tanh form its gelu probe names):
+//   kErf  exact, torch F.gelu / jax.nn.gelu(approximate=False)
+//   kPoly JAX's _gelu_poly: erf(z) ~ z p(z^2) with x clipped to +-3 sqrt 2,
+//         p of degree 6 in x^2 / 2 by Horner, no divide (max|err| of erf
+//         4.0e-4)
+//   kTanh 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
+enum Gelu { kErf = 0, kPoly = 1, kTanh = 2 };
+
+template <int G>
+__device__ __forceinline__ float gelu_v(float x) {
+  if constexpr (G == kPoly) {
+    const float lim = 4.24264068711928514640f;  // 3 sqrt 2
+    const float xc = fminf(fmaxf(x, -lim), lim);
+    const float t = xc * xc * 0.5f;
+    float acc = 3.64476874220969839e-06f;
+    acc = acc * t + -1.35030047617407806e-04f;
+    acc = acc * t + 2.10968155734540678e-03f;
+    acc = acc * t + -1.83597971202626026e-02f;
+    acc = acc * t + 9.98778049755993935e-02f;
+    acc = acc * t + -3.67134565174511318e-01f;
+    acc = acc * t + 1.12662306241423282e+00f;
+    return x * 0.5f * (1.0f + xc * 0.70710678118654752440f * acc);
+  } else if constexpr (G == kTanh) {
+    const float u = 0.79788456080286535588f * (x + 0.044715f * x * x * x);
+    return 0.5f * x * (1.0f + tanhf(u));
+  } else {
+    return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
+  }
 }
+
+// exact (erf) gelu, torch F.gelu / jax.nn.gelu(approximate=False)
+__device__ __forceinline__ float gelu(float x) { return gelu_v<kErf>(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -375,6 +404,31 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// A (64 x 16) K-major from shared memory, B (16 x 64) MN-major (its 64
+// columns contiguous, as V's rows in K3): the transpose flag of B set
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

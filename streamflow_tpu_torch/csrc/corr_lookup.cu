@@ -36,6 +36,19 @@
 // their f2 rows from L2 once per tile (1.6 GB a call when every box is
 // the whole level), narrow ones pay each block's setup and combine.
 //
+// Work-split modes (the bf16 body only; tools/probe_lookup.py's variants,
+// launched by sf_corr_lookup_probe, never by the model): a compile-time
+// MODE of the tile kernel, whose kFull instance is the production kernel.
+//   kNoFori   the box is the whole level (no data-dependent bounds);
+//   kL0Only / kL123Only  full work on the kept levels, zeros elsewhere
+//             (the dropped levels' blocks write zeros and stop);
+//   kMmOnly   the planes without tap copies or weights: per query and
+//             level, the sum of every plane value computed for it (its
+//             tile's box, unscaled) in channel 0, zeros elsewhere;
+//   kExOnly   the tap copies and bilinear weights from a constant plane
+//             (1 inside the level, 0 past its last column, as TMA's fill),
+//             no wgmma and no TMA: the lookup of a constant volume.
+//
 // f32 (f32 models only): one warp per query; each lane keeps C/32 features
 // of f1 in registers (16 at most up to C = 512, 24 for the UMT encoder's
 // C = 768), a tap is one coalesced read of the f2 feature row plus a warp
@@ -140,6 +153,8 @@ constexpr int NTH = 128 + 32;         // consumer warpgroup + producer warp
 constexpr int FAR = -(1 << 29);       // window origin of a query that adds
                                       // no tap (off the image or the level)
 
+enum Mode { kFull = 0, kNoFori, kL0Only, kL123Only, kMmOnly, kExOnly };
+
 struct TileArgs {
   int n, c, nl, r, qw;  // queries per pair, channels, levels, radius, and
                         // the width of the raster the 8x8 tiles cut
@@ -180,44 +195,65 @@ __device__ __forceinline__ void wgmma_plane(float (&d)[N / 2], uint64_t da,
 // One plane of N columns at box row h, column x: the stages of its panels
 // (consumed in the producer's order, counted by `it`), then each of this
 // thread's two queries (tile rows warp*16 + g and + 8: window origins qy,
-// qx, taps tq) takes the taps of its window from the accumulators.
+// qx, taps tq) takes the taps of its window from the accumulators (kMmOnly:
+// adds the plane's values of its rows to ms instead; kExOnly: a constant
+// plane, no stages).
 // d[4i + e] holds row g + 8 (e / 2) of the warp's 16, column
 // 8i + 2t + e % 2.
-template <int N>
+template <int N, int MODE>
 __device__ __forceinline__ void plane(const bf16* fa, const bf16* ring,
                                       uint64_t* full, uint64_t* empty,
                                       int& it, int nslab, int h, int x,
                                       const int (&qy)[2], const int (&qx)[2],
                                       float* const (&tq)[2], int kt, int t,
-                                      float scale) {
+                                      float scale, int wl, float (&ms)[2]) {
   constexpr int G = STAGE_COLS / N;  // panels per stage
   float d[N / 2];
-  int prev = -1;
-  for (int p0 = 0; p0 < nslab; p0 += G, ++it) {
-    const int s = it % NS;
-    mbar_wait(&full[s], (it / NS) & 1);
-    const int np = min(G, nslab - p0);
-    wgmma_fence();
-    for (int j = 0; j < np; ++j) {
+  if constexpr (MODE == kExOnly) {
 #pragma unroll
-      for (int kk = 0; kk < PANEL / 16; ++kk) {
-        const uint64_t da =
-            wgmma_desc(fa + (p0 + j) * SLAB + kk * 16, 16, 1024, 1);
-        const uint64_t db = wgmma_desc(
-            ring + s * STAGE + j * N * PANEL + kk * 16, 16, 1024, 1);
-        wgmma_plane<N>(d, da, db, p0 + j > 0 || kk > 0);
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[4 * i + e] = x + 8 * i + 2 * t + (e & 1) < wl ? 1.f : 0.f;
+  } else {
+    int prev = -1;
+    for (int p0 = 0; p0 < nslab; p0 += G, ++it) {
+      const int s = it % NS;
+      mbar_wait(&full[s], (it / NS) & 1);
+      const int np = min(G, nslab - p0);
+      wgmma_fence();
+      for (int j = 0; j < np; ++j) {
+#pragma unroll
+        for (int kk = 0; kk < PANEL / 16; ++kk) {
+          const uint64_t da =
+              wgmma_desc(fa + (p0 + j) * SLAB + kk * 16, 16, 1024, 1);
+          const uint64_t db = wgmma_desc(
+              ring + s * STAGE + j * N * PANEL + kk * 16, 16, 1024, 1);
+          wgmma_plane<N>(d, da, db, p0 + j > 0 || kk > 0);
+        }
       }
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        mbar_arrive(&empty[prev]);
+      }
+      prev = s;
     }
-    wgmma_commit();
-    if (prev >= 0) {
-      wgmma_wait<1>();
-      mbar_arrive(&empty[prev]);
-    }
-    prev = s;
+    wgmma_wait<0>();
+    fence_regs(d);
+    mbar_arrive(&empty[prev]);
   }
-  wgmma_wait<0>();
-  fence_regs(d);
-  mbar_arrive(&empty[prev]);
+  if constexpr (MODE == kMmOnly) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+        s += d[4 * i + 2 * rr] + d[4 * i + 2 * rr + 1];
+      ms[rr] += s;
+    }
+    return;
+  }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int dy = h - qy[rr];
@@ -235,6 +271,7 @@ __device__ __forceinline__ void plane(const bf16* fa, const bf16* ring,
   }
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(NTH, 2)
     corr_lookup_tile_kernel(const __grid_constant__ CUtensorMap t0,
                             const __grid_constant__ CUtensorMap t1,
@@ -270,6 +307,21 @@ __global__ void __launch_bounds__(NTH, 2)
   const int qx0 = tx * TQ + (tid & 7);
   const int qi = (ty * TQ + (tid >> 3)) * a.qw + qx0;
   const bool on = tid < NQ && qx0 < a.qw && qi < a.n;
+  if constexpr (MODE == kL0Only || MODE == kL123Only) {
+    if ((MODE == kL0Only) != (l == 0)) {
+      // a dropped level: its k*k zeros for each of the tile's queries,
+      // consecutive threads on consecutive elements of a query's run
+      const int kk2 = k * k;
+      for (int e = tid; e < NQ * kk2; e += NTH) {
+        const int q = e / kk2, x = tx * TQ + (q & 7);
+        const int row = (ty * TQ + (q >> 3)) * a.qw + x;
+        if (x < a.qw && row < a.n)
+          out[((size_t)b * a.n + row) * (a.nl * kk2) + l * kk2 + e % kk2] =
+              __float2bfloat16_rn(0.f);
+      }
+      return;
+    }
+  }
   float2 pc = make_float2(0.f, 0.f);
   if (on)
     pc = *reinterpret_cast<const float2*>(coords + ((size_t)b * a.n + qi) * 2);
@@ -329,14 +381,20 @@ __global__ void __launch_bounds__(NTH, 2)
     qfx[tid] = fx;
   }
   __syncthreads();
-  const int hlo = box[0], hhi = -box[1], xlo = box[2], xhi = -box[3];
+  int hlo = box[0], hhi = -box[1], xlo = box[2], xhi = -box[3];
+  if constexpr (MODE == kNoFori) {  // the whole level, whatever the data
+    hlo = 0;
+    hhi = hl - 1;
+    xlo = 0;
+    xhi = wl - 1;
+  }
 
   // the warpgroup index, known warp-uniform to the compiler (a divergent
   // role branch would make ptxas serialize the wgmmas)
   if (__shfl_sync(0xffffffffu, tid / 128, 0) == 1) {
     // producer: one thread streams the box's row segments, plane by plane
     // and panel group by panel group, in the consumers' order
-    if (tid == 128 && hlo <= hhi) {
+    if (tid == 128 && hlo <= hhi && MODE != kExOnly) {
       const CUtensorMap* tm = l == 0 ? &t0 : l == 1 ? &t1 : l == 2 ? &t2 : &t3;
       int it = 0;
       for (int h = hlo; h <= hhi; ++h)
@@ -372,20 +430,29 @@ __global__ void __launch_bounds__(NTH, 2)
   fence_async_smem();  // the f1 tile, written by this proxy, read by wgmma
   bar_sync(1, 128);
   int it = 0;
+  float ms[2] = {0.f, 0.f};  // kMmOnly: this thread's part of its rows' sums
   for (int h = hlo; h <= hhi; ++h)
     for (int x = xlo; x <= xhi;) {
       const int nc = plane_cols(xhi - x + 1);
       if (nc == 128)
-        plane<128>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq, kt, t,
-                   a.scale);
+        plane<128, MODE>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq,
+                         kt, t, a.scale, wl, ms);
       else if (nc == 64)
-        plane<64>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq, kt, t,
-                  a.scale);
+        plane<64, MODE>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq,
+                        kt, t, a.scale, wl, ms);
       else
-        plane<32>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq, kt, t,
-                  a.scale);
+        plane<32, MODE>(fa, ring, full, empty, it, nslab, h, x, qy, qx, tq,
+                        kt, t, a.scale, wl, ms);
       x += nc;
     }
+  if constexpr (MODE == kMmOnly) {  // a row's sum over its quad's threads
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      ms[rr] += __shfl_xor_sync(0xffffffffu, ms[rr], 1);
+      ms[rr] += __shfl_xor_sync(0xffffffffu, ms[rr], 2);
+      if (t == 0) tq[rr][0] = ms[rr];
+    }
+  }
   bar_sync(1, 128);
 
   // the bilinear combine of each query's taps, in the f32 body's order: a
@@ -407,6 +474,10 @@ __global__ void __launch_bounds__(NTH, 2)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       if (lane + 32 * j >= kk2) continue;
+      if constexpr (MODE == kMmOnly) {
+        dst[lane + 32 * j] = __float2bfloat16_rn(lane + 32 * j ? 0.f : tp[0]);
+        continue;
+      }
       const float* tw = tp + tap[j];
       const float r0 = (1.f - fy) * tw[0] + fy * tw[kt];
       const float r1 = (1.f - fy) * tw[1] + fy * tw[kt + 1];
@@ -415,6 +486,7 @@ __global__ void __launch_bounds__(NTH, 2)
   }
 }
 
+template <int MODE>
 int launch_bf16(const void* f1, const Levels& lv, const float* coords,
                 void* out, int b, int n, int c, int nl, int r, float scale,
                 cudaStream_t s) {
@@ -434,14 +506,14 @@ int launch_bf16(const void* f1, const Levels& lv, const float* coords,
   }
   const int smem = Smem(c).bytes();
   cudaError_t e = cudaFuncSetAttribute(
-      corr_lookup_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      corr_lookup_tile_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   // queries as a raster of level 0's width (the query grid on every path;
   // any raster gives the same result, a coherent one the smallest boxes)
   const int rows = (n + a.qw - 1) / a.qw;
   const dim3 grid(((rows + TQ - 1) / TQ) * ((a.qw + TQ - 1) / TQ), b, nl);
-  corr_lookup_tile_kernel<<<grid, NTH, smem, s>>>(
+  corr_lookup_tile_kernel<MODE><<<grid, NTH, smem, s>>>(
       maps[0], maps[1], maps[2], maps[3], (const bf16*)f1, coords, (bf16*)out,
       a);
   return (int)cudaGetLastError();
@@ -461,7 +533,7 @@ extern "C" int sf_corr_lookup(const void* f1, const void* f2_0,
   if (b * n == 0) return 0;
   Levels lv = {{f2_0, f2_1, f2_2, f2_3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
   if (dtype == sf::kBF16)
-    return launch_bf16(f1, lv, coords, out, b, n, c, nl, r, scale, s);
+    return launch_bf16<kFull>(f1, lv, coords, out, b, n, c, nl, r, scale, s);
   const int grid = (b * n + WARPS - 1) / WARPS;
   if (c <= 512)
     corr_lookup_kernel<16><<<grid, WARPS * 32, 0, s>>>(
@@ -470,4 +542,41 @@ extern "C" int sf_corr_lookup(const void* f1, const void* f2_0,
     corr_lookup_kernel<MAXCPL><<<grid, WARPS * 32, 0, s>>>(
         (const float*)f1, lv, coords, (float*)out, b, n, c, nl, r, scale);
   return (int)cudaGetLastError();
+}
+
+// The bf16 body in one of its work-split modes (Mode: 0 full, 1 nofori, 2
+// l0_only, 3 l123_only, 4 mm_only, 5 ex_only), arguments as
+// sf_corr_lookup's; bf16 only.
+extern "C" int sf_corr_lookup_probe(const void* f1, const void* f2_0,
+                                    const void* f2_1, const void* f2_2,
+                                    const void* f2_3, const float* coords,
+                                    void* out, int b, int n, int c, int nl,
+                                    int h0, int w0, int h1, int w1, int h2,
+                                    int w2, int h3, int w3, int r, int mode,
+                                    float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nl < 1 || nl > MAXL || c % 32 || c / 32 > MAXCPL || r > MAXR || r < 0)
+    return (int)cudaErrorInvalidValue;
+  if (b * n == 0) return 0;
+  Levels lv = {{f2_0, f2_1, f2_2, f2_3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
+  switch (mode) {
+    case kFull:
+      return launch_bf16<kFull>(f1, lv, coords, out, b, n, c, nl, r, scale, s);
+    case kNoFori:
+      return launch_bf16<kNoFori>(f1, lv, coords, out, b, n, c, nl, r, scale,
+                                  s);
+    case kL0Only:
+      return launch_bf16<kL0Only>(f1, lv, coords, out, b, n, c, nl, r, scale,
+                                  s);
+    case kL123Only:
+      return launch_bf16<kL123Only>(f1, lv, coords, out, b, n, c, nl, r,
+                                    scale, s);
+    case kMmOnly:
+      return launch_bf16<kMmOnly>(f1, lv, coords, out, b, n, c, nl, r, scale,
+                                  s);
+    case kExOnly:
+      return launch_bf16<kExOnly>(f1, lv, coords, out, b, n, c, nl, r, scale,
+                                  s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -67,11 +67,15 @@ class GraphedForward:
 
     A model on the CPU runs eagerly with the same API. On the card a capture
     that fails raises, naming the bucket; nothing falls back to eager.
+    ``keep_graphs`` keeps each bucket's cudaGraph_t beside its executable
+    (torch's ``keep_graph``), so that its nodes can be read
+    (tools/common.py::graph_kernel_nodes).
     """
 
-    def __init__(self, model, iters: int):
+    def __init__(self, model, iters: int, keep_graphs: bool = False):
         self.model = model
         self.iters = iters
+        self.keep_graphs = keep_graphs
         self.device = next(model.parameters()).device
         self.buckets: Dict[tuple, _Bucket] = {}
         self._pool = None
@@ -111,10 +115,12 @@ class GraphedForward:
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 out = self._forward(x, fi)
+            if self.keep_graphs:
+                graph.instantiate()
         except RuntimeError as e:
             raise RuntimeError(
                 f"GraphedForward: capture of bucket (shape, dtype, device, "

@@ -64,9 +64,11 @@ def _ffn(c_in: int, hidden: int, out: int) -> nn.Sequential:
 
 class SKBlock(nn.Module):
     def __init__(self, c_in: int, out_dim: int,
-                 k_conv: Sequence[int] = (1, 15), dw_impl: str = "auto"):
+                 k_conv: Sequence[int] = (1, 15), dw_impl: str = "auto",
+                 gelu: str = "erf"):
         super().__init__()
         hidden = int(1.5 * c_in)
+        self.gelu = gelu    # K2's gelu variant (config.ffn_gelu_of)
         self.k_conv = tuple(k_conv)
         # rows the block reaches across an edge of its input (its convs
         # in sequence)
@@ -105,7 +107,8 @@ class SKBlock(nn.Module):
         f1a, f1b, f2a, f2b = (self.ffn1[0], self.ffn1[2], self.ffn2[0],
                               self.ffn2[2])
         if self.layout != "edge":
-            x = ffn_pair(x.contiguous(), w(f1a), b(f1a), w(f1b), b(f1b))
+            x = ffn_pair(x.contiguous(), w(f1a), b(f1a), w(f1b), b(f1b),
+                         gelu=self.gelu)
             ws = tuple(cast(m.weight, x) for m in self.conv_list)
             bs = tuple(b(m) for m in self.conv_list)
             if self.layout == "pallas":
@@ -118,11 +121,12 @@ class SKBlock(nn.Module):
                     y = x * wk.reshape(-1) + bk if k == 1 else conv(x, wk, bk)
                     x = gelu(x + y)
             return pw_ffn_pair(x, w(self.pw), b(self.pw), w(f2a), b(f2a),
-                               w(f2b), b(f2b))
+                               w(f2b), b(f2b), gelu=self.gelu)
 
         k1, dw = self.conv_list
         x = ffn_pair_k1(x.contiguous(), w(f1a), b(f1a), w(f1b), b(f1b),
-                        cast(k1.weight.reshape(-1), x), b(k1))
+                        cast(k1.weight.reshape(-1), x), b(k1),
+                        gelu=self.gelu)
         y = x.permute(0, 3, 1, 2)
         if dw.kernel_size[0] > 7:
             # cuDNN's bf16 depthwise kxk is several times faster on NCHW
@@ -134,4 +138,5 @@ class SKBlock(nn.Module):
                      dw.groups)
         y = y.permute(0, 2, 3, 1).contiguous()
         return dwres_pw_ffn_pair(x, y, b(dw), w(self.pw), b(self.pw),
-                                 w(f2a), b(f2a), w(f2b), b(f2b))
+                                 w(f2a), b(f2a), w(f2b), b(f2b),
+                                 gelu=self.gelu)

@@ -170,9 +170,11 @@ class TwinsBlock(nn.Module):
     frames)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: int = 4,
-                 sr_ratio: int = 1, ws=None, temporal: str = "none"):
+                 sr_ratio: int = 1, ws=None, temporal: str = "none",
+                 gelu: str = "erf"):
         super().__init__()
         self.temporal = temporal
+        self.gelu = gelu    # K2's gelu variant (config.ffn_gelu_of)
         if temporal == "attn":
             self.norm0 = nn.LayerNorm(dim, eps=1e-5)
             self.temporal_attn = TinyAttention(dim, num_heads)
@@ -217,9 +219,10 @@ class TwinsBlock(nn.Module):
         if self.temporal != "1dconv":
             return ln_ffn_pair(x.contiguous(), *(cast(p, x) for p in (
                 n2.weight, n2.bias, fc1.weight, fc1.bias, fc2.weight,
-                fc2.bias)), add_res=True)
+                fc2.bias)), add_res=True, gelu=self.gelu)
         y = ffn_pair(layer_norm(x, n2).contiguous(), *(cast(p, x) for p in (
-            fc1.weight, fc1.bias, fc2.weight, fc2.bias)), residual=False)
+            fc1.weight, fc1.bias, fc2.weight, fc2.bias)), residual=False,
+            gelu=self.gelu)
         conv = self.temporal_conv
         # (B*N, C, T)
         tok = to_time(y).reshape(bt // t * n, t, c).transpose(1, 2)
@@ -230,7 +233,8 @@ class TwinsBlock(nn.Module):
 
 
 class _SVT(nn.Module):
-    def __init__(self, cfg=SVT_LARGE, in_chans: int = 3, hook: str = "none"):
+    def __init__(self, cfg=SVT_LARGE, in_chans: int = 3, hook: str = "none",
+                 gelu: str = "erf"):
         super().__init__()
         dims = cfg["embed_dims"]
         self.patch_embeds = nn.ModuleList(
@@ -240,9 +244,11 @@ class _SVT(nn.Module):
         self.blocks = nn.ModuleList(
             nn.ModuleList([
                 TwinsBlock(dims[i], cfg["num_heads"][i], cfg["mlp_ratio"],
-                           cfg["sr_ratios"][i], ws=cfg["ws"], temporal=hook),
+                           cfg["sr_ratios"][i], ws=cfg["ws"], temporal=hook,
+                           gelu=gelu),
                 TwinsBlock(dims[i], cfg["num_heads"][i], cfg["mlp_ratio"],
-                           cfg["sr_ratios"][i], ws=None, temporal=hook)])
+                           cfg["sr_ratios"][i], ws=None, temporal=hook,
+                           gelu=gelu)])
             for i in range(2))
 
 
@@ -255,10 +261,11 @@ class TwinsEncoder(nn.Module):
     ``temporal_conv`` over (T, H, W) added to the output."""
 
     def __init__(self, gsa_flash: bool = False, temporal: bool = True,
-                 hook: str = "none", conv3d: bool = False):
+                 hook: str = "none", conv3d: bool = False,
+                 gelu: str = "erf"):
         super().__init__()
         self.gsa_flash, self.temporal = gsa_flash, temporal
-        self.svt = _SVT(hook=hook)
+        self.svt = _SVT(hook=hook, gelu=gelu)
         self.hook = hook
         if conv3d:
             dim = SVT_LARGE["embed_dims"][-1]

@@ -44,13 +44,14 @@ class SKMotionEncoder6(nn.Module):
     concat -> SK(out_dim - 2); concat flow -> out_dim channels."""
 
     def __init__(self, corr_planes: int = 324, out_dim: int = 128,
-                 k_conv: Sequence[int] = (1, 15), dw_impl: str = "auto"):
+                 k_conv: Sequence[int] = (1, 15), dw_impl: str = "auto",
+                 gelu: str = "erf"):
         super().__init__()
-        self.convc1 = SKBlock(corr_planes, 256, k_conv, dw_impl)
-        self.convc2 = SKBlock(256, 192, k_conv, dw_impl)
+        self.convc1 = SKBlock(corr_planes, 256, k_conv, dw_impl, gelu)
+        self.convc2 = SKBlock(256, 192, k_conv, dw_impl, gelu)
         self.convf1 = nn.Conv2d(2, 128, 1)
-        self.convf2 = SKBlock(128, 64, k_conv, dw_impl)
-        self.conv = SKBlock(192 + 64, out_dim - 2, k_conv, dw_impl)
+        self.convf2 = SKBlock(128, 64, k_conv, dw_impl, gelu)
+        self.conv = SKBlock(192 + 64, out_dim - 2, k_conv, dw_impl, gelu)
 
     def forward(self, flow, corr, rows=None):
         """``rows``: the inputs are that slab of the grid's rows; each SK
@@ -85,20 +86,21 @@ class SKUpdateBlockTAMv3(nn.Module):
                  pc_updater_conv: Sequence[int] = (1, 7), num_heads: int = 1,
                  ratio: int = 8, dw_impl: str = "auto",
                  use_gma: bool = True, joint_flow_head: bool = True,
-                 temporal_zero_init: bool = True):
+                 temporal_zero_init: bool = True, gelu: str = "erf"):
         super().__init__()
         d = embed_dim
         self.num_frames = num_frames
         self.joint_flow_head = joint_flow_head
-        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv, dw_impl)
+        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv, dw_impl,
+                                        gelu)
         self.aggregator = GMAAggregate(d, num_heads, d) if use_gma else None
         self.transformer_block = TemporalLayer(d, temporal_zero_init)
-        self.gru = SKBlock(5 * d, d, pc_updater_conv, dw_impl)
+        self.gru = SKBlock(5 * d, d, pc_updater_conv, dw_impl, gelu)
         if joint_flow_head:
             self.flow_head = SKBlock(num_frames * d, 2 * num_frames, k_conv,
-                                     dw_impl)
+                                     dw_impl, gelu)
         else:
-            self.flow_head = SKBlock(d, 2, k_conv, dw_impl)
+            self.flow_head = SKBlock(d, 2, k_conv, dw_impl, gelu)
         self.mask = mask_head_module(d, ratio)
 
     def forward(self, net, inp, corr, flow, attn, compute_mask: bool = True,
@@ -156,14 +158,14 @@ class SKUpdateBlockAllDecoder(nn.Module):
     def __init__(self, corr_planes: int = 324, embed_dim: int = 128,
                  context_dim: int = 128, k_conv: Sequence[int] = (1, 15),
                  pc_updater_conv: Sequence[int] = (1, 7), num_heads: int = 1,
-                 ratio: int = 8, use_gma: bool = False):
+                 ratio: int = 8, use_gma: bool = False, gelu: str = "erf"):
         super().__init__()
         d = embed_dim
-        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv)
+        self.encoder = SKMotionEncoder6(corr_planes, d, k_conv, gelu=gelu)
         self.aggregator = GMAAggregate(d, num_heads, d) if use_gma else None
         self.gru = SKBlock(d + context_dim + d * (2 if use_gma else 1), d,
-                           pc_updater_conv)
-        self.flow_head = SKBlock(d, 2, k_conv)
+                           pc_updater_conv, gelu=gelu)
+        self.flow_head = SKBlock(d, 2, k_conv, gelu=gelu)
         self.mask = mask_head_module(d, ratio)
 
     def forward(self, net, inp, corr, flow, attn=None,

@@ -44,7 +44,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from streamflow_tpu_torch.config import (CNN_ENCODERS, TWINS_ENCODERS,
-                                         StreamFlowConfig)
+                                         StreamFlowConfig, ffn_gelu_of)
 from streamflow_tpu_torch.layers.basic_encoder import (PerFrameBasicEncoder,
                                                        Res18_3D)
 from streamflow_tpu_torch.layers.gma import GMAAttention
@@ -64,7 +64,8 @@ def make_encoder(cfg: StreamFlowConfig, norm_fn: str) -> nn.Module:
     or (B, T, H/16, W/16, 768) for UMT; ``norm_fn`` reaches the CNN
     encoders ('instance' for the fnet, 'batch' for the cnet)."""
     if cfg.encoder in TWINS_ENCODERS:
-        return TwinsEncoder(cfg.gsa_flash, *TWINS_ENCODERS[cfg.encoder])
+        return TwinsEncoder(cfg.gsa_flash, *TWINS_ENCODERS[cfg.encoder],
+                            gelu=ffn_gelu_of(cfg))
     if cfg.encoder == "res18_3d":
         return Res18_3D(256, norm_fn)
     if cfg.encoder in CNN_ENCODERS:
@@ -100,7 +101,8 @@ class StreamFlow(nn.Module):
             cfg.pc_updater_conv, cfg.num_heads, cfg.ratio, cfg.dw_impl,
             use_gma=cfg.use_gma,
             joint_flow_head=cfg.update_block != "sk_tam_v1",
-            temporal_zero_init=cfg.update_block != "sk_tam_v3_noinit")
+            temporal_zero_init=cfg.update_block != "sk_tam_v3_noinit",
+            gelu=ffn_gelu_of(cfg))
 
     def forward(self, images, iters=None, flow_init=None,
                 test_mode: bool = False, train: bool = False):

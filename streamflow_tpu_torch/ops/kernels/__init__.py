@@ -4,7 +4,10 @@ runs the kernel's plain PyTorch version for CPU tensors; there is no other
 path between the two.
 
 ``LAUNCHES`` counts, per kernel, the launches made through the wrappers
-(plain-version calls are not counted); ``reset_launches`` zeroes it.
+(plain-version calls are not counted); ``reset_launches`` zeroes it. The
+last two, K1's work-split modes (``corr_lookup_probe``) and the
+channel-major FFN pair (``ffn_pair_cmajor``), run in the probe tools
+only.
 
 Gradients: K3 has a backward kernel of its own (B5, in
 ``flash_attention``). K1, K2 and K4-K8 differentiate like the JAX
@@ -19,7 +22,8 @@ import torch
 
 LAUNCHES = {"corr_lookup": 0, "ffn_pair": 0, "flash_attention": 0,
             "flash_attention_bwd": 0, "lga_attention": 0, "dw_chain": 0,
-            "dw_banded_mxu": 0, "dw_banded_mxu_t": 0, "sk_chain_banded": 0}
+            "dw_banded_mxu": 0, "dw_banded_mxu_t": 0, "sk_chain_banded": 0,
+            "corr_lookup_probe": 0, "ffn_pair_cmajor": 0}
 
 
 def reset_launches() -> None:

@@ -36,6 +36,15 @@ zero columns (convc1's 324 and 486 only).
 The plain version is a port of ``ffn_pair_xla``: the same stages, rounded
 to the io type at the same points, products accumulated in f32.
 
+Every form takes JAX's ``gelu`` argument (``_ffn_kernel.py:40-59``,
+``_GELUS``): ``"erf"`` (the exact gelu, the default), ``"poly"`` (JAX's
+``_gelu_poly``, which ``StreamFlowConfig.ffn_gelu="poly"`` selects) or
+``"tanh"`` (the tanh approximation, which only the gelu probe runs). The
+kernel takes it as a compile-time variant of every gelu it computes (the
+prologue's, the pw stage's, the hidden layer's, the residual's and k1's,
+on the fused and the wide path); the plain version and the backward
+compute the same variant.
+
 Gradients to every tensor argument, as the JAX package's custom_vjp of
 each Pallas form (``_ffn_kernel.py:319-450``, backward through
 ``ffn_pair_xla``): the forward is the kernel, the backward is autograd of
@@ -46,6 +55,8 @@ plain version standing in for a kernel.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -54,6 +65,39 @@ from streamflow_tpu_torch.ops.kernels import LAUNCHES, with_composite_vjp
 
 _SMEM_MAX = 232448        # bytes of shared memory a block may use
 _MAX_OUT = 640            # widest output the bf16 kernel takes
+
+
+# erf(z) ~ z p(z^2) on [0, 3], saturating outside: JAX's _ERF_POLY
+# (streamflow_tpu/ops/pallas/_ffn_kernel.py:40-46), max|err| 4.0e-4
+_ERF_POLY = (3.64476874220969839e-06, -1.35030047617407806e-04,
+             2.10968155734540678e-03, -1.83597971202626026e-02,
+             9.98778049755993935e-02, -3.67134565174511318e-01,
+             1.12662306241423282e+00)
+# the kernel's code of each variant (csrc/common.cuh's Gelu)
+GELU_CODES = {"erf": 0, "poly": 1, "tanh": 2}
+
+
+def gelu_poly(x):
+    """JAX's ``_gelu_poly`` on f32: x clipped to +-3 sqrt 2, the degree-6
+    Horner polynomial in x^2 / 2, no divide."""
+    lim = 3.0 * math.sqrt(2.0)
+    xc = x.clamp(-lim, lim)
+    t = xc * xc * 0.5
+    acc = torch.full_like(t, _ERF_POLY[0])
+    for c in _ERF_POLY[1:]:
+        acc = acc * t + c
+    return x * 0.5 * (1.0 + xc * (1.0 / math.sqrt(2.0)) * acc)
+
+
+GELUS = {"erf": F.gelu, "poly": gelu_poly,
+         "tanh": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def gelu_code(gelu: str) -> int:
+    if gelu not in GELU_CODES:
+        raise ValueError(f"gelu must be one of {tuple(GELU_CODES)}, got "
+                         f"{gelu!r}")
+    return GELU_CODES[gelu]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -123,30 +167,33 @@ def _ln_f32(x, g, b, eps: float = 1e-5):
 
 def ffn_pair_plain(x, w1, b1, w2, b2, residual=True, wp=None, bp=None,
                    kw=None, kb=None, yres=None, db=None, ln=None,
-                   add_res=False):
+                   add_res=False, gelu="erf"):
     """Port of ffn_pair_xla: exact math of the kernel. Weights (out, in)."""
+    gelu_code(gelu)          # raises on an unknown variant
+    act = GELUS[gelu]
     dt = x.dtype
     x_raw = x
     if ln is not None:
         x = _ln_f32(x, ln[0], ln[1]).to(dt)
     if yres is not None:
-        x = F.gelu(x.float() + yres.float() + db.float()).to(dt)
+        x = act(x.float() + yres.float() + db.float()).to(dt)
     if wp is not None:
         p = x.float() @ wp.float().t()
-        x = F.gelu(x.float() + p + bp.float()).to(dt)
-    h = F.gelu(x.float() @ w1.float().t() + b1.float()).to(dt)
+        x = act(x.float() + p + bp.float()).to(dt)
+    h = act(x.float() @ w1.float().t() + b1.float()).to(dt)
     y = h.float() @ w2.float().t() + b2.float()
     if residual:
-        y = F.gelu(x.float() + y)
+        y = act(x.float() + y)
     if kw is not None:
-        y = F.gelu(y + y * kw.float() + kb.float())
+        y = act(y + y * kw.float() + kb.float())
     if add_res:
         y = y + x_raw.float()
     return y.to(dt)
 
 
 def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
-            yres=None, db=None, ln_g=None, ln_b=None, add_res=False):
+            yres=None, db=None, ln_g=None, ln_b=None, add_res=False,
+            gelu="erf"):
     c = x.shape[-1]
     ch, co = w1.shape[0], w2.shape[0]
     n = x.numel() // c
@@ -172,7 +219,7 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
             raise ValueError(f"ln_ffn_pair takes the fused tile's widths "
                              f"only, got C={c}, hidden={ch}, out={co}")
         return _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb,
-                            yres, db)
+                            yres, db, gelu)
     if dt == torch.bfloat16:
         w1, w2 = _tma_rows(w1), _tma_rows(w2)
         wp = None if wp is None else _tma_rows(wp)
@@ -183,16 +230,18 @@ def _launch(x, w1, b1, w2, b2, residual, wp=None, bp=None, kw=None, kb=None,
     out = torch.empty(*x.shape[:-1], co, dtype=dt, device=x.device)
     p = _build.ptr
     lib = _build.library()
-    code = lib.sf_ffn_pair(
+    code = lib.sf_ffn_pair_v(
         p(x), p(yres), p(db), p(ln_g), p(ln_b), p(wp), p(bp), p(w1), p(b1),
         p(w2), p(b2), p(kw), p(kb), p(out), n, c, ch, co, int(residual),
-        int(add_res), _build.dtype_code(dt), _build.stream_of(x))
+        int(add_res), _build.dtype_code(dt), gelu_code(gelu),
+        _build.stream_of(x))
     _build.check(code, "ffn_pair")
     LAUNCHES["ffn_pair"] += 1
     return out
 
 
-def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db):
+def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db,
+                 gelu):
     """The wide path: one launch per stage (csrc/ffn_pair.cu), each
     intermediate in device memory in the io type."""
     c = x.shape[-1]
@@ -207,13 +256,14 @@ def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db):
         raise ValueError("ffn_pair needs 16-byte aligned x and weights")
     lib, p = _build.library(), _build.ptr
     code, stream = _build.dtype_code(dt), _build.stream_of(x)
+    g = gelu_code(gelu)
     x2 = x.reshape(n, c)
 
     def gemm(a, w, bias, act=False, res=None, kwt=None, kbt=None):
         out = torch.empty(n, w.shape[0], dtype=dt, device=x.device)
         _build.check(lib.sf_ffn_gemm(
             p(a), p(w), p(bias), p(res), p(kwt), p(kbt), p(out), n,
-            w.shape[0], w.shape[1], int(act), code, stream), "ffn_pair")
+            w.shape[0], w.shape[1], int(act), code, g, stream), "ffn_pair")
         LAUNCHES["ffn_pair"] += 1
         return out
 
@@ -221,7 +271,7 @@ def _launch_wide(x, w1, b1, w2, b2, residual, wp, bp, kw, kb, yres, db):
     if yres is not None:                 # x = gelu(x + y_dw + b_dw)
         xs = torch.empty_like(x2)
         _build.check(lib.sf_ffn_prologue(p(x2), p(yres), p(db), p(xs), n, c,
-                                         code, stream), "ffn_pair")
+                                         code, g, stream), "ffn_pair")
         LAUNCHES["ffn_pair"] += 1
     if wp is not None:                   # x = gelu(x + x Wp + bp)
         xs = gemm(xs, wp, bp, res=xs)
@@ -243,47 +293,50 @@ def _run(x, w1, b1, w2, b2, residual, ln=None, **kw):
     return _launch(x, w1, b1, w2, b2, residual, **kw)
 
 
-def ffn_pair(x, w1, b1, w2, b2, residual=True):
+def ffn_pair(x, w1, b1, w2, b2, residual=True, gelu="erf"):
     """[gelu(x +)] gelu(x W1 + b1) W2 + b2."""
     def call(fn):
-        return lambda x, w1, b1, w2, b2: fn(x, w1, b1, w2, b2, residual)
+        return lambda x, w1, b1, w2, b2: fn(x, w1, b1, w2, b2, residual,
+                                            gelu=gelu)
     return with_composite_vjp(call(_run), call(ffn_pair_plain),
                               x, w1, b1, w2, b2)
 
 
-def pw_ffn_pair(x, wp, bp, w1, b1, w2, b2, residual=False):
+def pw_ffn_pair(x, wp, bp, w1, b1, w2, b2, residual=False, gelu="erf"):
     """x' = gelu(x + x Wp + bp); out = [gelu(x' +)] gelu(x' W1 + b1) W2 +
     b2."""
     def call(fn):
         return lambda x, wp, bp, w1, b1, w2, b2: fn(
-            x, w1, b1, w2, b2, residual, wp=wp, bp=bp)
+            x, w1, b1, w2, b2, residual, wp=wp, bp=bp, gelu=gelu)
     return with_composite_vjp(call(_run), call(ffn_pair_plain),
                               x, wp, bp, w1, b1, w2, b2)
 
 
-def ffn_pair_k1(x, w1, b1, w2, b2, kw, kb):
+def ffn_pair_k1(x, w1, b1, w2, b2, kw, kb, gelu="erf"):
     """gelu(y + y*kw + kb) of y = gelu(x + gelu(x W1 + b1) W2 + b2)."""
     def call(fn):
         return lambda x, w1, b1, w2, b2, kw, kb: fn(
-            x, w1, b1, w2, b2, True, kw=kw, kb=kb)
+            x, w1, b1, w2, b2, True, kw=kw, kb=kb, gelu=gelu)
     return with_composite_vjp(call(_run), call(ffn_pair_plain),
                               x, w1, b1, w2, b2, kw, kb)
 
 
-def dwres_pw_ffn_pair(x, y, db, wp, bp, w1, b1, w2, b2):
+def dwres_pw_ffn_pair(x, y, db, wp, bp, w1, b1, w2, b2, gelu="erf"):
     """x' = gelu(x + y + db); x'' = gelu(x' + x' Wp + bp);
     out = gelu(x'' W1 + b1) W2 + b2."""
     def call(fn):
         return lambda x, y, db, wp, bp, w1, b1, w2, b2: fn(
-            x, w1, b1, w2, b2, False, wp=wp, bp=bp, yres=y, db=db)
+            x, w1, b1, w2, b2, False, wp=wp, bp=bp, yres=y, db=db,
+            gelu=gelu)
     return with_composite_vjp(call(_run), call(ffn_pair_plain),
                               x, y, db, wp, bp, w1, b1, w2, b2)
 
 
-def ln_ffn_pair(x, g, be, w1, b1, w2, b2, add_res=True):
+def ln_ffn_pair(x, g, be, w1, b1, w2, b2, add_res=True, gelu="erf"):
     """[x +] gelu(LN(x) W1 + b1) W2 + b2, LN with f32 stats, eps 1e-5."""
     def call(fn):
         return lambda x, g, be, w1, b1, w2, b2: fn(
-            x, w1, b1, w2, b2, False, ln=(g, be), add_res=add_res)
+            x, w1, b1, w2, b2, False, ln=(g, be), add_res=add_res,
+            gelu=gelu)
     return with_composite_vjp(call(_run), call(ffn_pair_plain),
                               x, g, be, w1, b1, w2, b2)

@@ -27,9 +27,10 @@ import torch.nn.functional as F
 from streamflow_tpu_torch import _build
 from streamflow_tpu_torch.ops.kernels import flash_attention as K3
 from streamflow_tpu_torch.ops.kernels import lga_attention as K4
+from streamflow_tpu_torch.tools.common import HBM_BYTES_PER_S as HBM
+from streamflow_tpu_torch.tools.common import PEAK_BF16, close_err, cuda_ms
 
 T = 4
-PEAK_BF16, HBM = 989e12, 3.35e12   # H100 SXM: dense bf16 FLOP/s, bytes/s
 MUFU_PER_CLK_SM = 16               # ex2 per clock per SM
 
 
@@ -59,30 +60,14 @@ def lga_cases(hp, wp):
 
 
 def ulp_check(got, want):
-    """bf16: |got - want| <= 2 ulp(want) + 2^-9 max|want|; f32: 1e-4
-    abs + rel (chip_smoke.py's rule). Returns (ok, max abs err)."""
-    w = want.float()
-    top = float(w.abs().max())
-    diff = (got.float() - w).abs()
-    if got.dtype == torch.float32:
-        bound = 1e-4 + 1e-4 * w.abs()
-    else:
-        e = torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126)))
-        bound = 2 * torch.exp2(e - 7) + 2.0 ** -9 * top
-    err = float(diff.max())
-    return bool((diff <= bound).all()) and math.isfinite(err), err
+    """(ok, max abs err) by chip_smoke.py's rule (tools/common.py::
+    close_err)."""
+    err, ok = close_err(got, want, got.dtype)
+    return ok, err
 
 
 def timed(fn, reps):
-    for _ in range(2):
-        fn()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return cuda_ms(fn, reps, "cuda")
 
 
 def main() -> int:

@@ -2,7 +2,9 @@
 ``chip_smoke.py`` share: the canonical StreamFlow, or a two-frame
 baseline (RAFT, RAFT-GMA, SKFlow), on a device with its weights from an
 npz or from a seed, the relative-EPE guard, host timing, profiling, and
-the card's name and power limit."""
+the card's name and power limit; and what the kernel probes (probe_lookup,
+probe_cmajor_ffn, probe_gelu_ffn, probe_1080p_fault) share: CUDA-event
+timing, the card's peak rates and the kernel-against-plain rule."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,6 +28,18 @@ FLOW_HEAD_SCALE = 2e-3
 # where the measuring tools (probe_bf16, probe_guard, sweep_e2e,
 # trace_e2e) append their results: the repository's chiprun_out/
 RESULTS_DIR = Path(__file__).resolve().parents[2] / "chiprun_out"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): a kernel's bound is the
+# larger of its FLOPs / the peak rate of its io type and its bytes / the
+# memory rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BF16, HBM_BYTES_PER_S = PEAK_FLOPS["bfloat16"], 3.35e12
+
+# a kernel against its plain version: f32 atol = rtol = F32_TOL; bf16
+# BF16_ULPS ulp of the plain value + BF16_FLOOR * max|plain| (the two
+# round to bf16 at the same points)
+F32_TOL = 1e-4
+BF16_ULPS, BF16_FLOOR = 2, 2.0 ** -9
 
 # the CLIs' two-frame --model values (JAX tools/evaluate.py, train_2f.py)
 # -> the registry's names, whose configs are the ones JAX's CLIs build
@@ -229,3 +243,131 @@ def append_results(path, lines) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as fh:
         fh.write("\n".join(lines) + "\n")
+
+
+def roofline_ms(flops: float, nbytes: float,
+                dt="bfloat16") -> Tuple[float, float]:
+    """(ms of ``flops`` at the peak rate of io type ``dt``, a torch dtype
+    or its name; ms of ``nbytes`` at the memory rate)."""
+    name = str(dt).replace("torch.", "")
+    return 1e3 * flops / PEAK_FLOPS[name], 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def bound_ms(flops: float, nbytes: float, dt="bfloat16") -> Tuple[float, str]:
+    """(least ms the card could take for the work, "operations" or
+    "bytes")."""
+    t_ops, t_mem = roofline_ms(flops, nbytes, dt)
+    return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+
+def cuda_ms(fn, reps: int, device, warmup: int = 2) -> Optional[float]:
+    """ms a call of ``fn`` on the card by CUDA events around ``reps`` calls
+    after ``warmup``; None (not measured, ``fn`` not run) on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, device, warmup: int = 2) -> Optional[float]:
+    """ms a call of ``fn`` on the card without the host's launch cost:
+    ``reps`` calls captured in one CUDA graph (after ``warmup`` eager
+    calls), its replay timed by CUDA events; None (not measured) on the
+    CPU. A kernel of a few tens of us launched call by call from Python
+    is timed at the host's pace, not the card's."""
+    if torch.device(device).type != "cuda":
+        return None
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def graph_kernel_nodes(graph) -> List[str]:
+    """The names (the driver's, mangled) of the kernel nodes of ``graph``,
+    a torch.cuda.CUDAGraph captured with ``keep_graph=True``, child graphs
+    included: what each replay launches, read from the graph itself
+    through the driver API (no profiler, whose trace can drop events)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed: CUresult {rc}")
+
+    def walk(g, names):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", g, None, ctypes.byref(n))
+        nodes = (ptr * n.value)()
+        call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+        for node in nodes:
+            node, kind = ptr(node), ctypes.c_int(-1)
+            call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            if kind.value == 5:        # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ptr()
+                call("cuGraphChildGraphNodeGetGraph", node,
+                     ctypes.byref(child))
+                walk(child, names)
+            elif kind.value == 0:      # CU_GRAPH_NODE_TYPE_KERNEL
+                # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes): func at word 0,
+                # kern (a CUkernel, where the launch named one) at word 7
+                params = (ptr * 9)()
+                call("cuGraphKernelNodeGetParams_v2", node, params)
+                name = ctypes.c_char_p()
+                if params[0]:
+                    call("cuFuncGetName", ctypes.byref(name), ptr(params[0]))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name),
+                         ptr(params[7]))
+                names.append(name.value.decode())
+        return names
+
+    return walk(ptr(graph.raw_cuda_graph()), [])
+
+
+def bf16_ulp(x):
+    """Spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().float().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def close_err(got, want, dt=None) -> Tuple[float, bool]:
+    """(max |got - want|, whether every element is within the rule of
+    io type ``dt``, by default ``want``'s): f32 atol = rtol = F32_TOL;
+    else BF16_ULPS ulp of the plain value + BF16_FLOOR * max|plain|."""
+    want_abs = want.float().abs()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    if (want.dtype if dt is None else dt) == torch.float32:
+        bound = F32_TOL + F32_TOL * want_abs
+    else:
+        top = float(want_abs.max()) if want_abs.numel() else 0.0
+        bound = BF16_ULPS * bf16_ulp(want_abs) + BF16_FLOOR * top
+    return err, bool((diff <= bound).all()) and math.isfinite(err)
+
+
+def fmt_ms(ms: Optional[float]) -> str:
+    return "not measured (cpu)" if ms is None else f"{ms:.4f} ms"
