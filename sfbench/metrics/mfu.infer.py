@@ -1,0 +1,13 @@
+"""mfu.infer: the share of the bf16 peak (989 TFLOP/s, every product
+counted against it) that the model's FLOPs make (the plain reference's,
+a request, ``counts/flops.py``): FLOPs / (host seconds a request in the
+untraced rest of the traced run's window x peak), in %. Layer: model
+(the test-mode forward). Moves flows_per_s."""
+
+from sfbench.counts.profile import PEAK_BF16
+
+
+def read(view):
+    if not view.units:
+        return None
+    return 100.0 * view.model_flops / (view.trace.wall_per_unit() * PEAK_BF16)
