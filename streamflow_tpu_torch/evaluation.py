@@ -33,17 +33,22 @@ import torch
 
 from streamflow_tpu_torch.data import mf_datasets
 from streamflow_tpu_torch.ops.padding import InputPadder
+from streamflow_tpu_torch.utils import profiling
+from streamflow_tpu_torch.utils.profiling import span
 
 
 class _Bucket:
     """One input shape's static buffers, graph and outputs (graph None on
-    the CPU, where the forward runs eagerly)."""
+    the CPU, where the forward runs eagerly), and the device spans
+    captured into the graph (``utils.profiling.capturing``)."""
 
-    def __init__(self, graph=None, images=None, flow_init=None, out=None):
+    def __init__(self, graph=None, images=None, flow_init=None, out=None,
+                 spans=None):
         self.graph = graph
         self.images = images
         self.flow_init = flow_init
         self.out = out
+        self.spans = spans
 
 
 class GraphedForward:
@@ -70,6 +75,14 @@ class GraphedForward:
     ``keep_graphs`` keeps each bucket's cudaGraph_t beside its executable
     (torch's ``keep_graph``), so that its nodes can be read
     (tools/common.py::graph_kernel_nodes).
+
+    Spans (``utils.profiling``, while the recorder is on): each call is a
+    ``serve`` unit holding ``serve.copy_in``, ``serve.replay`` and
+    ``serve.copy_out``; a capture adds ``serve.warmup`` and
+    ``serve.capture``. A bucket captured with the recorder on holds the
+    model's device spans as event nodes of its graph, and each call reads
+    the previous replay's before it replays; with the recorder off at the
+    capture the graph is the same, node for node, as without spans.
     """
 
     def __init__(self, model, iters: int, keep_graphs: bool = False):
@@ -86,22 +99,27 @@ class GraphedForward:
 
     def __call__(self, images: torch.Tensor,
                  flow_init: Optional[torch.Tensor] = None):
-        key = (tuple(images.shape), images.dtype, images.device,
-               flow_init is not None, self.iters)
-        bucket = self.buckets.get(key)
-        if bucket is None:
-            bucket = self.buckets[key] = (
-                self._capture(key, images, flow_init)
-                if self.device.type == "cuda" else _Bucket())
-        if bucket.graph is None:
-            return self._forward(images, flow_init)
-        bucket.images.copy_(images)
-        if flow_init is not None:
-            bucket.flow_init.copy_(flow_init)
-        bucket.graph.replay()
-        if isinstance(bucket.out, tuple):
-            return tuple(o.clone() for o in bucket.out)
-        return bucket.out.clone()
+        with span("serve"):
+            key = (tuple(images.shape), images.dtype, images.device,
+                   flow_init is not None, self.iters)
+            bucket = self.buckets.get(key)
+            if bucket is None:
+                bucket = self.buckets[key] = (
+                    self._capture(key, images, flow_init)
+                    if self.device.type == "cuda" else _Bucket())
+            if bucket.graph is None:
+                return self._forward(images, flow_init)
+            with span("serve.copy_in"):
+                bucket.images.copy_(images)
+                if flow_init is not None:
+                    bucket.flow_init.copy_(flow_init)
+            with span("serve.replay"):
+                profiling.replay(bucket.spans)
+                bucket.graph.replay()
+            with span("serve.copy_out"):
+                if isinstance(bucket.out, tuple):
+                    return tuple(o.clone() for o in bucket.out)
+                return bucket.out.clone()
 
     def _capture(self, key, images, flow_init) -> _Bucket:
         dev = self.device
@@ -109,7 +127,7 @@ class GraphedForward:
         fi = None if flow_init is None else flow_init.to(dev, copy=True)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with span("serve.warmup"), torch.cuda.stream(side):
             for _ in range(2):
                 self._forward(x, fi)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -117,15 +135,16 @@ class GraphedForward:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graphs)
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                out = self._forward(x, fi)
+            with span("serve.capture"), profiling.capturing() as spans:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    out = self._forward(x, fi)
             if self.keep_graphs:
                 graph.instantiate()
         except RuntimeError as e:
             raise RuntimeError(
                 f"GraphedForward: capture of bucket (shape, dtype, device, "
                 f"flow_init, iters) = {key} failed: {e}") from e
-        return _Bucket(graph, x, fi, out)
+        return _Bucket(graph, x, fi, out, spans)
 
 
 class GraphedForward2F(GraphedForward):

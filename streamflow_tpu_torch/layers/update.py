@@ -25,6 +25,7 @@ from streamflow_tpu_torch.layers.common import (conv2d, gelu, on_slab,
 from streamflow_tpu_torch.layers.gma import GMAAggregate
 from streamflow_tpu_torch.layers.sk import SKBlock
 from streamflow_tpu_torch.layers.temporal import TemporalLayer
+from streamflow_tpu_torch.utils.profiling import span
 
 
 def mask_head_module(dim: int, ratio: int = 8) -> nn.Sequential:
@@ -123,22 +124,27 @@ class SKUpdateBlockTAMv3(nn.Module):
         def sk(block, x):
             return on_slab(block, x, block.halo, rows)
 
-        mf = self.encoder(flat(flow), flat(corr), rows)
+        card = net.is_cuda
+        with span("update.motion", card):
+            mf = self.encoder(flat(flow), flat(corr), rows)
         mf_all = mf if rows is None else rows.gather(mf, 1)
-        mf_global = (mf if self.aggregator is None
-                     else self.aggregator(attn, mf, mf_all))
-        mf_temporal = self.transformer_block(mf_all.reshape(b, f, -1, w, d))
+        with span("update.gma_temporal", card):
+            mf_global = (mf if self.aggregator is None
+                         else self.aggregator(attn, mf, mf_all))
+            mf_temporal = self.transformer_block(
+                mf_all.reshape(b, f, -1, w, d))
         if rows is not None:
             mf_temporal = mf_temporal[:, :, rows.start:rows.stop]
-        net_f = sk(self.gru, torch.cat(
-            [flat(net), flat(inp), mf, mf_global, flat(mf_temporal)], dim=-1))
-
-        if self.joint_flow_head:
-            joint = net_f.reshape(b, f, h, w, d).permute(0, 2, 3, 1, 4)
-            delta = sk(self.flow_head, joint.reshape(b, h, w, f * d))
-            delta = delta.reshape(b, h, w, f, 2).permute(0, 3, 1, 2, 4)
-        else:
-            delta = sk(self.flow_head, net_f).reshape(b, f, h, w, 2)
+        with span("update.gru_head", card):
+            net_f = sk(self.gru, torch.cat(
+                [flat(net), flat(inp), mf, mf_global, flat(mf_temporal)],
+                dim=-1))
+            if self.joint_flow_head:
+                joint = net_f.reshape(b, f, h, w, d).permute(0, 2, 3, 1, 4)
+                delta = sk(self.flow_head, joint.reshape(b, h, w, f * d))
+                delta = delta.reshape(b, h, w, f, 2).permute(0, 3, 1, 2, 4)
+            else:
+                delta = sk(self.flow_head, net_f).reshape(b, f, h, w, 2)
 
         mask = None
         if compute_mask:

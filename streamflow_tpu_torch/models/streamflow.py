@@ -54,6 +54,7 @@ from streamflow_tpu_torch.layers.update import SKUpdateBlockTAMv3
 from streamflow_tpu_torch.ops.coords import coords_grid
 from streamflow_tpu_torch.ops.kernels.corr_lookup import FusedCorr
 from streamflow_tpu_torch.ops.upsample import convex_upsample
+from streamflow_tpu_torch.utils.profiling import chain, span
 
 UPDATE_BLOCKS = ("sk_tam_v3", "sk_tam_v1", "sk_tam_v3_noinit")
 UMT_DECODER_DIM = 768
@@ -124,17 +125,22 @@ class StreamFlow(nn.Module):
         f = t - 1
         assert t == cfg.T, f"model is configured for T={cfg.T}, got {t}"
 
-        x = (2.0 * (images.float() / 255.0) - 1.0).to(self.dtype)
-        fmaps = self.fnet(x, train)
-        cnets = self.cnet(x[:, :-1], train)
-        h, w, c = fmaps.shape[2:]
-        pyramid = FusedCorr(fmaps[:, :-1].reshape(b * f, h, w, c),
-                            fmaps[:, 1:].reshape(b * f, h, w, c),
-                            cfg.corr_levels, cfg.corr_radius)
-        net, inp = cnets.split(cfg.hidden_dim, dim=-1)
-        net, inp = torch.tanh(net), torch.relu(inp)
-        attn = (None if self.att is None else
-                self.att(inp.reshape(b * f, h, w, cfg.context_dim)))
+        card = images.is_cuda
+        with chain():
+            with span("encode", card):
+                x = (2.0 * (images.float() / 255.0) - 1.0).to(self.dtype)
+                fmaps = self.fnet(x, train)
+                cnets = self.cnet(x[:, :-1], train)
+            h, w, c = fmaps.shape[2:]
+            with span("corr.pyramid", card):
+                pyramid = FusedCorr(fmaps[:, :-1].reshape(b * f, h, w, c),
+                                    fmaps[:, 1:].reshape(b * f, h, w, c),
+                                    cfg.corr_levels, cfg.corr_radius)
+            with span("encode", card):   # the context half, after the pyramid
+                net, inp = cnets.split(cfg.hidden_dim, dim=-1)
+                net, inp = torch.tanh(net), torch.relu(inp)
+                attn = (None if self.att is None else
+                        self.att(inp.reshape(b * f, h, w, cfg.context_dim)))
 
         coords0 = coords_grid(b * f, h, w, images.device).reshape(
             b, f, h, w, 2)
@@ -142,7 +148,8 @@ class StreamFlow(nn.Module):
 
         def step(net, coords1, compute_mask):
             coords1 = coords1.detach()
-            corr = pyramid.lookup(coords1.reshape(b * f, h, w, 2))
+            with span("corr.lookup", card):
+                corr = pyramid.lookup(coords1.reshape(b * f, h, w, 2))
             net, mask, delta = self.update_block(
                 net, inp, corr.reshape(b, f, h, w, -1), coords1 - coords0,
                 attn, compute_mask=compute_mask)
@@ -169,10 +176,11 @@ class StreamFlow(nn.Module):
             return torch.stack(flows)
 
         mask = None
-        for i in range(iters):
-            net, m, coords1 = step(net, coords1, i == iters - 1)
-            if m is not None:
-                mask = m
+        with chain():     # the loop's spans back to back
+            for i in range(iters):
+                net, m, coords1 = step(net, coords1, i == iters - 1)
+                if m is not None:
+                    mask = m
         if mask is None:
             mask = coords1.new_zeros(b, f, h, w, 9 * cfg.ratio ** 2)
         flows = upsample(coords1, mask)

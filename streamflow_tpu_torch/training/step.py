@@ -39,6 +39,7 @@ from streamflow_tpu_torch.training.loss import masked_means, sequence_loss
 from streamflow_tpu_torch.training.optim import (clip_by_global_norm,
                                                  global_norm)
 from streamflow_tpu_torch.training.state import TrainState
+from streamflow_tpu_torch.utils.profiling import span
 
 
 def batch_stats(model) -> List[torch.Tensor]:
@@ -123,25 +124,30 @@ def _stepper(loss_fn, group=None) -> Callable[[TrainState, Dict], Dict]:
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, opt = state.model, state.optimizer
-        if group is not None:
-            sync_batchnorm(model, group)
-        opt.zero_grad(set_to_none=True)
-        loss, sums = loss_fn(model, batch, sums=True)
-        loss.backward()
-        params = [p for p in model.parameters() if p.requires_grad]
-        for p in params:   # a parameter the loss misses still decays
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        loss = loss.detach()
-        if group is not None:
-            loss, sums = _all_reduce(grads, loss, sums, group, buf)
-        norm = global_norm(grads)
-        clip_by_global_norm(grads, state.clip, norm)
-        opt.step()
-        state.scheduler.step()
-        state.step += 1
-        return dict(masked_means(sums), loss=loss, grad_norm=norm)
+        card = batch["images"].is_cuda
+        with span("step"):
+            if group is not None:
+                sync_batchnorm(model, group)
+            with span("step.forward", card):
+                opt.zero_grad(set_to_none=True)
+                loss, sums = loss_fn(model, batch, sums=True)
+            with span("step.backward", card):
+                loss.backward()
+            params = [p for p in model.parameters() if p.requires_grad]
+            for p in params:   # a parameter the loss misses still decays
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            loss = loss.detach()
+            if group is not None:
+                loss, sums = _all_reduce(grads, loss, sums, group, buf)
+            with span("step.optimizer", card):
+                norm = global_norm(grads)
+                clip_by_global_norm(grads, state.clip, norm)
+                opt.step()
+                state.scheduler.step()
+            state.step += 1
+            return dict(masked_means(sums), loss=loss, grad_norm=norm)
 
     step.loss_fn = loss_fn
     return step

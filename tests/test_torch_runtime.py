@@ -12,7 +12,7 @@ CPU.
     that fails (with the compiler's message).
 (e) ``phase_timer`` accumulates per name (with and without ``sync``),
     ``phase_report`` gives totals, counts and means; ``trace_ctx`` writes a
-    Chrome trace.
+    Chrome trace, the program's spans on its timeline.
 (f) ``plot_training_curves`` writes JAX's png files from a
     ``MetricsLogger`` file, and returns [] without one or without
     matplotlib.
@@ -189,11 +189,22 @@ def test_phase_timer_counts_and_reports():
 
 
 def test_trace_ctx_writes_a_chrome_trace(tmp_path):
+    assert not profiling.enabled()
     with profiling.trace_ctx(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with profiling.span("outer"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not profiling.enabled()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {ev.get("name") for ev in trace["traceEvents"]}
     assert "aten::mm" in names
+    # the program's span beside the profiler's events, on their timeline
+    (mm,) = [ev for ev in trace["traceEvents"] if ev.get("name") == "aten::mm"]
+    (outer,) = [ev for ev in trace["traceEvents"]
+                if ev.get("cat") == "program_span"]
+    assert outer["name"] == "outer" and outer["args"]["parent"] is None
+    assert outer["ts"] <= mm["ts"]
+    assert mm["ts"] + mm["dur"] <= outer["ts"] + outer["dur"]
+    profiling.reset()
 
 
 # ------------------------------------------------------------------ (f)
